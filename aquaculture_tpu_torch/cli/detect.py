@@ -1,0 +1,151 @@
+"""Detection CLI of the PyTorch port: images -> YOLO-format label files.
+
+Equivalent of the reference's ``yolov5/detect.py --source ... --save-txt
+--save-conf`` (reference README.md:77) and of ``aquaculture_tpu.cli.detect``.
+Emits one ``<image-stem>.txt`` per image with detections, rows
+``class cx cy w h conf`` normalized to the tile. Runs on the GPU
+(``--device cuda``, the default) unless ``--device cpu`` is given.
+
+    python -m aquaculture_tpu_torch.cli.detect --source DIR --out LABELS/ \\
+        [--weights CKPT_DIR] --variant mt
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+
+from aquaculture_tpu_torch.config import IM_HEIGHT, IM_WIDTH, DetectConfig, resolve_device
+from aquaculture_tpu_torch.data.filenames import encode_tile_name
+from aquaculture_tpu_torch.models.weights import load_jax_params
+from aquaculture_tpu_torch.models.yolov5 import VARIANTS, YoloV5, yolov5_init
+from aquaculture_tpu_torch.pipeline import detect_files
+
+
+def resolve_model_args(
+    weights: str | None,
+    variant_arg: str | None,
+    num_classes_arg: int | None,
+    default_variant: str = "m",
+    default_num_classes: int = 5,
+) -> tuple:
+    """Resolve variant/num_classes: explicit flag > checkpoint metadata >
+    default; a flag that contradicts the checkpoint's saved metadata is an
+    error, not a silent mis-build."""
+    meta: dict = {}
+    if weights and not weights.endswith(".pt") and os.path.isdir(weights):
+        from aquaculture_tpu_torch.utils.checkpoint import load_metadata
+
+        try:
+            meta = load_metadata(weights)
+        except (FileNotFoundError, NotADirectoryError):
+            meta = {}
+    variant = variant_arg or meta.get("variant") or default_variant
+    if meta.get("variant") and variant_arg and variant_arg != meta["variant"]:
+        raise SystemExit(
+            f"--variant {variant_arg} contradicts the checkpoint's saved "
+            f"variant {meta['variant']!r} ({weights})"
+        )
+    num_classes = (
+        int(num_classes_arg)
+        if num_classes_arg is not None
+        else int(meta.get("num_classes") or default_num_classes)
+    )
+    if (
+        meta.get("num_classes")
+        and num_classes_arg is not None
+        and int(num_classes_arg) != int(meta["num_classes"])
+    ):
+        raise SystemExit(
+            f"--num-classes {num_classes_arg} contradicts the checkpoint's "
+            f"saved num_classes {meta['num_classes']} ({weights})"
+        )
+    return variant, num_classes
+
+
+def load_model(weights: str | None, variant: str = "m", num_classes: int = 5) -> YoloV5:
+    """A checkpoint directory of the JAX package's format, or the seed-0
+    random model of ``yolov5_init`` when ``weights`` is None. Weights are
+    BN-folded on load."""
+    if weights and not os.path.exists(weights):
+        raise FileNotFoundError(f"weights not found: {weights}")
+    if weights and weights.endswith(".pt"):
+        raise SystemExit("ultralytics .pt weights are not supported by the port yet; "
+                         "pass a checkpoint directory")
+    if weights:
+        from aquaculture_tpu_torch.utils.checkpoint import load_params
+
+        model, params = YoloV5(variant, num_classes), load_params(weights)
+    else:
+        model, params = yolov5_init(variant, num_classes)
+    return load_jax_params(model, params)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--source", required=True, help="image file, directory, or glob")
+    ap.add_argument("--weights", default=None, help="checkpoint directory (params.npz + treedef.json)")
+    ap.add_argument("--out", required=True, help="directory for label .txt files")
+    ap.add_argument("--variant", default=None, choices=sorted(VARIANTS),
+                    help="(default: the checkpoint's saved variant, else m)")
+    ap.add_argument("--num-classes", type=int, default=None,
+                    help="(default: the checkpoint's saved value, else 5)")
+    ap.add_argument("--conf", type=float, default=0.25)
+    ap.add_argument("--iou", type=float, default=0.45)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--img", type=int, default=640, help="inference size")
+    ap.add_argument("--pre-topk", type=int, default=None,
+                    help="candidate pool cap before suppression (default 1024)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (default; raises without a GPU) or cpu")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    args.variant, args.num_classes = resolve_model_args(
+        args.weights, args.variant, args.num_classes
+    )
+
+    if os.path.isdir(args.source):
+        paths = sorted(
+            p
+            for ext in ("jpeg", "jpg", "png", "tif", "tiff")
+            for p in glob.glob(os.path.join(args.source, f"*.{ext}"))
+        )
+    else:
+        paths = sorted(glob.glob(args.source)) or [args.source]
+
+    model = load_model(args.weights, args.variant, args.num_classes)
+    cfg_kw = dict(img_size=args.img, conf_threshold=args.conf, iou_threshold=args.iou)
+    if args.pre_topk:
+        cfg_kw["pre_nms_topk"] = args.pre_topk
+    cfg = DetectConfig(**cfg_kw)
+    boxes, conf, cls, specs, stats = detect_files(
+        paths, model, cfg, args.batch, tile=IM_WIDTH, device=device,
+    )
+
+    # rows are normalized to the TILE the boxes live in (reference contract:
+    # geocode_results.py:89-99)
+    os.makedirs(args.out, exist_ok=True)
+    per_image: dict = {}
+    for b, c, k, s in zip(boxes, conf, cls, specs):
+        per_image.setdefault(s, []).append((k, b, c))
+    for spec, rows in per_image.items():
+        lines = []
+        for k, b, c in rows:
+            cx = (b[0] + b[2]) / 2 / IM_WIDTH
+            cy = (b[1] + b[3]) / 2 / IM_HEIGHT
+            w = (b[2] - b[0]) / IM_WIDTH
+            h = (b[3] - b[1]) / IM_HEIGHT
+            lines.append(f"{int(k)} {cx:.6f} {cy:.6f} {w:.6f} {h:.6f} {c:.6f}")
+        name = encode_tile_name(spec, extension="txt")
+        with open(os.path.join(args.out, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    print(
+        f"[INFO] {stats.tiles} tiles, {stats.detections} detections, "
+        f"{stats.tiles_per_second:.1f} tiles/s on {device} -> {args.out}"
+    )
+    return stats
+
+
+if __name__ == "__main__":
+    main()

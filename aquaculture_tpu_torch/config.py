@@ -1,0 +1,57 @@
+"""Constants and the detection configuration of the PyTorch port.
+
+A copy of what the port needs from aquaculture_tpu/config.py: the tile
+geometry (reference src/utils.py:17-19), the class names and
+``DetectConfig`` for the argmax-class serving path. The TTA, multi-label
+and training settings arrive with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+IM_WIDTH = 1024            # px of one analysis tile
+IM_HEIGHT = 1024
+
+CLASS_NAMES = (
+    "circle_farm",
+    "square_farm",
+    "triangle_farm",
+    "other_farm",
+    "rectangle_farm",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class DetectConfig:
+    """Inference configuration for the detector: ``detect.py --img 640``
+    with ultralytics' default NMS settings."""
+
+    img_size: int = 640
+    conf_threshold: float = 0.25
+    iou_threshold: float = 0.45
+    max_detections: int = 300       # post-NMS cap (fixed shape)
+    # Pre-NMS candidate cap: the suppression scan is K serial steps.
+    pre_nms_topk: int = 1024
+    class_agnostic: bool = False
+    dtype: str = "bfloat16"
+    # ops.nms.batched_nms backend. 'auto' is the only value: suppression
+    # follows the tensors' device (CUDA -> the hand-written kernel, which
+    # launches or raises; CPU -> the plain PyTorch version).
+    nms_backend: str = "auto"
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on. CUDA is the default; the CPU is
+    used only when asked for. A CUDA request without a GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

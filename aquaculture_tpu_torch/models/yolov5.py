@@ -1,0 +1,271 @@
+"""YOLOv5 detector family (P5: n/s/m/l/x and the lane-aligned mt) as a
+PyTorch module.
+
+Counterpart of aquaculture_tpu/models/yolov5.py: CSPDarknet backbone (6x6/s2
+stem, C3 blocks, SPPF), PANet neck and the anchor-based detect head at
+strides 8/16/32. Inference only: the module holds BN-folded weights, loaded
+from a JAX-package parameter tree by models/weights.py. ``init`` builds the
+same random tree as the JAX package's ``yolov5_init`` from a seed, with
+numpy.
+
+Public layouts are the JAX package's: ``features`` takes NHWC images
+(B, H, W, 3) in [0, 1] and returns NHWC head maps; ``decode`` returns
+(B, N, 5+nc) rows with N ordered (level, y, x, anchor). Inside, tensors are
+NCHW in channels_last memory format.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from aquaculture_tpu_torch.models import layers as L
+
+# depth_multiple, width_multiple per variant (public YOLOv5 scaling table).
+# The P6 family (n6..x6) comes in a later slice of the port.
+VARIANTS: Dict[str, Tuple[float, float]] = {
+    "n": (0.33, 0.25),
+    "s": (0.33, 0.50),
+    "m": (0.67, 0.75),
+    "l": (1.00, 1.00),
+    "x": (1.33, 1.25),
+    # mt: m's depths, channel map from CHANNEL_OVERRIDES (width multiple unused)
+    "mt": (0.67, 0.75),
+}
+
+# Explicit channel maps; a listed variant takes its c1..c5 from here.
+CHANNEL_OVERRIDES: Dict[str, Dict[str, int]] = {
+    "mt": {"c1": 32, "c2": 64, "c3": 256, "c4": 256, "c5": 1024},
+}
+
+# Default COCO anchors per stride level (w, h) in pixels.
+DEFAULT_ANCHORS = (
+    ((10.0, 13.0), (16.0, 30.0), (33.0, 23.0)),      # P3/8
+    ((30.0, 61.0), (62.0, 45.0), (59.0, 119.0)),     # P4/16
+    ((116.0, 90.0), (156.0, 198.0), (373.0, 326.0)),  # P5/32
+)
+STRIDES = (8, 16, 32)
+
+# stride-2 downsample convs of the P5 topology (features' `down`)
+DOWN_LAYERS = ("b1", "b3", "b5", "b7", "n18", "n21")
+
+
+def _make_divisible(c: float, divisor: int = 8) -> int:
+    return max(int(np.ceil(c / divisor) * divisor), divisor)
+
+
+def _width(c: int, wm: float) -> int:
+    return _make_divisible(c * wm) if c != 3 else 3
+
+
+def _depth(n: int, dm: float) -> int:
+    return max(int(round(n * dm)), 1)
+
+
+class HeadConv(nn.Module):
+    """The detect head's 1x1 conv with bias and no activation."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, 1, 1), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+    def forward(self, x):
+        return L.conv2d(x, self.weight) + self.bias.to(x.dtype)[:, None, None]
+
+
+class YoloV5(nn.Module):
+    """P5 YOLOv5 inference model. Parameter names follow the JAX package's
+    tree (``b2.m.0.cv1.weight`` <-> ``b2/m/0/cv1/w``). The stem starts in the
+    fused space-to-depth layout (k3 over 12 channels) and every downsample
+    as k3/s2; models/weights.py may load the other layouts the JAX package
+    stores, and ``features`` dispatches on the stored kernel shape as the
+    JAX package does."""
+
+    def __init__(self, variant: str = "m", num_classes: int = 5, anchors: Sequence | None = None):
+        super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown or unported variant {variant!r}; have {sorted(VARIANTS)}")
+        self.variant = variant
+        self.num_classes = num_classes
+        self.anchor_table = anchors if anchors is not None else DEFAULT_ANCHORS
+        self.strides = STRIDES
+        ch, dp = self.channels(), self.depths()
+        c1, c2, c3, c4, c5 = (ch[f"c{i}"] for i in range(1, 6))
+        n3, n6, n9 = dp["n3"], dp["n6"], dp["n9"]
+        self.b0 = L.ConvBlock(4 * 3, c1, 3)
+        self.b1 = L.ConvBlock(c1, c2, 3)
+        self.b2 = L.C3(c2, c2, n3)
+        self.b3 = L.ConvBlock(c2, c3, 3)
+        self.b4 = L.C3(c3, c3, n6)
+        self.b5 = L.ConvBlock(c3, c4, 3)
+        self.b6 = L.C3(c4, c4, n9)
+        self.b7 = L.ConvBlock(c4, c5, 3)
+        self.b8 = L.C3(c5, c5, n3)
+        self.b9 = L.SPPF(c5, c5)
+        self.n10 = L.ConvBlock(c5, c4, 1)
+        self.n13 = L.C3(2 * c4, c4, n3)
+        self.n14 = L.ConvBlock(c4, c3, 1)
+        self.n17 = L.C3(2 * c3, c3, n3)
+        self.n18 = L.ConvBlock(c3, c3, 3)
+        self.n20 = L.C3(2 * c3, c4, n3)
+        self.n21 = L.ConvBlock(c4, c4, 3)
+        self.n23 = L.C3(2 * c4, c5, n3)
+        self.head = nn.ModuleList(HeadConv(c, self.na * self.no) for c in (c3, c4, c5))
+
+    @property
+    def na(self) -> int:
+        return len(self.anchor_table[0])
+
+    @property
+    def no(self) -> int:
+        return self.num_classes + 5
+
+    def channels(self) -> Dict[str, int]:
+        w = VARIANTS[self.variant][1]
+        ch = {f"c{i}": _width(c, w) for i, c in enumerate((64, 128, 256, 512, 1024), 1)}
+        ch.update(CHANNEL_OVERRIDES.get(self.variant, {}))
+        return ch
+
+    def depths(self) -> Dict[str, int]:
+        d = VARIANTS[self.variant][0]
+        return {"n3": _depth(3, d), "n6": _depth(6, d), "n9": _depth(9, d)}
+
+    # ------------------------------------------------------------------
+    # numpy parameter trees (the JAX package's format)
+    # ------------------------------------------------------------------
+
+    def init(self, seed: int = 0) -> dict:
+        """Unfused random tree, draw for draw the JAX package's
+        ``YoloV5.init(seed)``."""
+        ch, dp = self.channels(), self.depths()
+        rng = np.random.default_rng(seed)
+        return {
+            "b0": L.conv_init(rng, 3, ch["c1"], 6),
+            "b1": L.conv_init(rng, ch["c1"], ch["c2"], 3),
+            "b2": L.c3_init(rng, ch["c2"], ch["c2"], dp["n3"]),
+            "b3": L.conv_init(rng, ch["c2"], ch["c3"], 3),
+            "b4": L.c3_init(rng, ch["c3"], ch["c3"], dp["n6"]),
+            "b5": L.conv_init(rng, ch["c3"], ch["c4"], 3),
+            "b6": L.c3_init(rng, ch["c4"], ch["c4"], dp["n9"]),
+            "b7": L.conv_init(rng, ch["c4"], ch["c5"], 3),
+            "b8": L.c3_init(rng, ch["c5"], ch["c5"], dp["n3"]),
+            "b9": L.sppf_init(rng, ch["c5"], ch["c5"]),
+            "n10": L.conv_init(rng, ch["c5"], ch["c4"], 1),
+            "n13": L.c3_init(rng, 2 * ch["c4"], ch["c4"], dp["n3"]),
+            "n14": L.conv_init(rng, ch["c4"], ch["c3"], 1),
+            "n17": L.c3_init(rng, 2 * ch["c3"], ch["c3"], dp["n3"]),
+            "n18": L.conv_init(rng, ch["c3"], ch["c3"], 3),
+            "n20": L.c3_init(rng, 2 * ch["c3"], ch["c4"], dp["n3"]),
+            "n21": L.conv_init(rng, ch["c4"], ch["c4"], 3),
+            "n23": L.c3_init(rng, 2 * ch["c4"], ch["c5"], dp["n3"]),
+            "head": [
+                {"w": L.he_init(rng, (1, 1, c, self.na * self.no), c),
+                 "b": np.zeros((self.na * self.no,), np.float32)}
+                for c in (ch["c3"], ch["c4"], ch["c5"])
+            ],
+        }
+
+    def fuse(self, params: dict, stem_s2d: bool = True, down_s2d: Sequence[str] = ()) -> dict:
+        """Fold every BN into its conv (numpy, in the leaves' dtype) and
+        apply the exact space-to-depth reparametrizations, as the JAX
+        package's ``YoloV5.fuse`` does."""
+        fused = {name: (p if name == "head" else L.tree_map_fuse(p)) for name, p in params.items()}
+        if stem_s2d and fused["b0"]["w"].shape[0] == 6:
+            fused["b0"] = {**fused["b0"], "w": L.stem_weights_to_s2d(fused["b0"]["w"])}
+        for name in down_s2d:
+            if name not in DOWN_LAYERS:
+                raise ValueError(f"down_s2d: {name!r} is not one of {DOWN_LAYERS}")
+            p = fused[name]
+            if p["w"].shape[0] != 3:
+                raise ValueError(f"down_s2d: layer {name!r} has no k3 kernel")
+            fused[name] = {**p, "w": L.down_weights_to_s2d(p["w"])}
+        return fused
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+
+    def _down(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        # k2 kernel = fuse(down_s2d=...): space-to-depth + k2/s1, (1, 0) pad
+        m = getattr(self, name)
+        if m.weight.shape[-1] == 2:
+            return m(L.space_to_depth2(t), 1, ((1, 0), (1, 0)))
+        return m(t, 2)
+
+    def features(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """(B, H, W, 3) NHWC images in [0, 1] -> per-level raw head maps,
+        each (B, H/s, W/s, na*no) NHWC."""
+        x = x.permute(0, 3, 1, 2)  # NCHW view; channels_last when x is NHWC-contiguous
+        w0 = self.b0.weight
+        if w0.shape[-1] == 3 and w0.shape[1] == 4 * x.shape[1]:
+            y = self.b0(L.space_to_depth2(x), 1, ((1, 1), (1, 1)))
+        else:
+            y = self.b0(x, 2, ((2, 2), (2, 2)))
+        y = self._down("b1", y)
+        y = self.b2(y)
+        y = self._down("b3", y)
+        p3 = self.b4(y)                                   # stride 8
+        y = self._down("b5", p3)
+        p4 = self.b6(y)                                   # stride 16
+        y = self._down("b7", p4)
+        y = self.b8(y)
+        y = self.b9(y)                                    # stride 32
+        t10 = self.n10(y)
+        y = self.n13(torch.cat([L.upsample2x(t10), p4], dim=1), shortcut=False)
+        t14 = self.n14(y)
+        o3 = self.n17(torch.cat([L.upsample2x(t14), p3], dim=1), shortcut=False)
+        y = self._down("n18", o3)
+        o4 = self.n20(torch.cat([y, t14], dim=1), shortcut=False)
+        y = self._down("n21", o4)
+        o5 = self.n23(torch.cat([y, t10], dim=1), shortcut=False)
+        return [h(o).permute(0, 2, 3, 1) for h, o in zip(self.head, (o3, o4, o5))]
+
+    def decode(self, feats: List[torch.Tensor]) -> torch.Tensor:
+        """Raw NHWC head maps -> (B, N, 5+nc) f32 rows [cx, cy, w, h, obj,
+        cls...] in input pixels (public YOLOv5 transform):
+            xy = (2*sigmoid(t_xy) - 0.5 + grid) * stride
+            wh = (2*sigmoid(t_wh))**2 * anchor
+        Rows run (y, x, anchor) within each level, as in the JAX package."""
+        outs = []
+        for f, anchors, stride in zip(feats, self.anchor_table, self.strides):
+            b, h, w, _ = f.shape
+            p = torch.sigmoid(f.reshape(b, h, w, self.na, self.no).float())
+            gy, gx = torch.meshgrid(
+                torch.arange(h, dtype=torch.float32, device=f.device),
+                torch.arange(w, dtype=torch.float32, device=f.device),
+                indexing="ij",
+            )
+            grid = torch.stack([gx, gy], dim=-1)[None, :, :, None, :]     # (1,h,w,1,2)
+            anc = torch.tensor(anchors, dtype=torch.float32, device=f.device)[None, None, None]
+            xy = (p[..., 0:2] * 2.0 - 0.5 + grid) * float(stride)
+            wh = torch.square(p[..., 2:4] * 2.0) * anc
+            out = torch.cat([xy, wh, p[..., 4:]], dim=-1)
+            outs.append(out.reshape(b, h * w * self.na, self.no))
+        return torch.cat(outs, dim=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(self.features(x))
+
+
+def init_detect_biases(model: YoloV5, params: dict, img_size: int = 640, cls_prior: float = 0.01) -> dict:
+    """Ultralytics-style detect bias initialization (the JAX package's
+    expression): obj bias += log(8 / (640/stride)^2), cls bias +=
+    log(prior / (nc - 1))."""
+    new_head = []
+    for hp, stride in zip(params["head"], model.strides):
+        b = np.array(hp["b"]).reshape(model.na, model.no)
+        b[:, 4] += np.log(8.0 / (img_size / stride) ** 2)
+        b[:, 5:] += np.log(cls_prior / max(model.num_classes - 1, 1))
+        new_head.append({"w": hp["w"], "b": np.asarray(b.reshape(-1), np.float32)})
+    return {**params, "head": new_head}
+
+
+def yolov5_init(variant: str = "m", num_classes: int = 5, seed: int = 0):
+    """-> (model, unfused numpy params): the JAX package's ``yolov5_init``
+    tree. Load it with models.weights.load_jax_params."""
+    model = YoloV5(variant=variant, num_classes=num_classes)
+    return model, init_detect_biases(model, model.init(seed))

@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (aquaculture_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and ignored):
+  1. card, torch and nvcc versions;
+  2. build the CUDA kernel(s) from csrc/ with nvcc for sm_90a;
+  3. hold each kernel against its plain PyTorch version on the card, keep
+     masks exactly equal (tolerance 0), over several input suites;
+  4. drive the port's main path, ``aquaculture_tpu_torch.cli.detect.main``
+     on the mt model at 640 px from 1024 px JPEG tiles, with the launch
+     counters zeroed just before and read just after; compare batched_nms
+     through the kernel with the plain path on one batch; compare the
+     card's f32 forward with the CPU's (TF32 off);
+  5. time the serving program (mt, bf16, batch 128), each kernel and its
+     plain version with CUDA events (median of 3 windows after 3 warmups).
+The last lines are the {"kernels": [...]} summary, the card's name and power
+limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
+Imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core f32
+# FLOP/s and dense bf16 tensor-core FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+# f32 operations of one IoU + threshold test (ops/nms.py _iou_matrix):
+# 4 min/max, 2 sub, 2 clamp, 1 mul, 2 add/sub, 1 max, 1 div, 1 compare
+OPS_PER_IOU = 14
+# boxes (16 B) + valid (1 B) read once, keep (1 B) written once
+BYTES_PER_CANDIDATE = 18
+
+SUITES = ("random", "identical", "boundary", "class_offset", "partly_invalid")
+SHAPES = ((1, 1), (3, 128), (2, 300), (128, 1024), (130, 1024), (2, 4096))
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def time_cuda(fn, iters: int, windows: int = 3, warmup: int = 3) -> float:
+    """Median over windows of the mean ms per call, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / iters)
+    return statistics.median(per)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernel vs plain suites
+# ---------------------------------------------------------------------------
+
+def _random_boxes(rng, b, k, size=640.0):
+    cx = rng.uniform(50, size - 50, (b, k))
+    cy = rng.uniform(50, size - 50, (b, k))
+    w = rng.uniform(10, 120, (b, k))
+    h = rng.uniform(10, 120, (b, k))
+    return np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], axis=-1).astype(np.float32)
+
+
+def _boundary_boxes(rng, b, k):
+    """Pairs (base, base shifted right by d) with IoU = (100-d)/(100+d)
+    within a few float32 ulps of 0.45; pairs are stacked 300 px apart in y
+    only, so x keeps d's full precision."""
+    d0 = np.float32(100.0 * 0.55 / 1.45)
+    out = np.zeros((b, k, 4), np.float32)
+    for i in range(k):
+        oy = np.float32(300 * (i // 2))
+        if i % 2 == 0:
+            out[:, i] = [0, oy, 100, oy + 100]
+        else:
+            steps = rng.integers(-6, 7, b)
+            d = np.array([d0] * b, np.float32)
+            for j, s in enumerate(steps):
+                for _ in range(abs(int(s))):
+                    d[j] = np.nextafter(d[j], np.float32(np.inf if s > 0 else -np.inf))
+            out[:, i, 0] = d
+            out[:, i, 1] = oy
+            out[:, i, 2] = np.float32(100) + d
+            out[:, i, 3] = oy + np.float32(100)
+    return out
+
+
+def suite_inputs(kind: str, b: int, k: int, seed: int):
+    rng = np.random.default_rng(seed)
+    valid = np.ones((b, k), bool)
+    if kind == "random":
+        boxes = _random_boxes(rng, b, k)
+        valid = rng.random((b, k)) > 0.1
+    elif kind == "identical":
+        boxes = np.tile(np.asarray([10.0, 10.0, 50.0, 50.0], np.float32), (b, k, 1))
+    elif kind == "boundary":
+        boxes = _boundary_boxes(rng, b, k)
+    elif kind == "class_offset":
+        cls = rng.integers(0, 5, (b, k)).astype(np.float32)
+        boxes = _random_boxes(rng, b, k) + (cls * np.float32(7680.0))[..., None]
+    elif kind == "partly_invalid":
+        boxes = _random_boxes(rng, b, k)
+        valid = rng.random((b, k)) > 0.5
+        valid[:, : k // 2] = False
+    else:
+        raise ValueError(kind)
+    return boxes, valid
+
+
+def check_kernels(dev) -> list:
+    import torch
+
+    from aquaculture_tpu_torch.ops.nms import greedy_suppress_plain
+    from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
+
+    passed = []
+    for si, kind in enumerate(SUITES):
+        for b, k in SHAPES:
+            boxes_np, valid_np = suite_inputs(kind, b, k, seed=1000 * si + k + b)
+            boxes = torch.from_numpy(boxes_np).to(dev)
+            valid = torch.from_numpy(valid_np).to(dev)
+            got = greedy_suppress_cuda(boxes, valid, 0.45)
+            want = greedy_suppress_plain(boxes, valid, 0.45)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                fail(f"nms_suppress != plain on suite {kind} (B={b}, K={k}): {bad} flags differ")
+        passed.append(kind)
+    return passed
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def write_tiles(d: str, n: int = 16, seed: int = 0) -> list:
+    """n seeded 1024 px JPEG tiles named with the tile codec."""
+    from PIL import Image
+
+    from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        img = rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
+        for _ in range(6):  # bright rectangles for structure
+            x, y = rng.integers(0, 900, 2)
+            w, h = rng.integers(30, 120, 2)
+            img[y : y + h, x : x + w] = rng.integers(150, 255, 3, dtype=np.uint8)
+        spec = TileSpec(year=2014, bbox_ind=i // 4, x_offset=1024 * (i % 4), y_offset=0)
+        p = os.path.join(d, encode_tile_name(spec, "jpeg"))
+        Image.fromarray(img).save(p, quality=90)
+        paths.append(p)
+    return paths
+
+
+def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int) -> dict:
+    from aquaculture_tpu_torch.cli import detect as cli_detect
+    from aquaculture_tpu_torch.ops import nms_cuda
+
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    stats = cli_detect.main([
+        "--source", tile_dir, "--out", label_dir, "--variant", "mt",
+        "--batch", str(batch), "--conf", "1e-5",
+    ])
+    seconds = time.perf_counter() - t0
+    launches = {"nms_suppress": nms_cuda.launches}
+
+    n_batches = -(-n_tiles // batch)
+    if launches["nms_suppress"] != n_batches:
+        fail(f"nms_suppress launched {launches['nms_suppress']} times on the main path, "
+             f"expected {n_batches} (one per batch)")
+    labels = sorted(os.listdir(label_dir))
+    if len(labels) != n_tiles:
+        fail(f"{len(labels)} label files for {n_tiles} tiles")
+    rows = 0
+    for name in labels:
+        arr = np.loadtxt(os.path.join(label_dir, name), ndmin=2)
+        if arr.shape[1] != 6 or not np.isfinite(arr).all():
+            fail(f"{name}: malformed rows {arr.shape}")
+        if not ((arr[:, 0] >= 0) & (arr[:, 0] < 5)).all() or not (arr[:, 5] > 0).all():
+            fail(f"{name}: class or confidence out of range")
+        rows += len(arr)
+    return {"launches": launches, "seconds": seconds, "label_files": len(labels),
+            "rows": rows, "tiles": stats.tiles, "batches": stats.batches}
+
+
+def check_nms_paths(paths: list, dev) -> dict:
+    """batched_nms through the kernel vs the plain suppression, same
+    candidates, on one batch of the main path's tiles (mt, bf16)."""
+    import torch
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.data.loader import tile_batches
+    from aquaculture_tpu_torch.ops import nms as N
+    from aquaculture_tpu_torch.pipeline import preprocess
+
+    model = load_model(None, "mt", 5).to(dev, torch.bfloat16, memory_format=torch.channels_last).eval()
+    batch = next(iter(tile_batches(paths[:8], batch_size=8)))
+    with torch.inference_mode():
+        preds = model(preprocess(batch.images.to(dev), 640, torch.bfloat16))
+        det_k, val_k = N.batched_nms(preds, conf_thresh=1e-5)
+        boxes, nms_boxes, scores, cls, valid = N._prepare_candidates(preds, 1e-5, 1024, False)
+        keep = N.greedy_suppress_plain(nms_boxes, valid, 0.45)
+        det_p, val_p = N._compact(boxes, cls, scores, keep, 300)
+    torch.cuda.synchronize()
+    if not torch.equal(val_k, val_p):
+        fail("batched_nms masks differ between kernel and plain suppression")
+    if not torch.equal(det_k, det_p):
+        fail("batched_nms det rows differ between kernel and plain suppression")
+    if not torch.isfinite(preds).all():
+        fail("non-finite predictions")
+    return {"valid_candidates": int(valid.sum()), "kept": int(val_k.sum())}
+
+
+def check_m_builds(dev) -> dict:
+    """m (depth 0.67, width 0.75) builds from the same code and runs at 640."""
+    import torch
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+
+    model = load_model(None, "m", 5).to(dev, torch.bfloat16, memory_format=torch.channels_last).eval()
+    with torch.inference_mode():
+        preds = model(torch.rand((2, 640, 640, 3), device=dev).to(torch.bfloat16))
+    if preds.shape != (2, 25_200, 10) or not torch.isfinite(preds).all():
+        fail(f"m forward: shape {tuple(preds.shape)} or non-finite values")
+    return {"variant": "m", "shape": list(preds.shape)}
+
+
+def check_f32_vs_cpu(dev) -> dict:
+    """n @ 160, f32, TF32 off: the card's forward against the CPU's."""
+    import torch
+
+    from aquaculture_tpu_torch.models.weights import load_jax_params
+    from aquaculture_tpu_torch.models.yolov5 import yolov5_init
+
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = load_jax_params(*yolov5_init("n", 5, seed=7)).eval()
+        x = torch.from_numpy(np.random.default_rng(3).random((2, 160, 160, 3), dtype=np.float32))
+        with torch.inference_mode():
+            ref = model(x)
+            got = model.to(dev).to(memory_format=torch.channels_last)(x.to(dev)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    box_err = float((got[..., :4] - ref[..., :4]).abs().max())
+    score_err = float((got[..., 4:] - ref[..., 4:]).abs().max())
+    if not (box_err <= 1e-3 and score_err <= 1e-4):
+        fail(f"card vs CPU f32 forward: box err {box_err} px, score err {score_err}")
+    return {"box_max_abs_err_px": box_err, "score_max_abs_err": score_err}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times
+# ---------------------------------------------------------------------------
+
+def conv_flops_per_image(model, img: int, dev) -> int:
+    """Conv FLOPs (2 * MACs) of one forward at img px, from the shapes the
+    convs see (forward hooks on one image)."""
+    import torch
+
+    from aquaculture_tpu_torch.models.layers import ConvBlock
+    from aquaculture_tpu_torch.models.yolov5 import HeadConv
+
+    total = [0]
+
+    def hook(m, _inp, out):
+        o, i, kh, kw = m.weight.shape
+        total[0] += 2 * o * i * kh * kw * out.shape[-2] * out.shape[-1]
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (ConvBlock, HeadConv))]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros((1, img, img, 3), device=dev, dtype=next(model.parameters()).dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def suppress_bound_ms(keep, valid) -> tuple:
+    """Least time for the suppression of this run's data on the H100: the
+    larger of the bytes over HBM bandwidth and the IoUs it needs over the
+    f32 rate. A kept candidate must be tested against every kept one
+    before it, a suppressed one against at least one."""
+    b, k = valid.shape
+    kept = keep.sum(dim=1).double()
+    suppressed = (valid & ~keep).sum(dim=1).double()
+    ious = float((kept * (kept - 1) / 2 + suppressed).sum())
+    t_bytes = b * k * BYTES_PER_CANDIDATE / HBM_BYTES_PER_S * 1e3
+    t_ops = ious * OPS_PER_IOU / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_serving_and_kernel(dev, card: str) -> dict:
+    import torch
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.ops import nms as N
+    from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
+    from aquaculture_tpu_torch.pipeline import make_infer_fn, preprocess
+
+    b = 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tiles = torch.randint(0, 256, (b, 1024, 1024, 3), generator=gen, device=dev, dtype=torch.uint8)
+    model = load_model(None, "mt", 5)
+    out = {}
+    for conf in (0.25, 1e-5):
+        infer = make_infer_fn(model, DetectConfig(conf_threshold=conf), tile=1024, device=dev)
+        ms = time_cuda(lambda: infer(tiles), iters=5)
+        out[f"conf_{conf:g}"] = {"ms_per_batch": ms, "tiles_per_s": b / ms * 1e3}
+        print(json.dumps({"metric": "serving", "variant": "mt", "dtype": "bfloat16", "batch": b,
+                          "img": 640, "tile": 1024, "conf": conf, "ms_per_batch": ms,
+                          "tiles_per_s": b / ms * 1e3, "card": card}), flush=True)
+
+    # stage breakdown of the same program (conf 1e-5: full suppression work)
+    with torch.inference_mode():
+        x = preprocess(tiles, 640, torch.bfloat16)
+        preds = model(x)
+        prep = N._prepare_candidates(preds, 1e-5, 1024, False)
+        boxes, nms_boxes, scores, cls, valid = prep
+        nms_boxes = nms_boxes.contiguous()
+        keep = greedy_suppress_cuda(nms_boxes, valid, 0.45)
+        stages = {
+            "resize": time_cuda(lambda: preprocess(tiles, 640, torch.bfloat16), iters=5),
+            "forward": time_cuda(lambda: model(x), iters=5),
+            "nms_prep": time_cuda(lambda: N._prepare_candidates(preds, 1e-5, 1024, False), iters=5),
+            "suppress_kernel": time_cuda(lambda: greedy_suppress_cuda(nms_boxes, valid, 0.45), iters=20),
+            "compact": time_cuda(lambda: N._compact(boxes, cls, scores, keep, 300), iters=20),
+        }
+        flops = conv_flops_per_image(model, 640, dev)
+        fwd_rate = flops * b / (stages["forward"] / 1e3)
+        print(json.dumps({"metric": "stages_ms", "variant": "mt", "batch": b, "conf": 1e-5,
+                          **stages, "card": card}), flush=True)
+        print(json.dumps({"metric": "forward_rate", "variant": "mt", "batch": b,
+                          "conv_gflop_per_tile": flops / 1e9, "tflop_per_s": fwd_rate / 1e12,
+                          "share_of_bf16_dense_peak": fwd_rate / BF16_FLOP_PER_S, "card": card}),
+              flush=True)
+
+        plain_ms = time_cuda(lambda: N.greedy_suppress_plain(nms_boxes, valid, 0.45), iters=1)
+        no_valid = torch.zeros_like(valid)
+        floor_ms = time_cuda(lambda: greedy_suppress_cuda(nms_boxes, no_valid, 0.45), iters=20)
+        plain_keep = N.greedy_suppress_plain(nms_boxes, valid, 0.45)
+    torch.cuda.synchronize()
+    err = float((keep.float() - plain_keep.float()).abs().max())
+    bound, bound_by = suppress_bound_ms(keep, valid)
+    k = valid.shape[1]
+    all_pairs_ms = max(b * k * BYTES_PER_CANDIDATE / HBM_BYTES_PER_S,
+                       b * k * k / 2 * OPS_PER_IOU / F32_FLOP_PER_S) * 1e3
+    kernel = {"ms": stages["suppress_kernel"], "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": bound_by, "bound_ms_all_pairs": all_pairs_ms,
+              "max_abs_err": err, "scan_floor_ms": floor_ms,
+              "valid": int(valid.sum()), "kept": int(keep.sum()), "B": b, "K": int(valid.shape[1])}
+    print(json.dumps({"metric": "nms_suppress", **kernel, "library_ms": None,
+                      "library": "none: no PyTorch call computes greedy suppression",
+                      "card": card}), flush=True)
+    out["stages_ms"] = stages
+    out["conv_flops_per_tile"] = flops
+    out["kernel"] = kernel
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    from aquaculture_tpu_torch.ops import nms_cuda
+
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    # 1. card, torch, nvcc
+    card = card_line()
+    nvcc_release = next(
+        (ln.strip() for ln in subprocess.run([nms_cuda.find_nvcc(), "--version"], capture_output=True,
+                                             text=True, check=True).stdout.splitlines()
+         if "release" in ln), "unknown")
+    print(f"card: {card} | torch {torch.__version__} (CUDA {torch.version.cuda}) | nvcc: {nvcc_release}",
+          flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    nms_cuda.build()
+    print(f"build: nms_suppress {time.perf_counter() - t0:.2f} s ({nms_cuda.library_path()})", flush=True)
+
+    # 3. kernels vs plain
+    t0 = time.perf_counter()
+    suites = check_kernels(dev)
+    print(f"kernels: nms_suppress == plain (exact) on suites {','.join(suites)} x shapes "
+          f"{list(SHAPES)} in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 4. the main path
+    with tempfile.TemporaryDirectory() as d:
+        tile_dir, label_dir = os.path.join(d, "tiles"), os.path.join(d, "labels")
+        os.makedirs(tile_dir)
+        paths = write_tiles(tile_dir, 16)
+        main_path = run_main_path(tile_dir, label_dir, n_tiles=16, batch=8)
+        print(json.dumps({"phase": "main_path", **main_path}), flush=True)
+        print(json.dumps({"phase": "nms_kernel_vs_plain_batch", **check_nms_paths(paths, dev)}), flush=True)
+    print(json.dumps({"phase": "f32_card_vs_cpu_n160", "tf32": False, **check_f32_vs_cpu(dev)}), flush=True)
+    print(json.dumps({"phase": "m_builds", **check_m_builds(dev)}), flush=True)
+
+    # 5. times
+    times = time_serving_and_kernel(dev, card)
+    k = times["kernel"]
+    summary = {"kernels": [{
+        "name": "nms_suppress",
+        "route": "cuda",
+        "source": "aquaculture_tpu_torch/csrc/nms_suppress.cu",
+        "replaces": "aquaculture_tpu/ops/nms_pallas.py:33",
+        "launches": main_path["launches"]["nms_suppress"],
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,
+        "suites_passed": list(suites),
+    }]}
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps(summary), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,71 @@
+"""The port's detection CLI against the JAX package's: the same label files,
+rows within the golden bar of tests/test_golden_pipeline.py (box IoU >=
+0.99, confidence within 1e-3, same class over each file's top 20; bf16)."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from aquaculture_tpu.cli import detect as jax_cli
+from aquaculture_tpu_torch.cli import detect as torch_cli
+from aquaculture_tpu_torch.ops import nms_cuda
+
+
+def _cxcywh_to_xyxy(r):
+    cx, cy, w, h = r
+    return (cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2)
+
+
+def _iou(a, b):
+    iw = max(min(a[2], b[2]) - max(a[0], b[0]), 0)
+    ih = max(min(a[3], b[3]) - max(a[1], b[1]), 0)
+    inter = iw * ih
+    ua = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / ua if ua > 0 else 0.0
+
+
+@pytest.fixture(scope="module")
+def tiles(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tiles")
+    rng = np.random.default_rng(42)
+    for i in range(2):
+        img = rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
+        img[100 + 200 * i : 200 + 200 * i, 100:200] = 240
+        Image.fromarray(img).save(d / f"ORTHOIMAGERY.ORTHOPHOTOS2014_5_{1024 * i}_0.png")
+    return str(d)
+
+
+def test_cli_labels_match_jax(tiles, tmp_path):
+    args = ["--source", tiles, "--variant", "n", "--num-classes", "5", "--img", "256",
+            "--conf", "3e-5", "--batch", "2"]
+    jax_cli.main(args + ["--out", str(tmp_path / "jax")])
+    launches = nms_cuda.launches
+    stats = torch_cli.main(args + ["--out", str(tmp_path / "torch"), "--device", "cpu"])
+    assert nms_cuda.launches == launches  # the CPU path never touches the kernel
+    assert stats.tiles == 2 and stats.batches == 1
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "torch")) and len(names) == 2
+    for name in names:
+        want = np.loadtxt(tmp_path / "jax" / name, ndmin=2)
+        got = np.loadtxt(tmp_path / "torch" / name, ndmin=2)
+        assert got.shape == want.shape and len(got) >= 20
+        for g, w in zip(got[:20], want[:20]):
+            assert g[0] == w[0]
+            assert _iou(_cxcywh_to_xyxy(g[1:5]), _cxcywh_to_xyxy(w[1:5])) >= 0.99, (g, w)
+            assert abs(g[5] - w[5]) <= 1e-3
+
+
+def test_cli_without_gpu_raises_unless_cpu_is_asked(tiles, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        torch_cli.main(["--source", tiles, "--out", str(tmp_path), "--variant", "n"])
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--augment", "--multi-label", "--decode-scale"])
+def test_cli_rejects_flags_of_later_slices(flag, tiles, tmp_path):
+    with pytest.raises(SystemExit):
+        torch_cli.main(["--source", tiles, "--out", str(tmp_path), "--device", "cpu", flag])

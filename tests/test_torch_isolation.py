@@ -1,0 +1,91 @@
+"""The PyTorch port stands alone: it and chip_smoke.py import nothing of JAX
+or of the JAX package, and the CUDA wrapper refuses CPU tensors instead of
+computing on them.
+
+tests/conftest.py imports jax into every test process, so the import check
+runs in a fresh interpreter."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from aquaculture_tpu_torch.ops import nms_cuda
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "aquaculture_tpu_torch"
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_and_chip_smoke_load_no_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import numpy as np, torch
+        import aquaculture_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        from aquaculture_tpu_torch.models.weights import load_jax_params
+        from aquaculture_tpu_torch.models.yolov5 import yolov5_init
+        from aquaculture_tpu_torch.ops.nms import batched_nms
+        model = load_jax_params(*yolov5_init("n", num_classes=2))
+        x = torch.from_numpy(np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32))
+        with torch.no_grad():
+            det, valid = batched_nms(model(x), conf_thresh=1e-6)
+        assert det.shape == (1, 300, 6) and valid.any()
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_sources_import_no_jax_package():
+    for path in _port_sources():
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                assert top not in ("jax", "jaxlib", "aquaculture_tpu"), f"{path}: imports {n}"
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    boxes = torch.zeros((1, 8, 4))
+    valid = torch.ones((1, 8), dtype=torch.bool)
+    before = nms_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        nms_cuda.greedy_suppress_cuda(boxes, valid, 0.45)
+    assert nms_cuda.launches == before
+    assert nms_cuda._lib is None  # nothing was built or loaded
+
+
+def test_kernel_source_and_build_flags():
+    src = (PORT / "csrc" / "nms_suppress.cu").read_text()
+    assert "aquaculture_tpu/ops/nms_pallas.py:33" in src
+    assert "arch=compute_90a,code=sm_90a" in nms_cuda.NVCC_FLAGS
+    assert "-fmad=false" in nms_cuda.NVCC_FLAGS
+    assert not any("fast_math" in f or "fast-math" in f for f in nms_cuda.NVCC_FLAGS)
+    assert f"kMaxK = {nms_cuda.MAX_K};" in src
+    # the build goes where .gitignore keeps it out of commits
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert os.path.relpath(nms_cuda.BUILD_DIR, ROOT) + "/" in ignored
