@@ -2,12 +2,14 @@
 
 Replaces the Pallas TPU kernel ``_suppress_kernel``
 (aquaculture_tpu/ops/nms_pallas.py:33). The kernel (csrc/nms_suppress.cu)
-runs one CTA per image with the image's boxes and keep flags in shared
-memory: the work is K serial steps, so the bound on the H100 is the step
-chain, not bytes or IoU arithmetic (the source's header says more). Its
-plain PyTorch counterpart is ``ops.nms.greedy_suppress_plain``; the CPU
-tests use that one, and ``chip_smoke.py`` holds this kernel against it on
-the card.
+runs one CTA per image and resolves the serial chain 32 candidates at a
+time: in-block decisions as bit words, later candidates cleared by the
+whole CTA, one barrier per 32-candidate word that has a live candidate, and
+the ``iou > thr`` decision taken exactly without a division (the source's
+header says more). Any K up to ``MAX_K``.
+Its plain PyTorch counterpart is ``ops.nms.greedy_suppress_plain``; the
+CPU tests use that one, and ``chip_smoke.py`` holds this kernel against it
+on the card.
 
 The library builds at first use with ``nvcc`` for ``sm_90a`` into
 ``csrc/build/`` (listed in .gitignore), named by a hash of the source and
@@ -33,8 +35,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
-# Shared-memory budget of one CTA: 21 B per candidate (csrc kMaxK).
-MAX_K = 8192
+# Shared-memory budget of one CTA: the in-block row words and the alive and
+# kept bitsets, 4.25 B per candidate (csrc kMaxK). Covers the whole P5 pool
+# at 640 px (25,200 rows).
+MAX_K = 49152
 
 # Kernel launches since the last reset; chip_smoke.py zeroes it around the
 # main path to prove the path went through the kernel.
@@ -56,10 +60,42 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> str:
-    with open(_SOURCE, "rb") as f:
+def library_path(source: str = _SOURCE) -> str:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"libaq_nms_suppress_{digest}.so")
+
+
+def compile_library(source: str = _SOURCE) -> str:
+    """nvcc ``source`` into the build directory once per source hash;
+    returns the shared library's path."""
+    so = library_path(source)
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to build {source} (exit {proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+    return so
+
+
+def load_library(so: str) -> ctypes.CDLL:
+    """Load a built library and declare its C interface."""
+    lib = ctypes.CDLL(so)
+    lib.aq_nms_suppress.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.aq_nms_suppress.restype = ctypes.c_int
+    lib.aq_nms_max_k.argtypes = []
+    lib.aq_nms_max_k.restype = ctypes.c_int
+    return lib
 
 
 def build() -> ctypes.CDLL:
@@ -68,28 +104,10 @@ def build() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        so = library_path()
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [find_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {_SOURCE} (exit {proc.returncode}):\n"
-                    f"{proc.stderr}"
-                )
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        lib.aq_nms_suppress.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.aq_nms_suppress.restype = ctypes.c_int
-        lib.aq_nms_max_k.argtypes = []
-        lib.aq_nms_max_k.restype = ctypes.c_int
+        so = compile_library()
+        lib = load_library(so)
+        lib.aq_nms_max_staged_k.argtypes = []
+        lib.aq_nms_max_staged_k.restype = ctypes.c_int
         if lib.aq_nms_max_k() != MAX_K:
             raise RuntimeError(
                 f"{so}: kernel MAX_K {lib.aq_nms_max_k()} != wrapper MAX_K {MAX_K}"

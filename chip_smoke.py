@@ -15,8 +15,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      counters zeroed just before and read just after; compare batched_nms
      through the kernel with the plain path on one batch; compare the
      card's f32 forward with the CPU's (TF32 off);
-  5. time the serving program (mt, bf16, batch 128), each kernel and its
-     plain version with CUDA events (median of 3 windows after 3 warmups).
+  5. time the serving program (mt, bf16, batch 128) with CUDA events
+     (median of 3 windows after 3 warmups); time the suppression kernel on
+     the serving program's own candidates at each of TIMED_SHAPES, and its
+     bare scan with no valid candidate, on a queue of launches held behind
+     a device sleep, so that the time is the card's and not the host's
+     enqueue; time the plain version beside it.
 The last lines are the {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -45,8 +49,18 @@ OPS_PER_IOU = 14
 # boxes (16 B) + valid (1 B) read once, keep (1 B) written once
 BYTES_PER_CANDIDATE = 18
 
-SUITES = ("random", "identical", "boundary", "class_offset", "partly_invalid")
-SHAPES = ((1, 1), (3, 128), (2, 300), (128, 1024), (130, 1024), (2, 4096))
+SUITES = ("random", "identical", "boundary", "boundary_straddle", "class_offset",
+          "partly_invalid")
+# (B, K) of the exactness checks: 32-candidate words full, ragged and
+# single; the main path's batch; larger pools up to the whole 25,200-row P5
+# pool at 640 px. check_kernels adds K either side of the kernel's
+# shared-memory staging limit.
+SHAPES = ((1, 1), (3, 128), (2, 300), (4, 33), (128, 1024), (130, 1024), (2, 4096),
+          (1, 8192), (1, 25_200))
+# (B, K) of the timed suppressions, on the serving program's own candidates
+# (mt, conf 1e-5, pre-topk K): the main path's batch, small batches, the
+# pre-topk 8192 pool and the whole P5 pool.
+TIMED_SHAPES = ((128, 1024), (8, 1024), (1, 1024), (1, 8192), (1, 25_200))
 
 
 def fail(msg: str) -> None:
@@ -62,8 +76,10 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_cuda(fn, iters: int, windows: int = 3, warmup: int = 3) -> float:
-    """Median over windows of the mean ms per call, CUDA events."""
+def time_cuda(fn, iters: int, windows: int = 3, warmup: int = 3, queued: bool = False) -> float:
+    """Median over windows of the mean ms per call, CUDA events. queued:
+    hold each window's launches behind a device sleep, so that they run
+    back to back and the window times the card, not the host's enqueue."""
     import torch
 
     for _ in range(warmup):
@@ -73,6 +89,8 @@ def time_cuda(fn, iters: int, windows: int = 3, warmup: int = 3) -> float:
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(200_000 * iters)  # ~0.1 ms of device clock per launch
         start.record()
         for _ in range(iters):
             fn()
@@ -94,15 +112,19 @@ def _random_boxes(rng, b, k, size=640.0):
     return np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], axis=-1).astype(np.float32)
 
 
-def _boundary_boxes(rng, b, k):
+def _boundary_boxes(rng, b, k, shift=0):
     """Pairs (base, base shifted right by d) with IoU = (100-d)/(100+d)
     within a few float32 ulps of 0.45; pairs are stacked 300 px apart in y
-    only, so x keeps d's full precision."""
+    only, so x keeps d's full precision. shift=1 starts the pairs at index
+    1 after a lone box, so pairs (31, 32), (63, 64), ... straddle the
+    kernel's 32-candidate words."""
     d0 = np.float32(100.0 * 0.55 / 1.45)
     out = np.zeros((b, k, 4), np.float32)
-    for i in range(k):
-        oy = np.float32(300 * (i // 2))
-        if i % 2 == 0:
+    out[:, :shift] = [0, -300, 100, -200]
+    for i in range(shift, k):
+        q = i - shift
+        oy = np.float32(300 * (q // 2))
+        if q % 2 == 0:
             out[:, i] = [0, oy, 100, oy + 100]
         else:
             steps = rng.integers(-6, 7, b)
@@ -127,6 +149,8 @@ def suite_inputs(kind: str, b: int, k: int, seed: int):
         boxes = np.tile(np.asarray([10.0, 10.0, 50.0, 50.0], np.float32), (b, k, 1))
     elif kind == "boundary":
         boxes = _boundary_boxes(rng, b, k)
+    elif kind == "boundary_straddle":
+        boxes = _boundary_boxes(rng, b, k, shift=1)
     elif kind == "class_offset":
         cls = rng.integers(0, 5, (b, k)).astype(np.float32)
         boxes = _random_boxes(rng, b, k) + (cls * np.float32(7680.0))[..., None]
@@ -139,7 +163,15 @@ def suite_inputs(kind: str, b: int, k: int, seed: int):
     return boxes, valid
 
 
-def check_kernels(dev) -> list:
+def check_shapes() -> tuple:
+    """SHAPES plus K at and one past the kernel's staging limit."""
+    from aquaculture_tpu_torch.ops import nms_cuda
+
+    staged = nms_cuda.build().aq_nms_max_staged_k()
+    return SHAPES + ((1, staged), (1, staged + 1))
+
+
+def check_kernels(dev, shapes) -> list:
     import torch
 
     from aquaculture_tpu_torch.ops.nms import greedy_suppress_plain
@@ -147,7 +179,7 @@ def check_kernels(dev) -> list:
 
     passed = []
     for si, kind in enumerate(SUITES):
-        for b, k in SHAPES:
+        for b, k in shapes:
             boxes_np, valid_np = suite_inputs(kind, b, k, seed=1000 * si + k + b)
             boxes = torch.from_numpy(boxes_np).to(dev)
             valid = torch.from_numpy(valid_np).to(dev)
@@ -327,19 +359,85 @@ def suppress_bound_ms(keep, valid) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_serving_and_kernel(dev, card: str) -> dict:
+def all_pairs_bound_ms(b: int, k: int) -> float:
+    """The same least time if every pair of candidates needed its IoU."""
+    return max(b * k * BYTES_PER_CANDIDATE / HBM_BYTES_PER_S,
+               b * k * k / 2 * OPS_PER_IOU / F32_FLOP_PER_S) * 1e3
+
+
+def serving_model_and_tiles(dev, b: int = 128):
+    """The timed serving batch: b seeded uint8 1024 px tiles on the card,
+    and the mt model with random weights from seed 0, on the host."""
     import torch
 
     from aquaculture_tpu_torch.cli.detect import load_model
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tiles = torch.randint(0, 256, (b, 1024, 1024, 3), generator=gen, device=dev, dtype=torch.uint8)
+    return load_model(None, "mt", 5), tiles
+
+
+def timed_suppress_inputs(preds) -> list:
+    """(B, K, nms_boxes, valid) of the serving program's own candidates at
+    conf 1e-5 and pre-topk K, for each of TIMED_SHAPES."""
+    from aquaculture_tpu_torch.ops import nms as N
+
+    out = []
+    for b, k in TIMED_SHAPES:
+        _, nms_boxes, _, _, valid = N._prepare_candidates(preds[:b], 1e-5, k, False)
+        out.append((b, k, nms_boxes.contiguous(), valid.contiguous()))
+    return out
+
+
+def time_suppress(preds, card: str) -> list:
+    """The kernel at each of TIMED_SHAPES, held exactly against the plain
+    version on the same inputs, beside its bounds and the plain version's
+    time; the first shape (the main path's) also gets the scan floor, the
+    kernel with no valid candidate. One JSON line per shape."""
+    import torch
+
+    from aquaculture_tpu_torch.ops import nms as N
+    from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
+
+    rows = []
+    for b, k, boxes, valid in timed_suppress_inputs(preds):
+        main_shape = not rows
+        keep = greedy_suppress_cuda(boxes, valid, 0.45)
+        plain_keep = N.greedy_suppress_plain(boxes, valid, 0.45)
+        torch.cuda.synchronize()
+        if not torch.equal(keep, plain_keep):
+            fail(f"nms_suppress != plain on the serving candidates (B={b}, K={k})")
+        bound, bound_by = suppress_bound_ms(keep, valid)
+        reps = 3 if main_shape else 1
+        row = {
+            "B": b, "K": k, "valid": int(valid.sum()), "kept": int(keep.sum()),
+            "ms": time_cuda(lambda: greedy_suppress_cuda(boxes, valid, 0.45), iters=20, queued=True),
+            "plain_ms": time_cuda(lambda: N.greedy_suppress_plain(boxes, valid, 0.45), iters=1,
+                                  windows=reps, warmup=reps),
+            "bound_ms": bound, "bound_by": bound_by, "bound_ms_all_pairs": all_pairs_bound_ms(b, k),
+            "max_abs_err": float((keep.float() - plain_keep.float()).abs().max()),
+        }
+        if main_shape:
+            no_valid = torch.zeros_like(valid)
+            row["scan_floor_ms"] = time_cuda(lambda: greedy_suppress_cuda(boxes, no_valid, 0.45),
+                                             iters=20, queued=True)
+        print(json.dumps({"metric": "nms_suppress", **row, "library_ms": None,
+                          "library": "none: no PyTorch call computes greedy suppression",
+                          "card": card}), flush=True)
+        rows.append(row)
+    return rows
+
+
+def time_serving_and_kernel(dev, card: str) -> dict:
+    import torch
+
     from aquaculture_tpu_torch.config import DetectConfig
     from aquaculture_tpu_torch.ops import nms as N
     from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
     from aquaculture_tpu_torch.pipeline import make_infer_fn, preprocess
 
-    b = 128
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tiles = torch.randint(0, 256, (b, 1024, 1024, 3), generator=gen, device=dev, dtype=torch.uint8)
-    model = load_model(None, "mt", 5)
+    model, tiles = serving_model_and_tiles(dev)
+    b = tiles.shape[0]
     out = {}
     for conf in (0.25, 1e-5):
         infer = make_infer_fn(model, DetectConfig(conf_threshold=conf), tile=1024, device=dev)
@@ -353,15 +451,14 @@ def time_serving_and_kernel(dev, card: str) -> dict:
     with torch.inference_mode():
         x = preprocess(tiles, 640, torch.bfloat16)
         preds = model(x)
-        prep = N._prepare_candidates(preds, 1e-5, 1024, False)
-        boxes, nms_boxes, scores, cls, valid = prep
-        nms_boxes = nms_boxes.contiguous()
-        keep = greedy_suppress_cuda(nms_boxes, valid, 0.45)
+        kernel_rows = time_suppress(preds, card)
+        boxes, nms_boxes, scores, cls, valid = N._prepare_candidates(preds, 1e-5, 1024, False)
+        keep = greedy_suppress_cuda(nms_boxes.contiguous(), valid, 0.45)
         stages = {
             "resize": time_cuda(lambda: preprocess(tiles, 640, torch.bfloat16), iters=5),
             "forward": time_cuda(lambda: model(x), iters=5),
             "nms_prep": time_cuda(lambda: N._prepare_candidates(preds, 1e-5, 1024, False), iters=5),
-            "suppress_kernel": time_cuda(lambda: greedy_suppress_cuda(nms_boxes, valid, 0.45), iters=20),
+            "suppress_kernel": kernel_rows[0]["ms"],
             "compact": time_cuda(lambda: N._compact(boxes, cls, scores, keep, 300), iters=20),
         }
         flops = conv_flops_per_image(model, 640, dev)
@@ -372,27 +469,9 @@ def time_serving_and_kernel(dev, card: str) -> dict:
                           "conv_gflop_per_tile": flops / 1e9, "tflop_per_s": fwd_rate / 1e12,
                           "share_of_bf16_dense_peak": fwd_rate / BF16_FLOP_PER_S, "card": card}),
               flush=True)
-
-        plain_ms = time_cuda(lambda: N.greedy_suppress_plain(nms_boxes, valid, 0.45), iters=1)
-        no_valid = torch.zeros_like(valid)
-        floor_ms = time_cuda(lambda: greedy_suppress_cuda(nms_boxes, no_valid, 0.45), iters=20)
-        plain_keep = N.greedy_suppress_plain(nms_boxes, valid, 0.45)
-    torch.cuda.synchronize()
-    err = float((keep.float() - plain_keep.float()).abs().max())
-    bound, bound_by = suppress_bound_ms(keep, valid)
-    k = valid.shape[1]
-    all_pairs_ms = max(b * k * BYTES_PER_CANDIDATE / HBM_BYTES_PER_S,
-                       b * k * k / 2 * OPS_PER_IOU / F32_FLOP_PER_S) * 1e3
-    kernel = {"ms": stages["suppress_kernel"], "plain_ms": plain_ms, "bound_ms": bound,
-              "bound_by": bound_by, "bound_ms_all_pairs": all_pairs_ms,
-              "max_abs_err": err, "scan_floor_ms": floor_ms,
-              "valid": int(valid.sum()), "kept": int(keep.sum()), "B": b, "K": int(valid.shape[1])}
-    print(json.dumps({"metric": "nms_suppress", **kernel, "library_ms": None,
-                      "library": "none: no PyTorch call computes greedy suppression",
-                      "card": card}), flush=True)
     out["stages_ms"] = stages
     out["conv_flops_per_tile"] = flops
-    out["kernel"] = kernel
+    out["kernel"] = kernel_rows[0]
     return out
 
 
@@ -422,9 +501,10 @@ def main() -> int:
 
     # 3. kernels vs plain
     t0 = time.perf_counter()
-    suites = check_kernels(dev)
+    shapes = check_shapes()
+    suites = check_kernels(dev, shapes)
     print(f"kernels: nms_suppress == plain (exact) on suites {','.join(suites)} x shapes "
-          f"{list(SHAPES)} in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{list(shapes)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. the main path
     with tempfile.TemporaryDirectory() as d:
@@ -452,6 +532,7 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
+        "scan_floor_ms": k["scan_floor_ms"],
         "suites_passed": list(suites),
     }]}
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

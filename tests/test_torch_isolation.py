@@ -22,7 +22,7 @@ PORT = ROOT / "aquaculture_tpu_torch"
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "nms_suppress_ab.py"]
 
 
 def test_port_and_chip_smoke_load_no_jax():
@@ -85,7 +85,11 @@ def test_kernel_source_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in nms_cuda.NVCC_FLAGS
     assert "-fmad=false" in nms_cuda.NVCC_FLAGS
     assert not any("fast_math" in f or "fast-math" in f for f in nms_cuda.NVCC_FLAGS)
+    # one definition of the K cap, the wrapper's, and it takes the whole
+    # P5 pool at 640 px
+    assert src.count("kMaxK =") == 1
     assert f"kMaxK = {nms_cuda.MAX_K};" in src
+    assert nms_cuda.MAX_K >= 25_200
     # the build goes where .gitignore keeps it out of commits
     ignored = (ROOT / ".gitignore").read_text().split()
     assert os.path.relpath(nms_cuda.BUILD_DIR, ROOT) + "/" in ignored

@@ -113,6 +113,147 @@ def test_plain_suppress_boundary_pairs_match():
     np.testing.assert_array_equal(got, np.asarray(pallas))
 
 
+def _threshold(iou_thresh):
+    """(mid, tie_up) of csrc/nms_suppress.cu: RN(q) > thr exactly when
+    q > mid, or q == mid and tie_up; mid is halfway from thr to the next
+    float (2^128 above FLT_MAX)."""
+    t = np.float32(iou_thresh)
+    nxt = np.nextafter(t, np.float32(np.inf))
+    up = 2.0**128 if (np.isinf(nxt) and np.isfinite(t)) else float(nxt)
+    return 0.5 * (float(t) + up), bool((nxt.view(np.uint32) & 1) == 0)
+
+
+def _above(inter, uni, mid, tie_up):
+    """The kernel's division-free decision RN(iou) > thr for f32 inter and
+    union, compared in float64, where mid * den is exact."""
+    pos = uni > 0
+    num = np.where(pos, inter, np.float32(0)).astype(np.float64)
+    den = np.where(pos, np.maximum(uni, np.float32(1e-9)), np.float32(1)).astype(np.float64)
+    rhs = mid * den
+    return (num > rhs) | (tie_up & (num == rhs))
+
+
+def _iou_above(bx, area, g, j, thr):
+    """IoU(g, j) > thr over index arrays as the CUDA kernel decides it: the
+    reference's f32 inter and union, g first, then the division-free test."""
+    w = np.maximum(np.minimum(bx[g, 2], bx[j, 2]) - np.maximum(bx[g, 0], bx[j, 0]), np.float32(0))
+    h = np.maximum(np.minimum(bx[g, 3], bx[j, 3]) - np.maximum(bx[g, 1], bx[j, 1]), np.float32(0))
+    inter = w * h
+    return _above(inter, (area[g] + area[j]) - inter, *thr)
+
+
+def _blocked_suppress(boxes, valid, iou_thresh=0.45):
+    """numpy emulation of csrc/nms_suppress.cu: 32-candidate words, the
+    alive bitset, in-block row words, then per word with an alive bit the
+    32-step greedy chain on bits (the kept word and its table of kept
+    boxes), and the kept boxes clearing every later live candidate."""
+    thr = _threshold(iou_thresh)
+    b, k, _ = boxes.shape
+    words = -(-k // 32)
+    lanes = np.arange(32)
+    keep = np.zeros((b, k), bool)
+    for n in range(b):
+        bx = np.zeros((32 * words, 4), np.float32)  # rows past K: zero boxes
+        bx[:k] = boxes[n]
+        area = np.maximum(bx[:, 2] - bx[:, 0], np.float32(0)) * np.maximum(bx[:, 3] - bx[:, 1], np.float32(0))
+        v = np.zeros(32 * words, bool)
+        v[:k] = valid[n]
+        alive = [int((v[32 * u : 32 * u + 32].astype(np.int64) << lanes).sum()) for u in range(words)]
+        rows = np.zeros(32 * words, np.int64)
+        for u in range(words):
+            if alive[u] == 0:
+                continue
+            g, c = np.meshgrid(32 * u + lanes, 32 * u + lanes, indexing="ij")
+            above = _iou_above(bx, area, g, c, thr) & (c > g)
+            rows[32 * u : 32 * u + 32] = (above.astype(np.int64) << lanes).sum(axis=1)
+        kept = [0] * words
+        for t in range(words):
+            if alive[t] == 0:
+                continue
+            removed, kw = ~alive[t] & 0xFFFFFFFF, 0
+            for i in range(32):  # the chain on bits
+                if not (removed >> i) & 1:
+                    kw |= 1 << i
+                    removed |= int(rows[32 * t + i])
+            kept[t] = kw
+            g = 32 * t + lanes[(kw >> lanes) & 1 == 1]  # the kept table
+            for u in range(t + 1, words):  # later live candidates
+                if alive[u] == 0:
+                    continue
+                j = 32 * u + lanes[(alive[u] >> lanes) & 1 == 1]
+                sup = _iou_above(bx, area, g[:, None], j[None, :], thr).any(axis=0)
+                alive[u] &= ~int((np.int64(1) << (j[sup] - 32 * u)).sum())
+        keep[n] = np.concatenate([(w >> lanes) & 1 == 1 for w in kept])[:k]
+    return keep
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.5, 0.7, 0.3, 0.0, 1.0, -0.25])
+def test_division_free_decision_matches_f32_division(thr):
+    """The kernel's iou > thr without a division equals RN(inter / den) > thr
+    on random pairs and on quotients a few ulps either side of thr."""
+    rng = np.random.default_rng(int(abs(thr) * 100))
+    t = np.float32(thr)
+    den = rng.uniform(1e-3, 1e6, 200_000).astype(np.float32)
+    inter = np.concatenate([
+        (den * rng.uniform(0, 1.2, den.size)).astype(np.float32),
+        (den.astype(np.float64) * float(t)).astype(np.float32),
+    ])
+    den = np.concatenate([den, den])
+    steps = rng.integers(-3, 4, inter.size)
+    for s in (-1, 1):
+        m = np.sign(steps) == s
+        for _ in range(3):
+            inter[m & (np.abs(steps) > _)] = np.nextafter(
+                inter[m & (np.abs(steps) > _)], np.float32(s * np.inf))
+    inter = np.abs(inter)
+    uni = den  # uni > 0 here, so den = max(uni, 1e-9) = uni
+    with np.errstate(all="ignore"):
+        want = (inter / den) > t
+    got = _above(inter, uni, *_threshold(t))
+    np.testing.assert_array_equal(got, want)
+    assert want.any() or t >= 1.0
+    # union <= 0: iou is 0
+    zero = _above(np.float32([0.5]), np.float32([0.0]), *_threshold(t))
+    assert zero[0] == (np.float32(0) > t)
+
+
+@pytest.mark.parametrize("t_units, tie_up", [(3, True), (2, False)])
+def test_division_free_decision_ties_round_to_even(t_units, tie_up):
+    """A quotient exactly halfway between a subnormal thr and the next float
+    rounds to the even one; the decision follows it."""
+    t = np.float32(t_units * 2.0**-149)
+    mid, up = _threshold(t)
+    assert up == tie_up
+    den = np.float32(2.0**100)
+    inter = np.float32(mid * 2.0**100)  # exact: mid has few bits here
+    assert float(inter) / float(den) == mid
+    with np.errstate(all="ignore"):
+        want = (np.float32(inter) / den) > t
+    assert bool(want) == tie_up
+    assert bool(_above(np.float32([inter]), np.float32([den]), mid, up)[0]) == tie_up
+
+
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 300, 1000, 1024])
+@pytest.mark.parametrize("suite", ["random", "identical", "boundary", "boundary_straddle",
+                                   "class_offset", "partly_invalid"])
+def test_blocked_suppress_matches_plain_and_xla(suite, k):
+    """The CUDA kernel's algorithm, emulated, gives the exact keep masks of
+    the port's plain version and the JAX package's XLA suppression on the
+    card's exactness suites (chip_smoke.suite_inputs); boundary_straddle
+    puts threshold pairs across the 32-candidate word edges."""
+    import chip_smoke
+
+    boxes, valid = chip_smoke.suite_inputs(suite, 2, k, seed=k)
+    got = _blocked_suppress(boxes, valid)
+    np.testing.assert_array_equal(got, _plain(boxes, valid))
+    np.testing.assert_array_equal(got, _jax_xla_suppress(boxes, valid))
+    if suite == "boundary_straddle" and k >= 64:
+        # the pairs (31, 32) and (63, 64) sit at the threshold
+        iou = tnms._iou_matrix(torch.from_numpy(boxes[0])).numpy()
+        assert abs(iou[31, 32] - np.float32(0.45)) < 1e-5
+        assert abs(iou[63, 64] - np.float32(0.45)) < 1e-5
+
+
 def _random_preds(rng, b, n, nc):
     return np.concatenate(
         [
