@@ -1,5 +1,8 @@
-"""PyTorch/CUDA port of aquaculture_tpu: the aq-detect slice (tiles -> YOLOv5 ->
-class-aware NMS with a hand-written CUDA suppression kernel -> labels).
+"""PyTorch/CUDA port of aquaculture_tpu: the aq-detect and aq-pipeline slices
+(tiles -> YOLOv5 -> class-aware NMS with a hand-written CUDA suppression
+kernel -> labels, or -> geocode, download-box dedup, cage areas and the land
+filter -> GeoJSON).
 
-Imports torch, numpy and PIL only; nothing of JAX or of aquaculture_tpu.
+Imports torch, numpy, pandas and PIL only; nothing of JAX or of
+aquaculture_tpu.
 """

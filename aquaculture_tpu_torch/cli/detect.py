@@ -7,7 +7,7 @@ Emits one ``<image-stem>.txt`` per image with detections, rows
 (``--device cuda``, the default) unless ``--device cpu`` is given.
 
     python -m aquaculture_tpu_torch.cli.detect --source DIR --out LABELS/ \\
-        [--weights CKPT_DIR] --variant mt
+        [--weights CKPT_DIR | X.pt] --variant mt
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import os
 
 from aquaculture_tpu_torch.config import IM_HEIGHT, IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import encode_tile_name
-from aquaculture_tpu_torch.models.weights import load_jax_params
+from aquaculture_tpu_torch.models.weights import load_jax_params, load_pretrained
 from aquaculture_tpu_torch.models.yolov5 import VARIANTS, YoloV5, yolov5_init
 from aquaculture_tpu_torch.pipeline import detect_files
 
@@ -65,15 +65,18 @@ def resolve_model_args(
 
 
 def load_model(weights: str | None, variant: str = "m", num_classes: int = 5) -> YoloV5:
-    """A checkpoint directory of the JAX package's format, or the seed-0
-    random model of ``yolov5_init`` when ``weights`` is None. Weights are
+    """An ultralytics ``.pt`` (with the anchors it stores, if any), a
+    checkpoint directory of the JAX package's format, or the seed-0 random
+    model of ``yolov5_init`` when ``weights`` is None. Weights are
     BN-folded on load."""
     if weights and not os.path.exists(weights):
         raise FileNotFoundError(f"weights not found: {weights}")
     if weights and weights.endswith(".pt"):
-        raise SystemExit("ultralytics .pt weights are not supported by the port yet; "
-                         "pass a checkpoint directory")
-    if weights:
+        model = YoloV5(variant, num_classes)
+        params, anchors = load_pretrained(model, weights)
+        if anchors is not None:
+            model = YoloV5(variant, num_classes, anchors=anchors)
+    elif weights:
         from aquaculture_tpu_torch.utils.checkpoint import load_params
 
         model, params = YoloV5(variant, num_classes), load_params(weights)
@@ -85,7 +88,7 @@ def load_model(weights: str | None, variant: str = "m", num_classes: int = 5) ->
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--source", required=True, help="image file, directory, or glob")
-    ap.add_argument("--weights", default=None, help="checkpoint directory (params.npz + treedef.json)")
+    ap.add_argument("--weights", default=None, help="ultralytics .pt, or checkpoint directory (params.npz + treedef.json)")
     ap.add_argument("--out", required=True, help="directory for label .txt files")
     ap.add_argument("--variant", default=None, choices=sorted(VARIANTS),
                     help="(default: the checkpoint's saved variant, else m)")

@@ -1,9 +1,9 @@
 """Constants and the detection configuration of the PyTorch port.
 
-A copy of what the port needs from aquaculture_tpu/config.py: the tile
-geometry (reference src/utils.py:17-19), the class names and
-``DetectConfig`` for the argmax-class serving path. The TTA, multi-label
-and training settings arrive with the slices that use them.
+A copy of what the port needs from aquaculture_tpu/config.py: the imagery
+geometry and CRS registry (reference src/utils.py:17-20), the class
+mappings and ``DetectConfig`` for the argmax-class serving path. The TTA,
+multi-label and training settings arrive with the slices that use them.
 """
 
 from __future__ import annotations
@@ -12,8 +12,14 @@ import dataclasses
 
 import torch
 
+LARGE_TIF_SIZE = 1024 * 6  # px of one downloaded GeoTIFF
 IM_WIDTH = 1024            # px of one analysis tile
 IM_HEIGHT = 1024
+DOWNLOAD_BOX_M = 1200.0    # meters covered by one download box (EPSG:3857)
+
+CRS_MAPPING = 3857  # Web Mercator: storage / mapping CRS
+CRS_AREA = 3035     # ETRS89-extended LAEA Europe: area measurement CRS
+CRS_LATLON = 4326   # WGS84 lat/lon: output CRS
 
 CLASS_NAMES = (
     "circle_farm",
@@ -22,6 +28,8 @@ CLASS_NAMES = (
     "other_farm",
     "rectangle_farm",
 )
+REVERSE_CLASS_MAPPING = {i: n for i, n in enumerate(CLASS_NAMES)}
+CLASS_MAPPING = {n: i for i, n in enumerate(CLASS_NAMES)}
 
 
 @dataclasses.dataclass(frozen=True)

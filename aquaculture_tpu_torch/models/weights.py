@@ -1,21 +1,54 @@
-"""Carry a JAX-package parameter tree into the PyTorch model.
+"""Weights into the PyTorch model: JAX-package trees and ultralytics ``.pt``.
 
 The JAX package keeps parameters as nested dicts/lists of HWIO arrays
 (``utils/checkpoint.py`` saves them by ``/``-joined path). The port's
 ``YoloV5`` names its parameters after the same paths, so the mapping is by
 name: ``b2/m/0/cv1/w`` -> ``b2.m.0.cv1.weight`` (HWIO -> OIHW with
-``transpose(3, 2, 0, 1)``) and ``.../b`` -> ``.../bias``. Ultralytics
-``.pt`` files come in a later slice of the port.
+``transpose(3, 2, 0, 1)``) and ``.../b`` -> ``.../bias``
+(``load_jax_params``).
+
+An ultralytics ``.pt`` (the reference's weights, reference README.md:60,77)
+is first turned into that same numpy tree (``load_pretrained``, a copy of
+aquaculture_tpu/models/weights.py), so one bridge serves both formats. The
+mapping is by layer INDEX in the ultralytics sequential model, fixed for
+the public v6 architecture:
+
+    model.0..9    backbone (Conv, Conv, C3, Conv, C3, Conv, C3, Conv, C3, SPPF)
+    model.10..23  PANet neck
+    model.24      Detect (m.0/m.1/m.2 1x1 convs)
+
+The P6 numbering comes with the port's P6 family. Torch tensors are OIHW;
+the tree stores HWIO. BatchNorm maps 1:1 (weight->scale, bias->bias,
+running_mean->mean, running_var->var).
+
+The file is read by one path, ``read_pt_state_dict``: a restricted
+unpickler over the torch zip container that never imports or runs a class
+named in the file (``torch.load(weights_only=False)`` would, and needs the
+ultralytics ``models`` package importable for the object-pickled layout).
 """
 
 from __future__ import annotations
 
+import collections
+import io
+import pickle
+import zipfile
 from typing import Dict
 
 import numpy as np
 import torch
 
 from aquaculture_tpu_torch.models.yolov5 import DOWN_LAYERS
+
+# our-name -> ultralytics model index
+_LAYER_INDEX = {
+    "b0": 0, "b1": 1, "b2": 2, "b3": 3, "b4": 4, "b5": 5, "b6": 6,
+    "b7": 7, "b8": 8, "b9": 9,
+    "n10": 10, "n13": 13, "n14": 14, "n17": 17, "n18": 18, "n20": 20,
+    "n21": 21, "n23": 23,
+}
+_DETECT_INDEX = 24
+_SPPF = "b9"
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -92,3 +125,250 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
         setattr(model.get_submodule(".".join(path)), leaf,
                 torch.nn.Parameter(t.to(p.device), requires_grad=False))
     return model
+
+
+# ---------------------------------------------------------------------------
+# ultralytics .pt -> numpy parameter tree
+# ---------------------------------------------------------------------------
+
+def _hwio(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+
+
+def _conv_from_torch(sd: Dict[str, np.ndarray], prefix: str) -> dict:
+    out = {"w": _hwio(sd[f"{prefix}.conv.weight"])}
+    if f"{prefix}.bn.weight" in sd:
+        out["bn"] = {
+            "scale": sd[f"{prefix}.bn.weight"],
+            "bias": sd[f"{prefix}.bn.bias"],
+            "mean": sd[f"{prefix}.bn.running_mean"],
+            "var": sd[f"{prefix}.bn.running_var"],
+        }
+    elif f"{prefix}.conv.bias" in sd:
+        # Fused checkpoint: conv carries the folded bias.
+        out["b"] = sd[f"{prefix}.conv.bias"]
+    return out
+
+
+def _c3_from_torch(sd: Dict[str, np.ndarray], prefix: str, n: int) -> dict:
+    return {
+        "cv1": _conv_from_torch(sd, f"{prefix}.cv1"),
+        "cv2": _conv_from_torch(sd, f"{prefix}.cv2"),
+        "cv3": _conv_from_torch(sd, f"{prefix}.cv3"),
+        "m": [
+            {
+                "cv1": _conv_from_torch(sd, f"{prefix}.m.{i}.cv1"),
+                "cv2": _conv_from_torch(sd, f"{prefix}.m.{i}.cv2"),
+            }
+            for i in range(n)
+        ],
+    }
+
+
+def params_from_state_dict(model, state_dict: Dict[str, np.ndarray]) -> dict:
+    """The numpy parameter tree (float32, HWIO) of an ultralytics state
+    dict, for ``model`` (a ``YoloV5``): the tree the JAX package's
+    ``params_from_state_dict`` builds. Keys look like
+    ``model.4.cv1.conv.weight``; a ``model.model.`` prefix is stripped."""
+    sd = {}
+    for k, v in state_dict.items():
+        sd[k.replace("model.model.", "model.")] = np.asarray(v, dtype=np.float32)
+
+    dp = model.depths()
+    c3_depths = {
+        "b2": dp["n3"], "b4": dp["n6"], "b6": dp["n9"], "b8": dp["n3"],
+        "n13": dp["n3"], "n17": dp["n3"], "n20": dp["n3"], "n23": dp["n3"],
+    }
+
+    params: dict = {}
+    for name, idx in _LAYER_INDEX.items():
+        prefix = f"model.{idx}"
+        if name in c3_depths:
+            params[name] = _c3_from_torch(sd, prefix, c3_depths[name])
+        elif name == _SPPF:
+            params[name] = {
+                "cv1": _conv_from_torch(sd, f"{prefix}.cv1"),
+                "cv2": _conv_from_torch(sd, f"{prefix}.cv2"),
+            }
+        else:
+            params[name] = _conv_from_torch(sd, prefix)
+
+    params["head"] = [
+        {"w": _hwio(sd[f"model.{_DETECT_INDEX}.m.{i}.weight"]),
+         "b": sd[f"model.{_DETECT_INDEX}.m.{i}.bias"]}
+        for i in range(len(model.strides))
+    ]
+    return params
+
+
+def anchors_from_state_dict(state_dict: Dict[str, np.ndarray]):
+    """The per-stride (3, 3, 2) anchor table of a P5 checkpoint in pixels,
+    if the file has one."""
+    for k in state_dict:
+        if k.endswith("anchors"):
+            a = np.asarray(state_dict[k], dtype=np.float32)
+            if a.shape == (3, 3, 2):
+                # ultralytics stores anchors in grid units; scale by stride.
+                strides = np.array([8.0, 16.0, 32.0])[:, None, None]
+                return tuple(tuple(map(tuple, lvl)) for lvl in a * strides)
+    return None
+
+
+class _Shadow:
+    """Stand-in for every class the file names (models.yolo.Model,
+    torch.nn.* modules, anything else): absorbs constructor arguments and
+    state as plain attributes, and runs nothing of the named class."""
+
+    def __init__(self, *args, **kwargs):
+        self._shadow_args = args
+
+    def __setstate__(self, state):
+        if isinstance(state, dict):
+            self.__dict__.update(state)
+        else:
+            self.__dict__["_shadow_state"] = state
+
+
+# Storage classes torch names in its zip container -> numpy dtype.
+_STORAGE_DTYPES = {
+    "FloatStorage": np.float32,
+    "HalfStorage": np.float16,
+    "DoubleStorage": np.float64,
+    "LongStorage": np.int64,
+    "IntStorage": np.int32,
+    "ShortStorage": np.int16,
+    "CharStorage": np.int8,
+    "ByteStorage": np.uint8,
+    "BoolStorage": np.bool_,
+}
+
+# The only globals the reader resolves to real objects: OrderedDict and
+# numpy's array and scalar rebuild functions, which build data and call
+# nothing named in the file.
+_NP_MULTIARRAY = (np._core if hasattr(np, "_core") else np.core).multiarray
+_DATA_GLOBALS = {
+    ("collections", "OrderedDict"): collections.OrderedDict,
+    ("numpy", "dtype"): np.dtype,
+    ("numpy", "ndarray"): np.ndarray,
+}
+for _mod in ("numpy.core.multiarray", "numpy._core.multiarray"):
+    _DATA_GLOBALS[(_mod, "_reconstruct")] = _NP_MULTIARRAY._reconstruct
+    _DATA_GLOBALS[(_mod, "scalar")] = _NP_MULTIARRAY.scalar
+
+
+def _bf16_to_f32(raw: bytes) -> np.ndarray:
+    u16 = np.frombuffer(raw, dtype=np.uint16).astype(np.uint32)
+    return (u16 << 16).view(np.float32)
+
+
+def _harvest(module_obj, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """Walk a pickled nn.Module tree (its ``_parameters`` / ``_buffers`` /
+    ``_modules`` dicts) into a flat state dict."""
+    d = getattr(module_obj, "__dict__", None)
+    if not isinstance(d, dict):
+        return
+    for src in ("_parameters", "_buffers"):
+        entries = d.get(src)
+        if isinstance(entries, dict):
+            for name, t in entries.items():
+                if isinstance(t, np.ndarray):
+                    out[prefix + name] = t
+    subs = d.get("_modules")
+    if isinstance(subs, dict):
+        for name, sub in subs.items():
+            if sub is not None:
+                _harvest(sub, f"{prefix}{name}.", out)
+
+
+def read_pt_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A torch-zip ``.pt`` -> flat {name: float32 array} state dict.
+
+    Reads both layouts the reference's tooling writes: a tensor-only state
+    dict (possibly mixed with scalar metadata such as ``epoch``), and the
+    object-pickled ``{'model': Model, 'ema': Model, ...}`` payload of
+    ``multilabel_farms_exp2.pt`` (reference README.md:77), whose module tree
+    is walked through its pickled ``_parameters`` / ``_buffers`` /
+    ``_modules``; the EMA weights win when present, as in ultralytics'
+    ``attempt_load``. Storages of float16/32/64, bfloat16 and the integer
+    and bool types are read; any other storage type raises ``ValueError``.
+    """
+    with zipfile.ZipFile(path) as zf:
+        pkl_name = next((n for n in zf.namelist() if n.endswith("data.pkl")), None)
+        if pkl_name is None:
+            raise ValueError(f"{path!r} is not a torch zip checkpoint (no data.pkl)")
+        root = pkl_name[: -len("data.pkl")]
+
+        def rebuild(storage, offset, size, stride, *_):
+            sname, key = storage
+            raw = zf.read(f"{root}data/{key}")
+            if sname == "BFloat16Storage":
+                arr = _bf16_to_f32(raw)
+            elif sname in _STORAGE_DTYPES:
+                arr = np.frombuffer(raw, dtype=_STORAGE_DTYPES[sname])
+            else:
+                raise ValueError(f"unsupported torch storage type in {path!r}: {sname}")
+            size, stride = tuple(size), tuple(stride)
+            if 0 in size:
+                return np.zeros(size, arr.dtype)
+            # the view must lie inside the storage: as_strided does not check
+            last = offset + sum((n - 1) * st for n, st in zip(size, stride))
+            if len(size) != len(stride) or offset < 0 or min(stride + size, default=0) < 0 or last >= len(arr):
+                raise ValueError(f"tensor of size {size}, stride {stride} at offset {offset} "
+                                 f"lies outside its {len(arr)}-element storage in {path!r}")
+            return np.lib.stride_tricks.as_strided(
+                arr[offset:], shape=size, strides=[st * arr.itemsize for st in stride]
+            ).copy()
+
+        def rebuild_parameter(data, *_):
+            return data
+
+        rebuild_fns = {
+            "_rebuild_tensor_v2": rebuild,
+            "_rebuild_tensor": rebuild,
+            "_rebuild_parameter": rebuild_parameter,
+            "_rebuild_parameter_with_state": rebuild_parameter,
+        }
+        shadows: Dict[str, type] = {}
+
+        class _Unpickler(pickle.Unpickler):
+            def find_class(self, module, name):
+                if module == "torch._utils" and name in rebuild_fns:
+                    return rebuild_fns[name]
+                if module == "torch" and name.endswith("Storage"):
+                    return name
+                if (module, name) in _DATA_GLOBALS:
+                    return _DATA_GLOBALS[(module, name)]
+                full = f"{module}.{name}"
+                if full not in shadows:
+                    shadows[full] = type(name, (_Shadow,), {"_shadow_origin": full})
+                return shadows[full]
+
+            def persistent_load(self, pid):
+                # ('storage', storage type, key, location, numel)
+                _, stype, key, _, _ = pid
+                return (stype if isinstance(stype, str) else getattr(stype, "__name__", str(stype)), key)
+
+        obj = _Unpickler(io.BytesIO(zf.read(pkl_name))).load()
+
+    if isinstance(obj, dict) and not any(k in obj for k in ("ema", "model")):
+        flat = {k: np.asarray(v, np.float32) for k, v in obj.items() if isinstance(v, np.ndarray)}
+        if flat:
+            return flat
+    candidates = []
+    if isinstance(obj, dict):
+        candidates = [obj[k] for k in ("ema", "model") if isinstance(obj.get(k), _Shadow)]
+    elif isinstance(obj, _Shadow):
+        candidates = [obj]
+    for m in candidates:
+        sd: Dict[str, np.ndarray] = {}
+        _harvest(m, "", sd)
+        if sd:
+            return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+    raise ValueError(f"no tensors found in {path!r}: unsupported checkpoint layout")
+
+
+def load_pretrained(model, path: str):
+    """An ultralytics ``.pt`` -> (numpy parameter tree for ``model``, anchor
+    table in pixels or None). Load the tree with ``load_jax_params``."""
+    sd = read_pt_state_dict(path)
+    return params_from_state_dict(model, sd), anchors_from_state_dict(sd)

@@ -1,29 +1,39 @@
-"""Detection pipeline of the PyTorch port: image files -> detections.
+"""Detection pipeline of the PyTorch port: image files -> geocoded detections.
 
-Counterpart of ``make_infer_fn`` and ``detect_files`` in
+Counterpart of ``make_infer_fn``, ``detect_files`` and ``run_pipeline`` in
 aquaculture_tpu/pipeline.py, on the Python file loader. Tiles stream through
 the prefetched loader; normalize + resize + forward + NMS run as one
 function per fixed-shape batch on the device; batch N+1 is dispatched
 before batch N is harvested, so the device-to-host copy and the host's
-post-processing overlap device work. The geocode/areas/land-filter epilogue
-of ``run_pipeline`` comes in a later slice.
+post-processing overlap device work. ``run_pipeline`` adds the host
+epilogue: geocode, download-box dedup, cage areas and the land filter.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from aquaculture_tpu_torch import frame as gf
 from aquaculture_tpu_torch.config import IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import TileSpec
 from aquaculture_tpu_torch.data.loader import tile_batches
 from aquaculture_tpu_torch.models.yolov5 import YoloV5
 from aquaculture_tpu_torch.ops.nms import batched_nms
+from aquaculture_tpu_torch.post.areas import cage_areas
+from aquaculture_tpu_torch.post.dedup import deduplicate_download_boxes, deduplicate_gdf_with_bboxes
+from aquaculture_tpu_torch.post.geocode import geocode_detections, remove_land_detections
+from aquaculture_tpu_torch.post.landmask import remove_land_detections_hybrid
+
+# From this many detections on, the land filter rasterizes the land once
+# (remove_land_detections_hybrid, row-for-row the exact result); below it
+# the exact sjoin is cheaper than building the mask.
+HYBRID_LAND_FILTER_ROWS = 2000
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -34,6 +44,12 @@ class PipelineStats:
     batches: int = 0
     detections: int = 0
     infer_seconds: float = 0.0
+    # run_pipeline: host seconds and rows after each stage that ran
+    # (detect, geocode, dedup, areas, land_filter), and the land filter's
+    # branch ("exact" or "hybrid")
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    stage_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
+    land_filter: str = ""
 
     @property
     def tiles_per_second(self) -> float:
@@ -151,3 +167,62 @@ def detect_files(
         cls = np.zeros(0, np.int64)
     stats.detections = len(boxes)
     return boxes, conf, cls, all_specs, stats
+
+
+def run_pipeline(
+    paths: Sequence[str],
+    model: YoloV5,
+    download_bboxes: "gf.GeoFrame",
+    cfg: DetectConfig = DetectConfig(),
+    batch_size: int = 32,
+    land: Optional["gf.GeoFrame"] = None,
+    dedup: bool = True,
+    device="cuda",
+):
+    """Files -> geocoded, area-annotated ocean detections, on ``device``
+    (CUDA unless the CPU is asked for).
+
+    Mirrors geocode_results.py __main__ + calc_net_areas.py __main__
+    (reference: src/process_yolo/) in one call, in the JAX package's order:
+    detect, geocode, region dedup against the download boxes, cage areas,
+    then the land filter (the hybrid mask from HYBRID_LAND_FILTER_ROWS
+    detections on, else the exact sjoin). Returns (detections GeoFrame in
+    EPSG:4326, PipelineStats with each stage's host seconds and rows).
+    """
+    clock = time.perf_counter
+    t = clock()
+    boxes, conf, cls, specs, stats = detect_files(paths, model, cfg, batch_size, device=device)
+
+    def lap(stage: str, rows: int) -> None:
+        nonlocal t
+        now = clock()
+        stats.stage_seconds[stage] = now - t
+        stats.stage_rows[stage] = rows
+        t = now
+
+    lap("detect", len(boxes))
+    det = geocode_detections(boxes, conf, cls, specs, download_bboxes)
+    if len(det):
+        det["bbox_ind"] = [s.bbox_ind for s in specs]
+    lap("geocode", len(det))
+    # geocode_detections returns CRS 4326 and every step below preserves it
+    # (deduplicate_gdf_with_bboxes round-trips through to_crs(src_crs);
+    # drop/cage_areas copy the frame)
+    if len(det) and dedup:
+        dd = deduplicate_download_boxes(download_bboxes)
+        det = deduplicate_gdf_with_bboxes(dd, det)
+        lap("dedup", len(det))
+    if len(det) and "bbox_ind" in det.columns:
+        det = det.drop(columns=["bbox_ind"])
+    if len(det):
+        det = cage_areas(det)
+    lap("areas", len(det))
+    if land is not None and len(det):
+        if len(det) >= HYBRID_LAND_FILTER_ROWS:
+            stats.land_filter = "hybrid"
+            det = remove_land_detections_hybrid(det, land)
+        else:
+            stats.land_filter = "exact"
+            det = remove_land_detections(det, land)
+        lap("land_filter", len(det))
+    return det, stats

@@ -1,0 +1,2 @@
+"""Host epilogue of the PyTorch port: geocode, download-box dedup, cage areas
+and the land filter (numpy, host)."""

@@ -15,6 +15,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      counters zeroed just before and read just after; compare batched_nms
      through the kernel with the plain path on one batch; compare the
      card's f32 forward with the CPU's (TF32 off);
+  4b. the pipeline phase: drive ``aquaculture_tpu_torch.cli.pipeline.main``
+     (detect on the card, then geocode, download-box dedup, cage areas and
+     the land filter on the host) at full width (mt at 640, 32 tiles over 4
+     download boxes, two of them overlapping, with land; more than 2,000
+     rows reach the hybrid land filter), with the counters zeroed around
+     it, printing each stage's rows and host seconds; then the committed
+     trained fixture over its rendered world, once on the card and once on
+     the CPU, in bf16 through cli.pipeline (deviation reported) and in f32
+     through run_pipeline (held to the golden bar);
   5. time the serving program (mt, bf16, batch 128) with CUDA events
      (median of 3 windows after 3 warmups); time the suppression kernel on
      the serving program's own candidates at each of TIMED_SHAPES, and its
@@ -197,21 +206,23 @@ def check_kernels(dev, shapes) -> list:
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def write_tiles(d: str, n: int = 16, seed: int = 0) -> list:
-    """n seeded 1024 px JPEG tiles named with the tile codec."""
+def write_tiles(d: str, n: int = 16, seed: int = 0, specs=None) -> list:
+    """n seeded 1024 px JPEG tiles named with the tile codec: four per
+    download box along x, or the given TileSpecs."""
     from PIL import Image
 
     from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
 
+    if specs is None:
+        specs = [TileSpec(year=2014, bbox_ind=i // 4, x_offset=1024 * (i % 4), y_offset=0) for i in range(n)]
     rng = np.random.default_rng(seed)
     paths = []
-    for i in range(n):
+    for spec in specs:
         img = rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
         for _ in range(6):  # bright rectangles for structure
             x, y = rng.integers(0, 900, 2)
             w, h = rng.integers(30, 120, 2)
             img[y : y + h, x : x + w] = rng.integers(150, 255, 3, dtype=np.uint8)
-        spec = TileSpec(year=2014, bbox_ind=i // 4, x_offset=1024 * (i % 4), y_offset=0)
         p = os.path.join(d, encode_tile_name(spec, "jpeg"))
         Image.fromarray(img).save(p, quality=90)
         paths.append(p)
@@ -248,6 +259,234 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int) -> di
         rows += len(arr)
     return {"launches": launches, "seconds": seconds, "label_files": len(labels),
             "rows": rows, "tiles": stats.tiles, "batches": stats.batches}
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the aq-pipeline path
+# ---------------------------------------------------------------------------
+
+# Download boxes of the full-width drive (EPSG:3857 m): 0 and 1 overlap by
+# half, so dedup drops and clips box 1's rows; 2 and 3 share an edge.
+PIPELINE_BOXES = ((0.0, 0.0, 1200.0, 1200.0), (600.0, 0.0, 1800.0, 1200.0),
+                  (2400.0, 0.0, 3600.0, 1200.0), (3600.0, 0.0, 4800.0, 1200.0))
+PIPELINE_TILES = 32   # 8 per box: x offsets 0..3072, y offsets 0 and 1024
+PIPELINE_BATCH = 16
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "demo_ckpt_n160")
+
+
+def write_boxes_csv(path: str, boxes) -> None:
+    """wanted_bboxes.csv: one WKT polygon per download box, in bbox_ind order."""
+    with open(path, "w") as f:
+        f.write("geometry\n")
+        for x0, y0, x1, y1 in boxes:
+            f.write(f'"POLYGON (({x0} {y0}, {x1} {y0}, {x1} {y1}, {x0} {y1}, {x0} {y0}))"\n')
+
+
+def write_land(path: str, x0: float, x1: float, y: float, top: float, seed: int) -> None:
+    """A jagged coast from x0 to x1 around northing y (EPSG:3857), land up
+    to ``top``, written as EPSG:4326 GeoJSON."""
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.geo import polygon as P
+
+    xs = np.linspace(x0, x1, 33)
+    ys = y + np.random.default_rng(seed).uniform(-80, 80, len(xs))
+    ring = np.concatenate([np.stack([xs, ys], 1), [[x1, top], [x0, top]]], 0)
+    gf.GeoFrame({"name": ["coast"]}, geometry=[P.Polygon(ring)], crs=3857).to_crs(4326).to_file(path)
+
+
+def clipped_rows(det, boxes_csv: str) -> int:
+    """Rows whose geometry dedup clipped: their EPSG:3857 bounds differ from
+    the box geocode builds from their pixel columns and tile."""
+    from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
+    from aquaculture_tpu_torch.data.filenames import decode_tile_name
+    from aquaculture_tpu_torch.post.geocode import pixels_to_mercator
+
+    if not len(det):
+        return 0
+    specs = [decode_tile_name(n) for n in det["image"]]
+    dl = load_download_bboxes(boxes_csv)
+    tif = np.asarray([dl["geometry"].iloc[s.bbox_ind].bounds for s in specs])
+    xo = np.asarray([s.x_offset for s in specs], np.float64)
+    yo = np.asarray([s.y_offset for s in specs], np.float64)
+    px = det[["xmin", "ymin", "xmax", "ymax"]].to_numpy(np.float64)
+    x0, y1 = pixels_to_mercator(px[:, 0], px[:, 1], xo, yo, tif)
+    x1, y0 = pixels_to_mercator(px[:, 2], px[:, 3], xo, yo, tif)
+    got = det.to_crs(3857).bounds_array()
+    want = np.stack([x0, y0, x1, y1], 1)
+    return int((np.abs(got - want) > 1e-3).any(axis=1).sum())
+
+
+def check_geojson(path: str, det, n_classes: int) -> None:
+    """What cli.pipeline wrote: one feature per row, finite lon/lat boxes,
+    finite positive areas, confidences in (0, 1], known classes."""
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.config import CLASS_NAMES
+
+    back = gf.read_file(path)
+    if len(back) != len(det) or back.crs != 4326:
+        fail(f"{path}: {len(back)} features in EPSG:{back.crs} for {len(det)} rows")
+    if not len(back):
+        return
+    b = back.bounds_array()
+    if not (np.isfinite(b).all() and (np.abs(b[:, [0, 2]]) <= 180).all() and (np.abs(b[:, [1, 3]]) <= 90).all()):
+        fail(f"{path}: geometry outside lon/lat")
+    num = back[["xmin_m", "xmax_m", "ymin_m", "ymax_m", "area", "area_var", "min_area", "max_area",
+                "det_conf"]].to_numpy(np.float64)
+    if not np.isfinite(num).all() or not (back["area"] > 0).all():
+        fail(f"{path}: non-finite values or non-positive areas")
+    if not ((back["det_conf"] > 0) & (back["det_conf"] <= 1)).all():
+        fail(f"{path}: confidence out of (0, 1]")
+    if not set(back["type"]) <= set(CLASS_NAMES[:n_classes]):
+        fail(f"{path}: unknown classes {sorted(set(back['type']) - set(CLASS_NAMES[:n_classes]))}")
+
+
+def _stage_report(stats) -> dict:
+    return {"stage_rows": dict(stats.stage_rows), "stage_host_s": dict(stats.stage_seconds),
+            "land_filter": stats.land_filter, "tiles": stats.tiles, "batches": stats.batches}
+
+
+def drive_pipeline_full_width(d: str) -> dict:
+    """cli.pipeline on the card: mt at 640 from PIPELINE_TILES JPEG tiles
+    over PIPELINE_BOXES, random weights from seed 0, conf 1e-5, with land
+    over part of boxes 2 and 3."""
+    from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
+    from aquaculture_tpu_torch.data.filenames import TileSpec
+    from aquaculture_tpu_torch.ops import nms_cuda
+
+    tile_dir = os.path.join(d, "tiles")
+    os.makedirs(tile_dir)
+    specs = [TileSpec(year=2014, bbox_ind=b, x_offset=1024 * (i % 4), y_offset=1024 * (i // 4))
+             for b in range(len(PIPELINE_BOXES)) for i in range(PIPELINE_TILES // len(PIPELINE_BOXES))]
+    write_tiles(tile_dir, seed=1, specs=specs)
+    boxes_csv, land, out = (os.path.join(d, n) for n in ("wanted_bboxes.csv", "land.geojson", "det.geojson"))
+    write_boxes_csv(boxes_csv, PIPELINE_BOXES)
+    write_land(land, 2300.0, 4900.0, 1000.0, 1400.0, seed=2)
+
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    det, stats = cli_pipeline.main([
+        "--source", tile_dir, "--download-bboxes", boxes_csv, "--land", land, "--out", out,
+        "--variant", "mt", "--batch", str(PIPELINE_BATCH), "--conf", "1e-5",
+    ])
+    seconds = time.perf_counter() - t0
+    launches = nms_cuda.launches
+
+    n_batches = -(-PIPELINE_TILES // PIPELINE_BATCH)
+    if not launches == stats.batches == n_batches or stats.tiles != PIPELINE_TILES:
+        fail(f"pipeline: nms_suppress launched {launches} times for {stats.batches} batches "
+             f"of {stats.tiles} tiles, expected {n_batches} batches of {PIPELINE_TILES}")
+    rows = stats.stage_rows
+    if not rows["dedup"] < rows["geocode"]:
+        fail(f"pipeline: dedup dropped no row ({rows})")
+    clipped = clipped_rows(det, boxes_csv)
+    if not clipped:
+        fail("pipeline: dedup clipped no row")
+    if stats.land_filter != "hybrid" or rows["areas"] <= 2000 or not rows["land_filter"] < rows["areas"]:
+        fail(f"pipeline: land filter {stats.land_filter!r} on {rows['areas']} rows removed "
+             f"{rows['areas'] - rows['land_filter']}; expected the hybrid filter on > 2000 rows to remove some")
+    check_geojson(out, det, n_classes=5)
+    return {"variant": "mt", "img": 640, "tiles": PIPELINE_TILES, "batch": PIPELINE_BATCH,
+            "download_boxes": len(PIPELINE_BOXES), "launches": {"nms_suppress": launches},
+            "dedup_clipped_rows": clipped, "seconds": seconds, **_stage_report(stats)}
+
+
+def _match_golden(got, want) -> dict:
+    """Each row of ``got`` matched one to one to a row of ``want`` of the
+    same image and class at the golden bar of tests/test_golden_pipeline.py
+    (pixel-box IoU >= 0.99, confidence within 1e-3); also the spread of
+    each row's best IoU against its image and class, matched or not."""
+    cols = ["xmin", "ymin", "xmax", "ymax"]
+
+    def iou(a, b):
+        iw = max(min(a[2], b[2]) - max(a[0], b[0]), 0)
+        ih = max(min(a[3], b[3]) - max(a[1], b[1]), 0)
+        inter = iw * ih
+        ua = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+        return inter / ua if ua > 0 else 0.0
+
+    free = {}
+    for j, (img, typ, conf, box) in enumerate(zip(want["image"], want["type"], want["det_conf"],
+                                                  want[cols].to_numpy(np.float64))):
+        free.setdefault((img, typ), []).append((j, conf, box))
+    worst_iou, worst_dconf, unmatched, best = 1.0, 0.0, 0, []
+    for img, typ, conf, box in zip(got["image"], got["type"], got["det_conf"], got[cols].to_numpy(np.float64)):
+        cands = free.get((img, typ), [])
+        scored = sorted(((iou(box, b), -abs(conf - c), k) for k, (_, c, b) in enumerate(cands)), reverse=True)
+        best.append(scored[0][0] if scored else 0.0)
+        if not scored or scored[0][0] < 0.99 or -scored[0][1] > 1e-3:
+            unmatched += 1
+            continue
+        best_iou, neg_dconf, k = scored[0]
+        worst_iou, worst_dconf = min(worst_iou, best_iou), max(worst_dconf, -neg_dconf)
+        cands.pop(k)
+    return {"rows": [len(got), len(want)], "unmatched": unmatched, "worst_iou": float(worst_iou),
+            "worst_dconf": float(worst_dconf),
+            "best_iou_p05_p50": [float(q) for q in np.percentile(best, [5, 50])] if best else None}
+
+
+def drive_pipeline_trained_card_vs_cpu(d: str) -> dict:
+    """The committed trained fixture (n, 2 classes) at 160 px on its
+    rendered 24-tile world (seed 0), with land over part of it, once on the
+    card and once on the CPU:
+
+    - ``cli.pipeline`` as users run it (bf16): launches, land branch and
+      output checked; how far the card's rows are from the CPU's is
+      reported, not held to the golden bar, because at 160 px one pixel of
+      the model is 6.4 px of the tile and bf16 rounds activations after
+      cuDNN's and the CPU's different summation orders;
+    - ``run_pipeline`` in f32 with TF32 off: the two GeoJSONs hold the same
+      rows at the golden bar."""
+    import torch
+
+    from examples.end_to_end_demo import render_world
+
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.ops import nms_cuda
+    from aquaculture_tpu_torch.pipeline import run_pipeline
+
+    img_dir, _ = render_world(d, seed=0)
+    boxes_csv, land = os.path.join(d, "wanted_bboxes.csv"), os.path.join(d, "land.geojson")
+    write_land(land, -100.0, 3700.0, 1100.0, 2500.0, seed=3)
+    args = ["--source", img_dir, "--download-bboxes", boxes_csv, "--land", land,
+            "--weights", FIXTURE, "--img", "160", "--conf", "0.05"]
+    paths = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+    f32 = DetectConfig(img_size=160, conf_threshold=0.05, dtype="float32")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    runs, frames = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        for device in ("cuda", "cpu"):
+            out = os.path.join(d, f"det_{dtype}_{device}.geojson")
+            nms_cuda.launches = 0
+            if dtype == "bfloat16":
+                det, stats = cli_pipeline.main(args + ["--out", out, "--device", device])
+            else:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+                try:
+                    det, stats = run_pipeline(paths, load_model(FIXTURE, "n", 2), load_download_bboxes(boxes_csv),
+                                              f32, land=gf.read_file(land), device=device)
+                finally:
+                    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+                det.to_file(out)
+            launches = nms_cuda.launches
+            if launches != (stats.batches if device == "cuda" else 0):
+                fail(f"trained fixture, {dtype} on {device}: {launches} suppression launches "
+                     f"for {stats.batches} batches")
+            if stats.land_filter != "exact" or not stats.stage_rows["land_filter"] < stats.stage_rows["areas"]:
+                fail(f"trained fixture, {dtype} on {device}: land filter {stats.land_filter!r}, "
+                     f"rows {stats.stage_rows}")
+            check_geojson(out, det, n_classes=2)
+            frames[dtype, device] = gf.read_file(out)
+            runs[f"{dtype}_{device}"] = {"rows": len(det), "launches": launches, **_stage_report(stats)}
+    bf16 = _match_golden(frames["bfloat16", "cuda"], frames["bfloat16", "cpu"])
+    match = _match_golden(frames["float32", "cuda"], frames["float32", "cpu"])
+    if match["rows"][0] != match["rows"][1] or match["unmatched"] or match["rows"][0] < 50:
+        fail(f"trained fixture f32 card vs CPU (TF32 off) misses the golden bar: {match}")
+    return {"variant": "n", "img": 160, "tiles": 24, "weights": "tests/data/demo_ckpt_n160",
+            "f32_card_vs_cpu_golden_bar": match, "bf16_card_vs_cpu": bf16, "runs": runs}
 
 
 def check_nms_paths(paths: list, dev) -> dict:
@@ -514,6 +753,10 @@ def main() -> int:
         main_path = run_main_path(tile_dir, label_dir, n_tiles=16, batch=8)
         print(json.dumps({"phase": "main_path", **main_path}), flush=True)
         print(json.dumps({"phase": "nms_kernel_vs_plain_batch", **check_nms_paths(paths, dev)}), flush=True)
+    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
+        pipeline = {"full_width": drive_pipeline_full_width(d1),
+                    "trained_fixture": drive_pipeline_trained_card_vs_cpu(d2), "card": card}
+    print(json.dumps({"phase": "pipeline", **pipeline}), flush=True)
     print(json.dumps({"phase": "f32_card_vs_cpu_n160", "tf32": False, **check_f32_vs_cpu(dev)}), flush=True)
     print(json.dumps({"phase": "m_builds", **check_m_builds(dev)}), flush=True)
 
@@ -526,6 +769,7 @@ def main() -> int:
         "source": "aquaculture_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "aquaculture_tpu/ops/nms_pallas.py:33",
         "launches": main_path["launches"]["nms_suppress"],
+        "launches_pipeline": pipeline["full_width"]["launches"]["nms_suppress"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -41,6 +41,25 @@ def test_port_and_chip_smoke_load_no_jax():
         with torch.no_grad():
             det, valid = batched_nms(model(x), conf_thresh=1e-6)
         assert det.shape == (1, 300, 6) and valid.any()
+        # one aq-pipeline run: detect, geocode, dedup, areas, land filter
+        import os, tempfile
+        from PIL import Image
+        from aquaculture_tpu_torch import frame as gf
+        from aquaculture_tpu_torch.config import DetectConfig
+        from aquaculture_tpu_torch.geo import polygon as P
+        from aquaculture_tpu_torch.pipeline import run_pipeline
+        d = tempfile.mkdtemp()
+        path = os.path.join(d, "ORTHOIMAGERY.ORTHOPHOTOS2014_1_2560_0.png")
+        Image.fromarray(np.random.default_rng(1).integers(0, 255, (1024, 1024, 3), dtype=np.uint8)).save(path)
+        boxes = gf.GeoFrame({"d": [0, 1]}, geometry=[P.box(0, 0, 1200, 1200), P.box(600, 0, 1800, 1200)],
+                            crs=3857)
+        land = gf.GeoFrame({"n": [0]}, geometry=[P.box(1000, 1100, 2000, 2000)], crs=3857).to_crs(4326)
+        out, stats = run_pipeline([path], model, boxes, DetectConfig(img_size=128, conf_threshold=1e-6),
+                                  batch_size=1, land=land, device="cpu")
+        assert len(out) and stats.land_filter == "exact", (len(out), stats)
+        assert stats.stage_rows["dedup"] < stats.stage_rows["geocode"]
+        assert stats.stage_rows["land_filter"] < stats.stage_rows["areas"]
+        import shutil; shutil.rmtree(d)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
