@@ -7,7 +7,11 @@ Emits one ``<image-stem>.txt`` per image with detections, rows
 (``--device cuda``, the default) unless ``--device cpu`` is given.
 
     python -m aquaculture_tpu_torch.cli.detect --source DIR --out LABELS/ \\
-        [--weights CKPT_DIR | X.pt] --variant mt
+        [--weights CKPT_DIR | X.pt] --variant mt \\
+        [--augment] [--multi-label] [--decode-scale]
+
+``--variant m6`` (the P6 family) serves at 1280 px unless --img says
+otherwise.
 """
 
 from __future__ import annotations
@@ -64,6 +68,13 @@ def resolve_model_args(
     return variant, num_classes
 
 
+def default_img_size(img: int | None, variant: str) -> int:
+    """--img, else 1280 for the P6 family (*6) and 640 for the rest."""
+    if img is not None:
+        return img
+    return 1280 if variant.endswith("6") else 640
+
+
 def load_model(weights: str | None, variant: str = "m", num_classes: int = 5) -> YoloV5:
     """An ultralytics ``.pt`` (with the anchors it stores, if any), a
     checkpoint directory of the JAX package's format, or the seed-0 random
@@ -97,9 +108,19 @@ def main(argv=None):
     ap.add_argument("--conf", type=float, default=0.25)
     ap.add_argument("--iou", type=float, default=0.45)
     ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--img", type=int, default=640, help="inference size")
+    ap.add_argument("--img", type=int, default=None,
+                    help="inference size (default: 640, or 1280 for *6 variants)")
     ap.add_argument("--pre-topk", type=int, default=None,
                     help="candidate pool cap before suppression (default 1024)")
+    ap.add_argument("--augment", action="store_true",
+                    help="test-time augmentation (multi-scale + lr-flip, "
+                         "ultralytics detect.py --augment)")
+    ap.add_argument("--multi-label", action="store_true",
+                    help="one detection per (box, class) above conf "
+                         "(ultralytics val.py semantics; default argmax class)")
+    ap.add_argument("--decode-scale", action="store_true",
+                    help="decode-at-scale: the host resizes tiles to img px "
+                         "before the copy to the device (requires 8*img %% tile == 0)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -117,13 +138,15 @@ def main(argv=None):
     else:
         paths = sorted(glob.glob(args.source)) or [args.source]
 
+    args.img = default_img_size(args.img, args.variant)
     model = load_model(args.weights, args.variant, args.num_classes)
-    cfg_kw = dict(img_size=args.img, conf_threshold=args.conf, iou_threshold=args.iou)
+    cfg_kw = dict(img_size=args.img, conf_threshold=args.conf, iou_threshold=args.iou,
+                  multi_label=args.multi_label, augment=args.augment)
     if args.pre_topk:
         cfg_kw["pre_nms_topk"] = args.pre_topk
     cfg = DetectConfig(**cfg_kw)
     boxes, conf, cls, specs, stats = detect_files(
-        paths, model, cfg, args.batch, tile=IM_WIDTH, device=device,
+        paths, model, cfg, args.batch, tile=IM_WIDTH, device=device, decode_scale=args.decode_scale,
     )
 
     # rows are normalized to the TILE the boxes live in (reference contract:
@@ -145,7 +168,7 @@ def main(argv=None):
             f.write("\n".join(lines) + "\n")
     print(
         f"[INFO] {stats.tiles} tiles, {stats.detections} detections, "
-        f"{stats.tiles_per_second:.1f} tiles/s on {device} -> {args.out}"
+        f"{stats.tiles_per_second:.1f} tiles/s on {device} ({stats.loader} loader) -> {args.out}"
     )
     return stats
 

@@ -4,12 +4,13 @@ What the reference runs as staged scripts with file handoffs
 (tile_tifs -> detect -> geocode_results -> calc_net_areas) runs here as one
 program, as ``aquaculture_tpu.cli.pipeline`` does: detection on the GPU
 (``--device cuda``, the default; raises without one) or on the CPU
-(``--device cpu``), then geocode, download-box dedup, cage areas and the
-land filter on the host.
+(``--device cpu``), then geocode, download-box dedup, cross-tile NMS
+(``--overlap``), cage areas and the land filter on the host.
 
     python -m aquaculture_tpu_torch.cli.pipeline --source DIR \\
         --download-bboxes wanted_bboxes.csv --out detections.geojson \\
-        [--weights CKPT_DIR | X.pt] [--land LAND.geojson]
+        [--weights CKPT_DIR | X.pt] [--land LAND.geojson] \\
+        [--overlap PX | --decode-scale] [--decode-threads N]
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import time
 
 from aquaculture_tpu_torch import frame as gf
-from aquaculture_tpu_torch.cli.detect import load_model, resolve_model_args
+from aquaculture_tpu_torch.cli.detect import default_img_size, load_model, resolve_model_args
 from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
 from aquaculture_tpu_torch.config import DetectConfig, resolve_device
 from aquaculture_tpu_torch.models.yolov5 import VARIANTS
@@ -41,10 +42,20 @@ def main(argv=None):
     ap.add_argument("--conf", type=float, default=0.25)
     ap.add_argument("--pre-topk", type=int, default=None,
                     help="candidate pool cap before suppression (default 1024)")
-    ap.add_argument("--img", type=int, default=640, help="inference size")
+    ap.add_argument("--img", type=int, default=None,
+                    help="inference size (default: 640, or 1280 for *6 variants)")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--land", default=None, help="land polygons GeoJSON")
     ap.add_argument("--no-dedup", action="store_true")
+    ap.add_argument("--overlap", type=int, default=0,
+                    help="overlap serving: tile overlap in px on large rasters "
+                         "(boundary objects appear whole in a neighbouring tile; "
+                         "duplicates dedup by meter-space IoU). 0 = the reference's hard grid")
+    ap.add_argument("--decode-threads", type=int, default=0,
+                    help="host decode pool: 0 = auto (cores, capped at 8), 1 = sequential "
+                         "(bounds host RAM to one raster in flight)")
+    ap.add_argument("--decode-scale", action="store_true",
+                    help="decode-at-scale: the host resizes tiles to img px (see cli.detect)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -63,7 +74,7 @@ def main(argv=None):
         args.weights, args.variant, args.num_classes
     )
     model = load_model(args.weights, args.variant, args.num_classes)
-    cfg_kw = dict(img_size=args.img, conf_threshold=args.conf)
+    cfg_kw = dict(img_size=default_img_size(args.img, args.variant), conf_threshold=args.conf)
     if args.pre_topk:
         cfg_kw["pre_nms_topk"] = args.pre_topk
     cfg = DetectConfig(**cfg_kw)
@@ -72,6 +83,7 @@ def main(argv=None):
 
     det, stats = run_pipeline(
         paths, model, dl, cfg, args.batch, land=land, dedup=not args.no_dedup, device=device,
+        overlap=args.overlap, decode_threads=args.decode_threads, decode_scale=args.decode_scale,
     )
     t0 = time.perf_counter()
     det.to_file(args.out)
@@ -80,7 +92,8 @@ def main(argv=None):
     stages = ", ".join(f"{k} {stats.stage_seconds[k]:.3f} s ({stats.stage_rows[k]} rows)"
                        for k in stats.stage_seconds)
     print(f"[INFO] {stats.tiles} tiles -> {len(det)} detections at "
-          f"{stats.tiles_per_second:.1f} tiles/s on {device} -> {args.out}; {stages}")
+          f"{stats.tiles_per_second:.1f} tiles/s on {device} ({stats.loader} loader) -> {args.out}; "
+          f"{stages}")
     return det, stats
 
 

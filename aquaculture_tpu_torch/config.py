@@ -2,8 +2,9 @@
 
 A copy of what the port needs from aquaculture_tpu/config.py: the imagery
 geometry and CRS registry (reference src/utils.py:17-20), the class
-mappings and ``DetectConfig`` for the argmax-class serving path. The TTA,
-multi-label and training settings arrive with the slices that use them.
+mappings and ``DetectConfig`` with its serving options (multi-label
+candidates, test-time augmentation). The training settings arrive with
+the slice that uses them.
 """
 
 from __future__ import annotations
@@ -43,12 +44,28 @@ class DetectConfig:
     max_detections: int = 300       # post-NMS cap (fixed shape)
     # Pre-NMS candidate cap: the suppression scan is K serial steps.
     pre_nms_topk: int = 1024
+    # one candidate per (box, class) above conf (ultralytics val.py
+    # semantics); False = argmax class, the reference's detect.py default
+    multi_label: bool = False
+    # test-time augmentation (ultralytics detect.py --augment): one forward
+    # pass per (scale, flip), merged before NMS (ops/tta.py)
+    augment: bool = False
+    tta_scales: tuple = (1.0, 0.83, 0.67)
+    tta_flips: tuple = (None, "lr", None)
     class_agnostic: bool = False
     dtype: str = "bfloat16"
     # ops.nms.batched_nms backend. 'auto' is the only value: suppression
     # follows the tensors' device (CUDA -> the hand-written kernel, which
     # launches or raises; CPU -> the plain PyTorch version).
     nms_backend: str = "auto"
+
+    def __post_init__(self):
+        # zip(scales, flips) would drop passes on a length mismatch
+        if len(self.tta_scales) != len(self.tta_flips):
+            raise ValueError(
+                f"tta_scales ({len(self.tta_scales)}) and tta_flips "
+                f"({len(self.tta_flips)}) must have the same length: one "
+                "flip entry (None or 'lr') per scale pass")
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -1,12 +1,14 @@
 """Batched, prefetching tile loader feeding the detector (file path).
 
 Counterpart of the file path of aquaculture_tpu/data/loader.py: image files
--> decode (PIL; an ordered thread pool decodes ahead) -> hard tile grid ->
-fixed-size uint8 batches, the tail batch zero-padded with a validity mask
--> a bounded background prefetch thread. Batches are torch tensors; with
-``pin_memory`` they sit in pinned host memory, so the host-to-device copy
-can be ``non_blocking``. The object-store and native-loader paths come in
-a later slice of the port.
+-> decode (PIL; an ordered thread pool decodes ahead) -> tile grid (the
+hard grid, or overlapping tiles for overlap serving) -> fixed-size uint8
+batches, the tail batch zero-padded with a validity mask -> a bounded
+background prefetch thread. Decode-at-scale (``out_tile``) resizes each
+raster once before slicing, with offsets kept in source pixels. Batches
+are torch tensors; with ``pin_memory`` they sit in pinned host memory, so
+the host-to-device copy can be ``non_blocking``. The object-store path
+comes with the multi-process slice of the port.
 """
 
 from __future__ import annotations
@@ -37,17 +39,24 @@ class TileBatch:
         self.valid = valid
 
 
-def iter_tiles_from_files(paths: Sequence[str], tile: int = IM_WIDTH) -> Iterator[Tuple[np.ndarray, TileSpec]]:
-    """Yield (tile_array, spec) over pre-tiled images or large rasters,
-    decoding ahead in an ordered pool of up to 8 threads (PIL's decoders
-    release the GIL)."""
-    decode_threads = min(os.cpu_count() or 1, 8)
+def iter_tiles_from_files(
+    paths: Sequence[str], tile: int = IM_WIDTH, decode_threads: int = 0,
+    stride: int = 0, out_tile: int = 0,
+) -> Iterator[Tuple[np.ndarray, TileSpec]]:
+    """Yield (tile_array, spec) over pre-tiled images or large rasters.
+
+    decode_threads > 1 decodes ahead in an ordered pool (PIL's decoders
+    release the GIL); 0 = auto (cpu_count capped at 8), 1 = sequential
+    (host RAM bounded to one raster). stride and out_tile as in
+    ``_emit_tiles``."""
+    if decode_threads == 0:
+        decode_threads = min(os.cpu_count() or 1, 8)
     if decode_threads > 1 and len(paths) > 1:
         images = _window_map(read_image, paths, decode_threads)
     else:
         images = ((read_image(p), p) for p in paths)
     for arr, path in images:
-        yield from _emit_tiles(arr, decode_tile_name(path), tile)
+        yield from _emit_tiles(arr, decode_tile_name(path), tile, stride, out_tile)
 
 
 def _window_map(fn, items: Sequence, workers: int):
@@ -74,20 +83,46 @@ def _window_map(fn, items: Sequence, workers: int):
             yield res, item
 
 
-def _emit_tiles(arr: np.ndarray, base: TileSpec, tile: int) -> Iterator[Tuple[np.ndarray, TileSpec]]:
-    """Split one decoded raster into (tile, spec) pairs on the hard grid: a
-    <=tile-px image is one tile (offsets from its name); larger rasters
-    split into the offset grid with offsets ADDED to the name's base."""
-    if arr.shape[0] <= tile and arr.shape[1] <= tile:
-        yield arr, base
-        return
-    tiles, offs = split_image(arr, tile)
+def _emit_tiles(
+    arr: np.ndarray, base: TileSpec, tile: int, stride: int = 0, out_tile: int = 0
+) -> Iterator[Tuple[np.ndarray, TileSpec]]:
+    """Split one decoded raster into (tile, spec) pairs: a <=tile-px image
+    is one tile (offsets from its name); larger rasters split into the
+    offset grid with offsets ADDED to the name's base. 0 < stride < tile
+    overlaps the tiles (overlap serving, data/tiling.split_image).
+
+    out_tile > 0 (decode-at-scale): the raster resizes ONCE to
+    out_tile/tile with PIL's bilinear, to libjpeg's ceil(d*N/8) dims,
+    before slicing in scaled space; offsets stay in SOURCE pixels.
+    Incompatible with stride (overlap serving slices in source space)."""
+    if out_tile:
+        if stride and stride != tile:
+            raise ValueError("decode-at-scale does not support overlap serving")
+        if out_tile >= tile or (8 * out_tile) % tile != 0:
+            raise ValueError(f"out_tile must be a proper N/8 fraction of tile; got {out_tile}/{tile}")
+        from PIL import Image
+
+        n = 8 * out_tile // tile
+        sh = (arr.shape[0] * n + 7) // 8
+        sw = (arr.shape[1] * n + 7) // 8
+        if (sh, sw) != arr.shape[:2]:
+            arr = np.asarray(Image.fromarray(arr).resize((sw, sh), Image.BILINEAR))
+        emit, stride = out_tile, 0
+        if sh <= out_tile and sw <= out_tile:
+            yield arr, base
+            return
+    else:
+        emit = tile
+        if arr.shape[0] <= tile and arr.shape[1] <= tile:
+            yield arr, base
+            return
+    tiles, offs = split_image(arr, emit, stride=stride)
     for t, (dx, dy) in zip(tiles, offs):
         yield t, TileSpec(
             year=base.year,
             bbox_ind=base.bbox_ind,
-            x_offset=base.x_offset + dx,
-            y_offset=base.y_offset + dy,
+            x_offset=base.x_offset + dx * tile // emit,
+            y_offset=base.y_offset + dy * tile // emit,
             layer=base.layer,
         )
 
@@ -157,8 +192,13 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
 
 def tile_batches(
     paths: Sequence[str], batch_size: int = 32, tile: int = IM_WIDTH, pin_memory: bool = False,
+    stride: int = 0, decode_threads: int = 0, out_tile: int = 0,
 ) -> Iterator[TileBatch]:
     """paths -> prefetched fixed-shape TileBatches (the full input
     pipeline). pin_memory=True (needs CUDA) puts each batch in pinned host
-    memory for a non_blocking copy to the card."""
-    return prefetch(batch_tiles(iter_tiles_from_files(paths, tile), batch_size, tile, pin_memory))
+    memory for a non_blocking copy to the card. stride < tile overlaps the
+    tiles of large rasters; decode_threads: 0 = auto, 1 = sequential;
+    out_tile > 0 = decode-at-scale, batches (B, out_tile, out_tile, 3)."""
+    tiles = iter_tiles_from_files(paths, tile, decode_threads=decode_threads, stride=stride,
+                                  out_tile=out_tile)
+    return prefetch(batch_tiles(tiles, batch_size, out_tile or tile, pin_memory))

@@ -17,7 +17,9 @@ the public v6 architecture:
     model.10..23  PANet neck
     model.24      Detect (m.0/m.1/m.2 1x1 convs)
 
-The P6 numbering comes with the port's P6 family. Torch tensors are OIHW;
+P6 models (n6..x6) use the yolov5-p6 numbering instead: backbone
+model.0..11 (an extra 768 -> 1024 Conv + C3 before SPPF), 4-level neck
+model.12..32, Detect at model.33 with four m.* convs. Torch tensors are OIHW;
 the tree stores HWIO. BatchNorm maps 1:1 (weight->scale, bias->bias,
 running_mean->mean, running_var->var).
 
@@ -38,7 +40,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from aquaculture_tpu_torch.models.yolov5 import DOWN_LAYERS
+from aquaculture_tpu_torch.models.yolov5 import DOWN_LAYERS, DOWN_LAYERS_P6
 
 # our-name -> ultralytics model index
 _LAYER_INDEX = {
@@ -48,7 +50,23 @@ _LAYER_INDEX = {
     "n21": 21, "n23": 23,
 }
 _DETECT_INDEX = 24
-_SPPF = "b9"
+
+# P6 family (public yolov5-p6 yaml layer numbering)
+_LAYER_INDEX_P6 = {
+    "b0": 0, "b1": 1, "b2": 2, "b3": 3, "b4": 4, "b5": 5, "b6": 6,
+    "b7": 7, "b8": 8, "b9": 9, "b10": 10, "b11": 11,
+    "n12": 12, "n15": 15, "n16": 16, "n19": 19, "n20": 20, "n23": 23,
+    "n24": 24, "n26": 26, "n27": 27, "n29": 29, "n30": 30, "n32": 32,
+}
+_DETECT_INDEX_P6 = 33
+
+
+def family_layout(model) -> tuple:
+    """(layer_index, detect_index, sppf_name) of ``model``'s family: the
+    ultralytics layer numbering, as the JAX package's ``family_layout``."""
+    if getattr(model, "is_p6", False):
+        return _LAYER_INDEX_P6, _DETECT_INDEX_P6, "b11"
+    return _LAYER_INDEX, _DETECT_INDEX, "b9"
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -85,7 +103,9 @@ def _accepts(name: str, want: tuple, got: tuple) -> bool:
         return False
     if layer == "b0":
         return got[1:] in ((3, 6, 6), (12, 3, 3))
-    if layer in DOWN_LAYERS and name == f"{layer}.weight":
+    # P5 "b9" is the SPPF and P6 has no "n18"/"n21", so one name set serves
+    # both families: only a downsample conv has the weight "<layer>.weight"
+    if layer in DOWN_LAYERS + DOWN_LAYERS_P6 and name == f"{layer}.weight":
         cin = want[1] // 4 if want[-1] == 2 else want[1]  # an earlier load may hold k2
         return got[1:] in ((cin, 3, 3), (4 * cin, 2, 2))
     return False
@@ -175,17 +195,25 @@ def params_from_state_dict(model, state_dict: Dict[str, np.ndarray]) -> dict:
         sd[k.replace("model.model.", "model.")] = np.asarray(v, dtype=np.float32)
 
     dp = model.depths()
-    c3_depths = {
-        "b2": dp["n3"], "b4": dp["n6"], "b6": dp["n9"], "b8": dp["n3"],
-        "n13": dp["n3"], "n17": dp["n3"], "n20": dp["n3"], "n23": dp["n3"],
-    }
+    layer_index, detect_index, sppf_name = family_layout(model)
+    if getattr(model, "is_p6", False):
+        c3_depths = {
+            "b2": dp["n3"], "b4": dp["n6"], "b6": dp["n9"], "b8": dp["n3"],
+            "b10": dp["n3"], "n15": dp["n3"], "n19": dp["n3"], "n23": dp["n3"],
+            "n26": dp["n3"], "n29": dp["n3"], "n32": dp["n3"],
+        }
+    else:
+        c3_depths = {
+            "b2": dp["n3"], "b4": dp["n6"], "b6": dp["n9"], "b8": dp["n3"],
+            "n13": dp["n3"], "n17": dp["n3"], "n20": dp["n3"], "n23": dp["n3"],
+        }
 
     params: dict = {}
-    for name, idx in _LAYER_INDEX.items():
+    for name, idx in layer_index.items():
         prefix = f"model.{idx}"
         if name in c3_depths:
             params[name] = _c3_from_torch(sd, prefix, c3_depths[name])
-        elif name == _SPPF:
+        elif name == sppf_name:
             params[name] = {
                 "cv1": _conv_from_torch(sd, f"{prefix}.cv1"),
                 "cv2": _conv_from_torch(sd, f"{prefix}.cv2"),
@@ -194,22 +222,22 @@ def params_from_state_dict(model, state_dict: Dict[str, np.ndarray]) -> dict:
             params[name] = _conv_from_torch(sd, prefix)
 
     params["head"] = [
-        {"w": _hwio(sd[f"model.{_DETECT_INDEX}.m.{i}.weight"]),
-         "b": sd[f"model.{_DETECT_INDEX}.m.{i}.bias"]}
+        {"w": _hwio(sd[f"model.{detect_index}.m.{i}.weight"]),
+         "b": sd[f"model.{detect_index}.m.{i}.bias"]}
         for i in range(len(model.strides))
     ]
     return params
 
 
 def anchors_from_state_dict(state_dict: Dict[str, np.ndarray]):
-    """The per-stride (3, 3, 2) anchor table of a P5 checkpoint in pixels,
-    if the file has one."""
+    """The per-stride anchor table in pixels, if the file has one: (3, 3, 2)
+    for P5 checkpoints, (4, 3, 2) for the P6 family."""
     for k in state_dict:
         if k.endswith("anchors"):
             a = np.asarray(state_dict[k], dtype=np.float32)
-            if a.shape == (3, 3, 2):
+            if a.shape in ((3, 3, 2), (4, 3, 2)):
                 # ultralytics stores anchors in grid units; scale by stride.
-                strides = np.array([8.0, 16.0, 32.0])[:, None, None]
+                strides = np.array([8.0, 16.0, 32.0, 64.0][: a.shape[0]])[:, None, None]
                 return tuple(tuple(map(tuple, lvl)) for lvl in a * strides)
     return None
 

@@ -1,9 +1,11 @@
-"""YOLOv5 detector family (P5: n/s/m/l/x and the lane-aligned mt) as a
-PyTorch module.
+"""YOLOv5 detector family (P5: n/s/m/l/x and the lane-aligned mt; P6:
+n6..x6) as a PyTorch module.
 
 Counterpart of aquaculture_tpu/models/yolov5.py: CSPDarknet backbone (6x6/s2
 stem, C3 blocks, SPPF), PANet neck and the anchor-based detect head at
-strides 8/16/32. Inference only: the module holds BN-folded weights, loaded
+strides 8/16/32 or, for the *6 variants, an extra 768 -> 1024 backbone
+stage, a 4-level PANet and a stride-64 detect level (public yolov5-p6
+yaml). Inference only: the module holds BN-folded weights, loaded
 from a JAX-package parameter tree by models/weights.py. ``init`` builds the
 same random tree as the JAX package's ``yolov5_init`` from a seed, with
 numpy.
@@ -25,13 +27,19 @@ from torch import nn
 from aquaculture_tpu_torch.models import layers as L
 
 # depth_multiple, width_multiple per variant (public YOLOv5 scaling table).
-# The P6 family (n6..x6) comes in a later slice of the port.
+# The "*6" names are the P6 family: their base letter's scaling pair, the
+# P6 topology.
 VARIANTS: Dict[str, Tuple[float, float]] = {
     "n": (0.33, 0.25),
     "s": (0.33, 0.50),
     "m": (0.67, 0.75),
     "l": (1.00, 1.00),
     "x": (1.33, 1.25),
+    "n6": (0.33, 0.25),
+    "s6": (0.33, 0.50),
+    "m6": (0.67, 0.75),
+    "l6": (1.00, 1.00),
+    "x6": (1.33, 1.25),
     # mt: m's depths, channel map from CHANNEL_OVERRIDES (width multiple unused)
     "mt": (0.67, 0.75),
 }
@@ -49,8 +57,18 @@ DEFAULT_ANCHORS = (
 )
 STRIDES = (8, 16, 32)
 
-# stride-2 downsample convs of the P5 topology (features' `down`)
+# P6 family (public yolov5-p6 anchor table, pixels at 1280 px)
+DEFAULT_ANCHORS_P6 = (
+    ((19.0, 27.0), (44.0, 40.0), (38.0, 94.0)),          # P3/8
+    ((96.0, 68.0), (86.0, 152.0), (180.0, 137.0)),       # P4/16
+    ((140.0, 301.0), (303.0, 264.0), (238.0, 542.0)),    # P5/32
+    ((436.0, 615.0), (739.0, 380.0), (925.0, 792.0)),    # P6/64
+)
+STRIDES_P6 = (8, 16, 32, 64)
+
+# stride-2 downsample convs of each topology (features' `down`)
 DOWN_LAYERS = ("b1", "b3", "b5", "b7", "n18", "n21")
+DOWN_LAYERS_P6 = ("b1", "b3", "b5", "b7", "b9", "n24", "n27", "n30")
 
 
 def _make_divisible(c: float, divisor: int = 8) -> int:
@@ -78,8 +96,9 @@ class HeadConv(nn.Module):
 
 
 class YoloV5(nn.Module):
-    """P5 YOLOv5 inference model. Parameter names follow the JAX package's
-    tree (``b2.m.0.cv1.weight`` <-> ``b2/m/0/cv1/w``). The stem starts in the
+    """YOLOv5 inference model, P5 or P6 by variant. Parameter names follow
+    the JAX package's tree (``b2.m.0.cv1.weight`` <-> ``b2/m/0/cv1/w``);
+    ``n20`` is a C3 in P5 and a 1x1 conv in P6, as there. The stem starts in the
     fused space-to-depth layout (k3 over 12 channels) and every downsample
     as k3/s2; models/weights.py may load the other layouts the JAX package
     stores, and ``features`` dispatches on the stored kernel shape as the
@@ -91,8 +110,11 @@ class YoloV5(nn.Module):
             raise ValueError(f"unknown or unported variant {variant!r}; have {sorted(VARIANTS)}")
         self.variant = variant
         self.num_classes = num_classes
-        self.anchor_table = anchors if anchors is not None else DEFAULT_ANCHORS
-        self.strides = STRIDES
+        self.is_p6 = variant.endswith("6")
+        family_anchors = DEFAULT_ANCHORS_P6 if self.is_p6 else DEFAULT_ANCHORS
+        self.anchor_table = anchors if anchors is not None else family_anchors
+        self.strides = STRIDES_P6 if self.is_p6 else STRIDES
+        self.down_layers = DOWN_LAYERS_P6 if self.is_p6 else DOWN_LAYERS
         ch, dp = self.channels(), self.depths()
         c1, c2, c3, c4, c5 = (ch[f"c{i}"] for i in range(1, 6))
         n3, n6, n9 = dp["n3"], dp["n6"], dp["n9"]
@@ -105,16 +127,36 @@ class YoloV5(nn.Module):
         self.b6 = L.C3(c4, c4, n9)
         self.b7 = L.ConvBlock(c4, c5, 3)
         self.b8 = L.C3(c5, c5, n3)
-        self.b9 = L.SPPF(c5, c5)
-        self.n10 = L.ConvBlock(c5, c4, 1)
-        self.n13 = L.C3(2 * c4, c4, n3)
-        self.n14 = L.ConvBlock(c4, c3, 1)
-        self.n17 = L.C3(2 * c3, c3, n3)
-        self.n18 = L.ConvBlock(c3, c3, 3)
-        self.n20 = L.C3(2 * c3, c4, n3)
-        self.n21 = L.ConvBlock(c4, c4, 3)
-        self.n23 = L.C3(2 * c4, c5, n3)
-        self.head = nn.ModuleList(HeadConv(c, self.na * self.no) for c in (c3, c4, c5))
+        if self.is_p6:
+            c6 = ch["c6"]
+            self.b9 = L.ConvBlock(c5, c6, 3)
+            self.b10 = L.C3(c6, c6, n3)
+            self.b11 = L.SPPF(c6, c6)
+            self.n12 = L.ConvBlock(c6, c5, 1)
+            self.n15 = L.C3(2 * c5, c5, n3)
+            self.n16 = L.ConvBlock(c5, c4, 1)
+            self.n19 = L.C3(2 * c4, c4, n3)
+            self.n20 = L.ConvBlock(c4, c3, 1)
+            self.n23 = L.C3(2 * c3, c3, n3)
+            self.n24 = L.ConvBlock(c3, c3, 3)
+            self.n26 = L.C3(2 * c3, c4, n3)
+            self.n27 = L.ConvBlock(c4, c4, 3)
+            self.n29 = L.C3(2 * c4, c5, n3)
+            self.n30 = L.ConvBlock(c5, c5, 3)
+            self.n32 = L.C3(2 * c5, c6, n3)
+            head_in = (c3, c4, c5, c6)
+        else:
+            self.b9 = L.SPPF(c5, c5)
+            self.n10 = L.ConvBlock(c5, c4, 1)
+            self.n13 = L.C3(2 * c4, c4, n3)
+            self.n14 = L.ConvBlock(c4, c3, 1)
+            self.n17 = L.C3(2 * c3, c3, n3)
+            self.n18 = L.ConvBlock(c3, c3, 3)
+            self.n20 = L.C3(2 * c3, c4, n3)
+            self.n21 = L.ConvBlock(c4, c4, 3)
+            self.n23 = L.C3(2 * c4, c5, n3)
+            head_in = (c3, c4, c5)
+        self.head = nn.ModuleList(HeadConv(c, self.na * self.no) for c in head_in)
 
     @property
     def na(self) -> int:
@@ -127,6 +169,10 @@ class YoloV5(nn.Module):
     def channels(self) -> Dict[str, int]:
         w = VARIANTS[self.variant][1]
         ch = {f"c{i}": _width(c, w) for i, c in enumerate((64, 128, 256, 512, 1024), 1)}
+        if self.is_p6:
+            # P6 backbone: ... 512 -> 768 -> 1024 (public yolov5-p6 yaml)
+            ch["c5"] = _width(768, w)
+            ch["c6"] = _width(1024, w)
         ch.update(CHANNEL_OVERRIDES.get(self.variant, {}))
         return ch
 
@@ -138,11 +184,10 @@ class YoloV5(nn.Module):
     # numpy parameter trees (the JAX package's format)
     # ------------------------------------------------------------------
 
-    def init(self, seed: int = 0) -> dict:
-        """Unfused random tree, draw for draw the JAX package's
-        ``YoloV5.init(seed)``."""
-        ch, dp = self.channels(), self.depths()
-        rng = np.random.default_rng(seed)
+    @staticmethod
+    def _init_backbone_prefix(rng, ch, dp) -> dict:
+        """b0..b8, the CSPDarknet prefix both families share (the P6
+        family's c5 is 768-wide; the expressions are the same)."""
         return {
             "b0": L.conv_init(rng, 3, ch["c1"], 6),
             "b1": L.conv_init(rng, ch["c1"], ch["c2"], 3),
@@ -153,6 +198,24 @@ class YoloV5(nn.Module):
             "b6": L.c3_init(rng, ch["c4"], ch["c4"], dp["n9"]),
             "b7": L.conv_init(rng, ch["c4"], ch["c5"], 3),
             "b8": L.c3_init(rng, ch["c5"], ch["c5"], dp["n3"]),
+        }
+
+    def _head_init(self, rng, channels) -> list:
+        return [
+            {"w": L.he_init(rng, (1, 1, c, self.na * self.no), c),
+             "b": np.zeros((self.na * self.no,), np.float32)}
+            for c in channels
+        ]
+
+    def init(self, seed: int = 0) -> dict:
+        """Unfused random tree, draw for draw the JAX package's
+        ``YoloV5.init(seed)``."""
+        if self.is_p6:
+            return self._init_p6(seed)
+        ch, dp = self.channels(), self.depths()
+        rng = np.random.default_rng(seed)
+        return {
+            **self._init_backbone_prefix(rng, ch, dp),
             "b9": L.sppf_init(rng, ch["c5"], ch["c5"]),
             "n10": L.conv_init(rng, ch["c5"], ch["c4"], 1),
             "n13": L.c3_init(rng, 2 * ch["c4"], ch["c4"], dp["n3"]),
@@ -162,11 +225,32 @@ class YoloV5(nn.Module):
             "n20": L.c3_init(rng, 2 * ch["c3"], ch["c4"], dp["n3"]),
             "n21": L.conv_init(rng, ch["c4"], ch["c4"], 3),
             "n23": L.c3_init(rng, 2 * ch["c4"], ch["c5"], dp["n3"]),
-            "head": [
-                {"w": L.he_init(rng, (1, 1, c, self.na * self.no), c),
-                 "b": np.zeros((self.na * self.no,), np.float32)}
-                for c in (ch["c3"], ch["c4"], ch["c5"])
-            ],
+            "head": self._head_init(rng, (ch["c3"], ch["c4"], ch["c5"])),
+        }
+
+    def _init_p6(self, seed: int) -> dict:
+        """P6 topology, draw for draw the JAX package's ``_init_p6``: one
+        more backbone stage (768 -> 1024) and a 4-level PANet."""
+        ch, dp = self.channels(), self.depths()
+        rng = np.random.default_rng(seed)
+        return {
+            **self._init_backbone_prefix(rng, ch, dp),
+            "b9": L.conv_init(rng, ch["c5"], ch["c6"], 3),
+            "b10": L.c3_init(rng, ch["c6"], ch["c6"], dp["n3"]),
+            "b11": L.sppf_init(rng, ch["c6"], ch["c6"]),
+            "n12": L.conv_init(rng, ch["c6"], ch["c5"], 1),
+            "n15": L.c3_init(rng, 2 * ch["c5"], ch["c5"], dp["n3"]),
+            "n16": L.conv_init(rng, ch["c5"], ch["c4"], 1),
+            "n19": L.c3_init(rng, 2 * ch["c4"], ch["c4"], dp["n3"]),
+            "n20": L.conv_init(rng, ch["c4"], ch["c3"], 1),
+            "n23": L.c3_init(rng, 2 * ch["c3"], ch["c3"], dp["n3"]),
+            "n24": L.conv_init(rng, ch["c3"], ch["c3"], 3),
+            "n26": L.c3_init(rng, 2 * ch["c3"], ch["c4"], dp["n3"]),
+            "n27": L.conv_init(rng, ch["c4"], ch["c4"], 3),
+            "n29": L.c3_init(rng, 2 * ch["c4"], ch["c5"], dp["n3"]),
+            "n30": L.conv_init(rng, ch["c5"], ch["c5"], 3),
+            "n32": L.c3_init(rng, 2 * ch["c5"], ch["c6"], dp["n3"]),
+            "head": self._head_init(rng, (ch["c3"], ch["c4"], ch["c5"], ch["c6"])),
         }
 
     def fuse(self, params: dict, stem_s2d: bool = True, down_s2d: Sequence[str] = ()) -> dict:
@@ -177,8 +261,11 @@ class YoloV5(nn.Module):
         if stem_s2d and fused["b0"]["w"].shape[0] == 6:
             fused["b0"] = {**fused["b0"], "w": L.stem_weights_to_s2d(fused["b0"]["w"])}
         for name in down_s2d:
-            if name not in DOWN_LAYERS:
-                raise ValueError(f"down_s2d: {name!r} is not one of {DOWN_LAYERS}")
+            if name not in self.down_layers:
+                raise ValueError(
+                    f"down_s2d: {name!r} is not a stride-2 downsample conv of this "
+                    f"{'P6' if self.is_p6 else 'P5'} model; eligible: {sorted(self.down_layers)}"
+                )
             p = fused[name]
             if p["w"].shape[0] != 3:
                 raise ValueError(f"down_s2d: layer {name!r} has no k3 kernel")
@@ -198,7 +285,7 @@ class YoloV5(nn.Module):
 
     def features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """(B, H, W, 3) NHWC images in [0, 1] -> per-level raw head maps,
-        each (B, H/s, W/s, na*no) NHWC."""
+        each (B, H/s, W/s, na*no) NHWC: three levels for P5, four for P6."""
         x = x.permute(0, 3, 1, 2)  # NCHW view; channels_last when x is NHWC-contiguous
         w0 = self.b0.weight
         if w0.shape[-1] == 3 and w0.shape[1] == 4 * x.shape[1]:
@@ -212,17 +299,36 @@ class YoloV5(nn.Module):
         y = self._down("b5", p3)
         p4 = self.b6(y)                                   # stride 16
         y = self._down("b7", p4)
-        y = self.b8(y)
-        y = self.b9(y)                                    # stride 32
-        t10 = self.n10(y)
-        y = self.n13(torch.cat([L.upsample2x(t10), p4], dim=1), shortcut=False)
-        t14 = self.n14(y)
-        o3 = self.n17(torch.cat([L.upsample2x(t14), p3], dim=1), shortcut=False)
-        y = self._down("n18", o3)
-        o4 = self.n20(torch.cat([y, t14], dim=1), shortcut=False)
-        y = self._down("n21", o4)
-        o5 = self.n23(torch.cat([y, t10], dim=1), shortcut=False)
-        return [h(o).permute(0, 2, 3, 1) for h, o in zip(self.head, (o3, o4, o5))]
+        if self.is_p6:
+            p5 = self.b8(y)                               # stride 32
+            y = self._down("b9", p5)
+            y = self.b11(self.b10(y))                     # stride 64
+            t12 = self.n12(y)
+            y = self.n15(torch.cat([L.upsample2x(t12), p5], dim=1), shortcut=False)
+            t16 = self.n16(y)
+            y = self.n19(torch.cat([L.upsample2x(t16), p4], dim=1), shortcut=False)
+            t20 = self.n20(y)
+            o3 = self.n23(torch.cat([L.upsample2x(t20), p3], dim=1), shortcut=False)
+            y = self._down("n24", o3)
+            o4 = self.n26(torch.cat([y, t20], dim=1), shortcut=False)
+            y = self._down("n27", o4)
+            o5 = self.n29(torch.cat([y, t16], dim=1), shortcut=False)
+            y = self._down("n30", o5)
+            o6 = self.n32(torch.cat([y, t12], dim=1), shortcut=False)
+            outs = (o3, o4, o5, o6)
+        else:
+            y = self.b8(y)
+            y = self.b9(y)                                # stride 32
+            t10 = self.n10(y)
+            y = self.n13(torch.cat([L.upsample2x(t10), p4], dim=1), shortcut=False)
+            t14 = self.n14(y)
+            o3 = self.n17(torch.cat([L.upsample2x(t14), p3], dim=1), shortcut=False)
+            y = self._down("n18", o3)
+            o4 = self.n20(torch.cat([y, t14], dim=1), shortcut=False)
+            y = self._down("n21", o4)
+            o5 = self.n23(torch.cat([y, t10], dim=1), shortcut=False)
+            outs = (o3, o4, o5)
+        return [h(o).permute(0, 2, 3, 1) for h, o in zip(self.head, outs)]
 
     def decode(self, feats: List[torch.Tensor]) -> torch.Tensor:
         """Raw NHWC head maps -> (B, N, 5+nc) f32 rows [cx, cy, w, h, obj,

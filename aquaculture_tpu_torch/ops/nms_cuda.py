@@ -37,7 +37,9 @@ NVCC_FLAGS = (
 )
 # Shared-memory budget of one CTA: the in-block row words and the alive and
 # kept bitsets, 4.25 B per candidate (csrc kMaxK). Covers the whole P5 pool
-# at 640 px (25,200 rows).
+# at 640 px (25,200 rows), not the whole P6 pool at 1280 px (102,000 rows):
+# only --pre-topk > MAX_K reaches the limit, and there the plain version's
+# (and the JAX package's off-TPU) K x K IoU matrix needs 41.6 GB per image.
 MAX_K = 49152
 
 # Kernel launches since the last reset; chip_smoke.py zeroes it around the
@@ -141,7 +143,11 @@ def greedy_suppress_cuda(
         raise ValueError("boxes must be 16-byte aligned (float4 loads)")
     b, k = valid.shape
     if not 1 <= k <= MAX_K:
-        raise ValueError(f"K={k} outside [1, {MAX_K}] (shared-memory budget)")
+        raise ValueError(
+            f"K={k} outside [1, {MAX_K}] (the kernel's shared-memory budget): a pre-NMS "
+            f"top-k above {MAX_K} (e.g. the whole 102,000-row P6 pool at 1280 px) is a limit "
+            "of the port; there the plain version's K x K IoU matrix would take 41.6 GB per image"
+        )
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0:
         return keep

@@ -24,12 +24,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      trained fixture over its rendered world, once on the card and once on
      the CPU, in bf16 through cli.pipeline (deviation reported) and in f32
      through run_pipeline (held to the golden bar);
-  5. time the serving program (mt, bf16, batch 128) with CUDA events
-     (median of 3 windows after 3 warmups); time the suppression kernel on
-     the serving program's own candidates at each of TIMED_SHAPES, and its
-     bare scan with no valid candidate, on a queue of launches held behind
-     a device sleep, so that the time is the card's and not the host's
-     enqueue; time the plain version beside it.
+  4c. the serving options: the ``p6`` phase drives cli.pipeline on m6 at
+     1280 px with 4b's full-width geometry; cli.detect runs once with
+     --augment --multi-label and once with --decode-scale (mt at 640), and
+     cli.pipeline with --overlap 256 on 2048 px JPEG rasters (rows before
+     and after cross-tile NMS), each with the counters zeroed around it;
+     batched_nms through the kernel against the plain path on one batch of
+     each new path's own candidates (P6 at 1280, multi-label, TTA, TTA with
+     multi-label); the card's f32 forward of n6 at 256 against the CPU's;
+  5. time the serving program (mt at 640 and m6 at 1280, bf16, batch 128)
+     with CUDA events (median of 3 windows after 3 warmups); time the
+     suppression kernel on each serving program's own candidates (mt: each
+     of TIMED_SHAPES; m6: (128, 1024)), and its bare scan with no valid
+     candidate, on a queue of launches held behind a device sleep, so that
+     the time is the card's and not the host's enqueue; time the plain
+     version beside it.
 The last lines are the {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -206,9 +215,10 @@ def check_kernels(dev, shapes) -> list:
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def write_tiles(d: str, n: int = 16, seed: int = 0, specs=None) -> list:
-    """n seeded 1024 px JPEG tiles named with the tile codec: four per
-    download box along x, or the given TileSpecs."""
+def write_tiles(d: str, n: int = 16, seed: int = 0, specs=None, px: int = 1024) -> list:
+    """n seeded px-square JPEG images (1024 px tiles, or larger rasters)
+    named with the tile codec: four per download box along x, or the given
+    TileSpecs."""
     from PIL import Image
 
     from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
@@ -218,9 +228,9 @@ def write_tiles(d: str, n: int = 16, seed: int = 0, specs=None) -> list:
     rng = np.random.default_rng(seed)
     paths = []
     for spec in specs:
-        img = rng.integers(0, 255, (1024, 1024, 3), dtype=np.uint8)
+        img = rng.integers(0, 255, (px, px, 3), dtype=np.uint8)
         for _ in range(6):  # bright rectangles for structure
-            x, y = rng.integers(0, 900, 2)
+            x, y = rng.integers(0, px - 124, 2)
             w, h = rng.integers(30, 120, 2)
             img[y : y + h, x : x + w] = rng.integers(150, 255, 3, dtype=np.uint8)
         p = os.path.join(d, encode_tile_name(spec, "jpeg"))
@@ -229,7 +239,9 @@ def write_tiles(d: str, n: int = 16, seed: int = 0, specs=None) -> list:
     return paths
 
 
-def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int) -> dict:
+def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, options: tuple = ()) -> dict:
+    """cli.detect on mt at 640 over the tiles, with serving ``options``
+    (e.g. --augment --multi-label) after the defaults."""
     from aquaculture_tpu_torch.cli import detect as cli_detect
     from aquaculture_tpu_torch.ops import nms_cuda
 
@@ -237,15 +249,17 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int) -> di
     t0 = time.perf_counter()
     stats = cli_detect.main([
         "--source", tile_dir, "--out", label_dir, "--variant", "mt",
-        "--batch", str(batch), "--conf", "1e-5",
+        "--batch", str(batch), "--conf", "1e-5", *options,
     ])
     seconds = time.perf_counter() - t0
     launches = {"nms_suppress": nms_cuda.launches}
 
     n_batches = -(-n_tiles // batch)
     if launches["nms_suppress"] != n_batches:
-        fail(f"nms_suppress launched {launches['nms_suppress']} times on the main path, "
+        fail(f"nms_suppress launched {launches['nms_suppress']} times on cli.detect {list(options)}, "
              f"expected {n_batches} (one per batch)")
+    if stats.loader != "python":
+        fail(f"cli.detect {list(options)} ran the {stats.loader!r} loader; the port has the Python one")
     labels = sorted(os.listdir(label_dir))
     if len(labels) != n_tiles:
         fail(f"{len(labels)} label files for {n_tiles} tiles")
@@ -257,8 +271,8 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int) -> di
         if not ((arr[:, 0] >= 0) & (arr[:, 0] < 5)).all() or not (arr[:, 5] > 0).all():
             fail(f"{name}: class or confidence out of range")
         rows += len(arr)
-    return {"launches": launches, "seconds": seconds, "label_files": len(labels),
-            "rows": rows, "tiles": stats.tiles, "batches": stats.batches}
+    return {"options": list(options), "launches": launches, "seconds": seconds, "label_files": len(labels),
+            "rows": rows, "tiles": stats.tiles, "batches": stats.batches, "loader": stats.loader}
 
 
 # ---------------------------------------------------------------------------
@@ -345,49 +359,95 @@ def _stage_report(stats) -> dict:
             "land_filter": stats.land_filter, "tiles": stats.tiles, "batches": stats.batches}
 
 
-def drive_pipeline_full_width(d: str) -> dict:
-    """cli.pipeline on the card: mt at 640 from PIPELINE_TILES JPEG tiles
-    over PIPELINE_BOXES, random weights from seed 0, conf 1e-5, with land
-    over part of boxes 2 and 3."""
-    from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
+def write_pipeline_inputs(d: str) -> tuple:
+    """(tile_dir, boxes_csv, land) of the full-width drive: PIPELINE_TILES
+    JPEG tiles over PIPELINE_BOXES, with land over part of boxes 2 and 3."""
     from aquaculture_tpu_torch.data.filenames import TileSpec
-    from aquaculture_tpu_torch.ops import nms_cuda
 
     tile_dir = os.path.join(d, "tiles")
     os.makedirs(tile_dir)
     specs = [TileSpec(year=2014, bbox_ind=b, x_offset=1024 * (i % 4), y_offset=1024 * (i // 4))
              for b in range(len(PIPELINE_BOXES)) for i in range(PIPELINE_TILES // len(PIPELINE_BOXES))]
     write_tiles(tile_dir, seed=1, specs=specs)
-    boxes_csv, land, out = (os.path.join(d, n) for n in ("wanted_bboxes.csv", "land.geojson", "det.geojson"))
+    boxes_csv, land = os.path.join(d, "wanted_bboxes.csv"), os.path.join(d, "land.geojson")
     write_boxes_csv(boxes_csv, PIPELINE_BOXES)
     write_land(land, 2300.0, 4900.0, 1000.0, 1400.0, seed=2)
+    return tile_dir, boxes_csv, land
 
+
+def drive_pipeline_full_width(d: str, inputs: tuple, variant: str = "mt") -> dict:
+    """cli.pipeline on the card: ``variant`` at its default size (mt at
+    640, m6 at 1280) over write_pipeline_inputs' tiles, random weights from
+    seed 0, conf 1e-5."""
+    from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
+    from aquaculture_tpu_torch.cli.detect import default_img_size
+    from aquaculture_tpu_torch.ops import nms_cuda
+
+    tile_dir, boxes_csv, land = inputs
+    out = os.path.join(d, f"det_{variant}.geojson")
     nms_cuda.launches = 0
     t0 = time.perf_counter()
     det, stats = cli_pipeline.main([
         "--source", tile_dir, "--download-bboxes", boxes_csv, "--land", land, "--out", out,
-        "--variant", "mt", "--batch", str(PIPELINE_BATCH), "--conf", "1e-5",
+        "--variant", variant, "--batch", str(PIPELINE_BATCH), "--conf", "1e-5",
     ])
     seconds = time.perf_counter() - t0
     launches = nms_cuda.launches
 
     n_batches = -(-PIPELINE_TILES // PIPELINE_BATCH)
     if not launches == stats.batches == n_batches or stats.tiles != PIPELINE_TILES:
-        fail(f"pipeline: nms_suppress launched {launches} times for {stats.batches} batches "
+        fail(f"pipeline {variant}: nms_suppress launched {launches} times for {stats.batches} batches "
              f"of {stats.tiles} tiles, expected {n_batches} batches of {PIPELINE_TILES}")
     rows = stats.stage_rows
     if not rows["dedup"] < rows["geocode"]:
-        fail(f"pipeline: dedup dropped no row ({rows})")
+        fail(f"pipeline {variant}: dedup dropped no row ({rows})")
     clipped = clipped_rows(det, boxes_csv)
     if not clipped:
-        fail("pipeline: dedup clipped no row")
+        fail(f"pipeline {variant}: dedup clipped no row")
     if stats.land_filter != "hybrid" or rows["areas"] <= 2000 or not rows["land_filter"] < rows["areas"]:
-        fail(f"pipeline: land filter {stats.land_filter!r} on {rows['areas']} rows removed "
+        fail(f"pipeline {variant}: land filter {stats.land_filter!r} on {rows['areas']} rows removed "
              f"{rows['areas'] - rows['land_filter']}; expected the hybrid filter on > 2000 rows to remove some")
     check_geojson(out, det, n_classes=5)
-    return {"variant": "mt", "img": 640, "tiles": PIPELINE_TILES, "batch": PIPELINE_BATCH,
-            "download_boxes": len(PIPELINE_BOXES), "launches": {"nms_suppress": launches},
-            "dedup_clipped_rows": clipped, "seconds": seconds, **_stage_report(stats)}
+    return {"variant": variant, "img": default_img_size(None, variant), "tiles": PIPELINE_TILES,
+            "batch": PIPELINE_BATCH, "download_boxes": len(PIPELINE_BOXES), "launches": {"nms_suppress": launches},
+            "dedup_clipped_rows": clipped, "seconds": seconds, "loader": stats.loader, **_stage_report(stats)}
+
+
+OVERLAP = 256
+OVERLAP_RASTER = 2048  # px; 3 x 3 tiles of 1024 px at stride 768
+
+
+def drive_pipeline_overlap(d: str, boxes_csv: str) -> dict:
+    """cli.pipeline --overlap 256 on the card: mt at 640 over one 2048 px
+    raster per download box, conf 1e-5; cross-tile NMS must collapse the
+    copies that the overlapping tiles detect twice."""
+    from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
+    from aquaculture_tpu_torch.data.filenames import TileSpec
+    from aquaculture_tpu_torch.ops import nms_cuda
+
+    raster_dir = os.path.join(d, "rasters")
+    os.makedirs(raster_dir)
+    specs = [TileSpec(year=2014, bbox_ind=b, x_offset=0, y_offset=0) for b in range(len(PIPELINE_BOXES))]
+    write_tiles(raster_dir, seed=4, specs=specs, px=OVERLAP_RASTER)
+    out = os.path.join(d, "det_overlap.geojson")
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    det, stats = cli_pipeline.main([
+        "--source", raster_dir, "--download-bboxes", boxes_csv, "--out", out, "--variant", "mt",
+        "--batch", str(PIPELINE_BATCH), "--conf", "1e-5", "--overlap", str(OVERLAP),
+    ])
+    seconds = time.perf_counter() - t0
+    launches = nms_cuda.launches
+    n_tiles = 9 * len(PIPELINE_BOXES)
+    rows = stats.stage_rows
+    if not launches == stats.batches == -(-n_tiles // PIPELINE_BATCH) or stats.tiles != n_tiles:
+        fail(f"overlap: {launches} launches, {stats.batches} batches, {stats.tiles} tiles for {n_tiles} tiles")
+    if list(rows)[:4] != ["detect", "geocode", "dedup", "cross_tile"] or not rows["cross_tile"] < rows["dedup"]:
+        fail(f"overlap: cross-tile NMS collapsed no copy ({rows})")
+    check_geojson(out, det, n_classes=5)
+    return {"variant": "mt", "img": 640, "overlap": OVERLAP, "rasters": len(PIPELINE_BOXES),
+            "raster_px": OVERLAP_RASTER, "launches": {"nms_suppress": launches}, "seconds": seconds,
+            "loader": stats.loader, **_stage_report(stats)}
 
 
 def _match_golden(got, want) -> dict:
@@ -489,32 +549,61 @@ def drive_pipeline_trained_card_vs_cpu(d: str) -> dict:
             "f32_card_vs_cpu_golden_bar": match, "bf16_card_vs_cpu": bf16, "runs": runs}
 
 
-def check_nms_paths(paths: list, dev) -> dict:
-    """batched_nms through the kernel vs the plain suppression, same
-    candidates, on one batch of the main path's tiles (mt, bf16)."""
+def nms_kernel_vs_plain(preds, multi_label: bool = False, what: str = "mt") -> dict:
+    """batched_nms through the kernel vs the plain suppression on the same
+    candidates (conf 1e-5, pre-topk 1024): masks and rows exactly equal."""
     import torch
 
-    from aquaculture_tpu_torch.cli.detect import load_model
-    from aquaculture_tpu_torch.data.loader import tile_batches
     from aquaculture_tpu_torch.ops import nms as N
-    from aquaculture_tpu_torch.pipeline import preprocess
 
-    model = load_model(None, "mt", 5).to(dev, torch.bfloat16, memory_format=torch.channels_last).eval()
-    batch = next(iter(tile_batches(paths[:8], batch_size=8)))
     with torch.inference_mode():
-        preds = model(preprocess(batch.images.to(dev), 640, torch.bfloat16))
-        det_k, val_k = N.batched_nms(preds, conf_thresh=1e-5)
-        boxes, nms_boxes, scores, cls, valid = N._prepare_candidates(preds, 1e-5, 1024, False)
+        det_k, val_k = N.batched_nms(preds, conf_thresh=1e-5, multi_label=multi_label)
+        boxes, nms_boxes, scores, cls, valid = N._prepare_candidates(preds, 1e-5, 1024, False, multi_label)
         keep = N.greedy_suppress_plain(nms_boxes, valid, 0.45)
         det_p, val_p = N._compact(boxes, cls, scores, keep, 300)
     torch.cuda.synchronize()
     if not torch.equal(val_k, val_p):
-        fail("batched_nms masks differ between kernel and plain suppression")
+        fail(f"batched_nms masks differ between kernel and plain suppression ({what})")
     if not torch.equal(det_k, det_p):
-        fail("batched_nms det rows differ between kernel and plain suppression")
+        fail(f"batched_nms det rows differ between kernel and plain suppression ({what})")
     if not torch.isfinite(preds).all():
-        fail("non-finite predictions")
-    return {"valid_candidates": int(valid.sum()), "kept": int(val_k.sum())}
+        fail(f"non-finite predictions ({what})")
+    return {"pool_rows": preds.shape[1], "B": preds.shape[0], "K": valid.shape[1],
+            "valid_candidates": int(valid.sum()), "kept": int(val_k.sum())}
+
+
+def check_nms_paths(paths: list, dev) -> dict:
+    """nms_kernel_vs_plain on one batch of the main path's tiles (bf16)
+    for each path's own candidates: mt at 640 (argmax class and
+    multi-label), the merged 3-pass TTA pool of mt at 640 (argmax class and
+    multi-label), and m6 at 1280 (the 1024 px tiles upscaled)."""
+    import torch
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.data.loader import tile_batches
+    from aquaculture_tpu_torch.ops.tta import tta_predict
+    from aquaculture_tpu_torch.pipeline import preprocess
+
+    images = next(iter(tile_batches(paths[:8], batch_size=8))).images.to(dev)
+    out = {}
+    for variant, img in (("mt", 640), ("m6", 1280)):
+        model = load_model(None, variant, 5).to(dev, torch.bfloat16, memory_format=torch.channels_last).eval()
+        with torch.inference_mode():
+            x = preprocess(images, img, torch.bfloat16)
+            preds = model(x)
+            if variant == "m6":
+                if preds.shape[1] != 3 * sum((img // s) ** 2 for s in (8, 16, 32, 64)):
+                    fail(f"m6 at {img}: {preds.shape[1]} rows")
+                out["p6_1280"] = nms_kernel_vs_plain(preds, what="m6 at 1280")
+                continue
+            out["mt_640"] = nms_kernel_vs_plain(preds, what="mt")
+            out["multi_label"] = nms_kernel_vs_plain(preds, True, "mt multi-label")
+            tta = tta_predict(model, x)
+            if tta.shape[1] != 25_200 + 18_207 + 12_348:
+                fail(f"TTA pool of mt at 640: {tta.shape[1]} rows")
+            out["tta"] = nms_kernel_vs_plain(tta, what="mt TTA")
+            out["tta_multi_label"] = nms_kernel_vs_plain(tta, True, "mt TTA multi-label")
+    return out
 
 
 def check_m_builds(dev) -> dict:
@@ -531,8 +620,9 @@ def check_m_builds(dev) -> dict:
     return {"variant": "m", "shape": list(preds.shape)}
 
 
-def check_f32_vs_cpu(dev) -> dict:
-    """n @ 160, f32, TF32 off: the card's forward against the CPU's."""
+def check_f32_vs_cpu(dev, variant: str = "n", img: int = 160) -> dict:
+    """f32, TF32 off: the card's forward against the CPU's (n at 160, n6
+    at 256)."""
     import torch
 
     from aquaculture_tpu_torch.models.weights import load_jax_params
@@ -542,8 +632,8 @@ def check_f32_vs_cpu(dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        model = load_jax_params(*yolov5_init("n", 5, seed=7)).eval()
-        x = torch.from_numpy(np.random.default_rng(3).random((2, 160, 160, 3), dtype=np.float32))
+        model = load_jax_params(*yolov5_init(variant, 5, seed=7)).eval()
+        x = torch.from_numpy(np.random.default_rng(3).random((2, img, img, 3), dtype=np.float32))
         with torch.inference_mode():
             ref = model(x)
             got = model.to(dev).to(memory_format=torch.channels_last)(x.to(dev)).cpu()
@@ -552,8 +642,9 @@ def check_f32_vs_cpu(dev) -> dict:
     box_err = float((got[..., :4] - ref[..., :4]).abs().max())
     score_err = float((got[..., 4:] - ref[..., 4:]).abs().max())
     if not (box_err <= 1e-3 and score_err <= 1e-4):
-        fail(f"card vs CPU f32 forward: box err {box_err} px, score err {score_err}")
-    return {"box_max_abs_err_px": box_err, "score_max_abs_err": score_err}
+        fail(f"card vs CPU f32 forward of {variant} at {img}: box err {box_err} px, score err {score_err}")
+    return {"variant": variant, "img": img, "rows": got.shape[1], "box_max_abs_err_px": box_err,
+            "score_max_abs_err": score_err}
 
 
 # ---------------------------------------------------------------------------
@@ -604,48 +695,44 @@ def all_pairs_bound_ms(b: int, k: int) -> float:
                b * k * k / 2 * OPS_PER_IOU / F32_FLOP_PER_S) * 1e3
 
 
-def serving_model_and_tiles(dev, b: int = 128):
-    """The timed serving batch: b seeded uint8 1024 px tiles on the card,
-    and the mt model with random weights from seed 0, on the host."""
+def serving_tiles(dev, b: int = 128):
+    """The timed serving batch: b seeded uint8 1024 px tiles on the card."""
     import torch
 
-    from aquaculture_tpu_torch.cli.detect import load_model
-
     gen = torch.Generator(device=dev).manual_seed(0)
-    tiles = torch.randint(0, 256, (b, 1024, 1024, 3), generator=gen, device=dev, dtype=torch.uint8)
-    return load_model(None, "mt", 5), tiles
+    return torch.randint(0, 256, (b, 1024, 1024, 3), generator=gen, device=dev, dtype=torch.uint8)
 
 
-def timed_suppress_inputs(preds) -> list:
+def timed_suppress_inputs(preds, shapes) -> list:
     """(B, K, nms_boxes, valid) of the serving program's own candidates at
-    conf 1e-5 and pre-topk K, for each of TIMED_SHAPES."""
+    conf 1e-5 and pre-topk K, for each (B, K) of ``shapes``."""
     from aquaculture_tpu_torch.ops import nms as N
 
     out = []
-    for b, k in TIMED_SHAPES:
+    for b, k in shapes:
         _, nms_boxes, _, _, valid = N._prepare_candidates(preds[:b], 1e-5, k, False)
         out.append((b, k, nms_boxes.contiguous(), valid.contiguous()))
     return out
 
 
-def time_suppress(preds, card: str) -> list:
-    """The kernel at each of TIMED_SHAPES, held exactly against the plain
-    version on the same inputs, beside its bounds and the plain version's
-    time; the first shape (the main path's) also gets the scan floor, the
-    kernel with no valid candidate. One JSON line per shape."""
+def time_suppress(preds, card: str, shapes, variant: str) -> list:
+    """The kernel at each (B, K) of ``shapes``, held exactly against the
+    plain version on the same inputs, beside its bounds and the plain
+    version's time; the first shape (the main path's) also gets the scan
+    floor, the kernel with no valid candidate. One JSON line per shape."""
     import torch
 
     from aquaculture_tpu_torch.ops import nms as N
     from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
 
     rows = []
-    for b, k, boxes, valid in timed_suppress_inputs(preds):
+    for b, k, boxes, valid in timed_suppress_inputs(preds, shapes):
         main_shape = not rows
         keep = greedy_suppress_cuda(boxes, valid, 0.45)
         plain_keep = N.greedy_suppress_plain(boxes, valid, 0.45)
         torch.cuda.synchronize()
         if not torch.equal(keep, plain_keep):
-            fail(f"nms_suppress != plain on the serving candidates (B={b}, K={k})")
+            fail(f"nms_suppress != plain on the {variant} serving candidates (B={b}, K={k})")
         bound, bound_by = suppress_bound_ms(keep, valid)
         reps = 3 if main_shape else 1
         row = {
@@ -660,51 +747,56 @@ def time_suppress(preds, card: str) -> list:
             no_valid = torch.zeros_like(valid)
             row["scan_floor_ms"] = time_cuda(lambda: greedy_suppress_cuda(boxes, no_valid, 0.45),
                                              iters=20, queued=True)
-        print(json.dumps({"metric": "nms_suppress", **row, "library_ms": None,
+        print(json.dumps({"metric": "nms_suppress", "variant": variant, **row, "library_ms": None,
                           "library": "none: no PyTorch call computes greedy suppression",
                           "card": card}), flush=True)
         rows.append(row)
     return rows
 
 
-def time_serving_and_kernel(dev, card: str) -> dict:
+def time_serving_and_kernel(dev, card: str, tiles, variant: str = "mt", shapes=TIMED_SHAPES,
+                            iters: int = 5) -> dict:
+    """The serving program of ``variant`` at its default size (mt at 640,
+    m6 at 1280) on the 1024 px ``tiles``, random weights from seed 0:
+    tiles/s at conf 0.25 and 1e-5, the stage breakdown at conf 1e-5, the
+    forward's conv rate, and the kernel on its candidates at ``shapes``."""
     import torch
 
+    from aquaculture_tpu_torch.cli.detect import default_img_size, load_model
     from aquaculture_tpu_torch.config import DetectConfig
     from aquaculture_tpu_torch.ops import nms as N
     from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
     from aquaculture_tpu_torch.pipeline import make_infer_fn, preprocess
 
-    model, tiles = serving_model_and_tiles(dev)
-    b = tiles.shape[0]
+    model, img, b = load_model(None, variant, 5), default_img_size(None, variant), tiles.shape[0]
     out = {}
     for conf in (0.25, 1e-5):
-        infer = make_infer_fn(model, DetectConfig(conf_threshold=conf), tile=1024, device=dev)
-        ms = time_cuda(lambda: infer(tiles), iters=5)
+        infer = make_infer_fn(model, DetectConfig(img_size=img, conf_threshold=conf), tile=1024, device=dev)
+        ms = time_cuda(lambda: infer(tiles), iters=iters)
         out[f"conf_{conf:g}"] = {"ms_per_batch": ms, "tiles_per_s": b / ms * 1e3}
-        print(json.dumps({"metric": "serving", "variant": "mt", "dtype": "bfloat16", "batch": b,
-                          "img": 640, "tile": 1024, "conf": conf, "ms_per_batch": ms,
+        print(json.dumps({"metric": "serving", "variant": variant, "dtype": "bfloat16", "batch": b,
+                          "img": img, "tile": 1024, "conf": conf, "ms_per_batch": ms,
                           "tiles_per_s": b / ms * 1e3, "card": card}), flush=True)
 
     # stage breakdown of the same program (conf 1e-5: full suppression work)
     with torch.inference_mode():
-        x = preprocess(tiles, 640, torch.bfloat16)
+        x = preprocess(tiles, img, torch.bfloat16)
         preds = model(x)
-        kernel_rows = time_suppress(preds, card)
+        kernel_rows = time_suppress(preds, card, shapes, variant)
         boxes, nms_boxes, scores, cls, valid = N._prepare_candidates(preds, 1e-5, 1024, False)
         keep = greedy_suppress_cuda(nms_boxes.contiguous(), valid, 0.45)
         stages = {
-            "resize": time_cuda(lambda: preprocess(tiles, 640, torch.bfloat16), iters=5),
-            "forward": time_cuda(lambda: model(x), iters=5),
+            "resize": time_cuda(lambda: preprocess(tiles, img, torch.bfloat16), iters=iters),
+            "forward": time_cuda(lambda: model(x), iters=iters),
             "nms_prep": time_cuda(lambda: N._prepare_candidates(preds, 1e-5, 1024, False), iters=5),
             "suppress_kernel": kernel_rows[0]["ms"],
             "compact": time_cuda(lambda: N._compact(boxes, cls, scores, keep, 300), iters=20),
         }
-        flops = conv_flops_per_image(model, 640, dev)
+        flops = conv_flops_per_image(model, img, dev)
         fwd_rate = flops * b / (stages["forward"] / 1e3)
-        print(json.dumps({"metric": "stages_ms", "variant": "mt", "batch": b, "conf": 1e-5,
+        print(json.dumps({"metric": "stages_ms", "variant": variant, "img": img, "batch": b, "conf": 1e-5,
                           **stages, "card": card}), flush=True)
-        print(json.dumps({"metric": "forward_rate", "variant": "mt", "batch": b,
+        print(json.dumps({"metric": "forward_rate", "variant": variant, "img": img, "batch": b,
                           "conv_gflop_per_tile": flops / 1e9, "tflop_per_s": fwd_rate / 1e12,
                           "share_of_bf16_dense_peak": fwd_rate / BF16_FLOP_PER_S, "card": card}),
               flush=True)
@@ -752,17 +844,32 @@ def main() -> int:
         paths = write_tiles(tile_dir, 16)
         main_path = run_main_path(tile_dir, label_dir, n_tiles=16, batch=8)
         print(json.dumps({"phase": "main_path", **main_path}), flush=True)
+        # 4c. cli.detect's serving options on the same tiles
+        options = {}
+        for name, opts in (("tta_multi_label", ("--augment", "--multi-label")),
+                           ("decode_scale", ("--decode-scale",))):
+            options[name] = run_main_path(tile_dir, os.path.join(d, name), n_tiles=16, batch=8, options=opts)
+            print(json.dumps({"phase": f"detect_{name}", **options[name]}), flush=True)
         print(json.dumps({"phase": "nms_kernel_vs_plain_batch", **check_nms_paths(paths, dev)}), flush=True)
     with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
-        pipeline = {"full_width": drive_pipeline_full_width(d1),
+        inputs = write_pipeline_inputs(d1)
+        pipeline = {"full_width": drive_pipeline_full_width(d1, inputs),
                     "trained_fixture": drive_pipeline_trained_card_vs_cpu(d2), "card": card}
-    print(json.dumps({"phase": "pipeline", **pipeline}), flush=True)
+        print(json.dumps({"phase": "pipeline", **pipeline}), flush=True)
+        p6 = drive_pipeline_full_width(d1, inputs, variant="m6")
+        print(json.dumps({"phase": "p6", **p6, "card": card}), flush=True)
+        overlap = drive_pipeline_overlap(d1, inputs[1])
+        print(json.dumps({"phase": "overlap", **overlap, "card": card}), flush=True)
     print(json.dumps({"phase": "f32_card_vs_cpu_n160", "tf32": False, **check_f32_vs_cpu(dev)}), flush=True)
+    print(json.dumps({"phase": "f32_card_vs_cpu_n6_256", "tf32": False, **check_f32_vs_cpu(dev, "n6", 256)}),
+          flush=True)
     print(json.dumps({"phase": "m_builds", **check_m_builds(dev)}), flush=True)
 
     # 5. times
-    times = time_serving_and_kernel(dev, card)
-    k = times["kernel"]
+    tiles = serving_tiles(dev)
+    times = time_serving_and_kernel(dev, card, tiles)
+    times_p6 = time_serving_and_kernel(dev, card, tiles, "m6", shapes=((128, 1024),), iters=3)
+    k, k6 = times["kernel"], times_p6["kernel"]
     summary = {"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
@@ -770,13 +877,21 @@ def main() -> int:
         "replaces": "aquaculture_tpu/ops/nms_pallas.py:33",
         "launches": main_path["launches"]["nms_suppress"],
         "launches_pipeline": pipeline["full_width"]["launches"]["nms_suppress"],
-        "max_abs_err": k["max_abs_err"],
+        "launches_p6": p6["launches"]["nms_suppress"],
+        "launches_tta_multi_label": options["tta_multi_label"]["launches"]["nms_suppress"],
+        "launches_decode_scale": options["decode_scale"]["launches"]["nms_suppress"],
+        "launches_overlap": overlap["launches"]["nms_suppress"],
+        "max_abs_err": max(k["max_abs_err"], k6["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
         "scan_floor_ms": k["scan_floor_ms"],
+        "p6_ms": k6["ms"],
+        "p6_plain_ms": k6["plain_ms"],
+        "p6_bound_ms": k6["bound_ms"],
+        "p6_bound_by": k6["bound_by"],
         "suites_passed": list(suites),
     }]}
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -57,6 +57,7 @@ def _launcher(lib, boxes, valid):
 def main(argv=None) -> int:
     import torch
 
+    from aquaculture_tpu_torch.cli.detect import load_model
     from aquaculture_tpu_torch.ops import nms as N
     from aquaculture_tpu_torch.ops import nms_cuda
     from aquaculture_tpu_torch.pipeline import preprocess
@@ -75,11 +76,11 @@ def main(argv=None) -> int:
     caps = {name: lib.aq_nms_max_k() for name, lib in libs.items()}
     print(json.dumps({"old_source": args.old_source, "k_caps": caps, "card": card}), flush=True)
 
-    model, tiles = cs.serving_model_and_tiles(dev)
+    model, tiles = load_model(None, "mt", 5), cs.serving_tiles(dev)
     model.to(dev, torch.bfloat16, memory_format=torch.channels_last).eval()
     with torch.inference_mode():
         preds = model(preprocess(tiles, 640, torch.bfloat16))
-        inputs = cs.timed_suppress_inputs(preds)
+        inputs = cs.timed_suppress_inputs(preds, cs.TIMED_SHAPES)
         cases = [("all_valid", *inp) for inp in inputs]
         b0, k0, boxes0, valid0 = inputs[0]
         cases.append(("scan_floor", b0, k0, boxes0, torch.zeros_like(valid0)))

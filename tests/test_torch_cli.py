@@ -65,7 +65,47 @@ def test_cli_without_gpu_raises_unless_cpu_is_asked(tiles, tmp_path, monkeypatch
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", ["--int8", "--augment", "--multi-label", "--decode-scale"])
+def test_cli_tta_multi_label_labels_match_jax(tiles, tmp_path):
+    """--augment --multi-label: the 3-pass TTA pool, one candidate per
+    (box, class), in bf16 at the golden bar."""
+    args = ["--source", tiles, "--variant", "n", "--num-classes", "3", "--img", "128",
+            "--conf", "1e-5", "--batch", "2", "--augment", "--multi-label"]
+    jax_cli.main(args + ["--out", str(tmp_path / "jax")])
+    stats = torch_cli.main(args + ["--out", str(tmp_path / "torch"), "--device", "cpu"])
+    assert stats.tiles == 2 and stats.loader == "python"
+    for name in sorted(os.listdir(tmp_path / "jax")):
+        want = np.loadtxt(tmp_path / "jax" / name, ndmin=2)
+        got = np.loadtxt(tmp_path / "torch" / name, ndmin=2)
+        assert got.shape == want.shape and len(got) >= 20
+        for g, w in zip(got[:20], want[:20]):
+            assert g[0] == w[0]
+            assert _iou(_cxcywh_to_xyxy(g[1:5]), _cxcywh_to_xyxy(w[1:5])) >= 0.99, (g, w)
+            assert abs(g[5] - w[5]) <= 1e-3
+
+
+@pytest.mark.parametrize("argv,img,flags", [
+    (["--variant", "n6"], 1280, (False, False, False)),
+    (["--variant", "m6", "--img", "640"], 640, (False, False, False)),
+    (["--variant", "mt", "--augment", "--multi-label"], 640, (True, True, False)),
+    (["--variant", "n", "--decode-scale"], 640, (False, False, True)),
+])
+def test_cli_new_flags_parse(argv, img, flags, tiles, tmp_path, monkeypatch):
+    seen = {}
+
+    def fake_detect_files(paths, model, cfg, batch, **kw):
+        seen.update(cfg=cfg, model=model, **kw)
+        from aquaculture_tpu_torch.pipeline import PipelineStats
+
+        return np.zeros((0, 4), np.int64), np.zeros(0), np.zeros(0, np.int64), [], PipelineStats()
+
+    monkeypatch.setattr(torch_cli, "detect_files", fake_detect_files)
+    torch_cli.main(["--source", tiles, "--out", str(tmp_path), "--device", "cpu", "--num-classes", "2"] + argv)
+    cfg = seen["cfg"]
+    assert cfg.img_size == img and seen["model"].variant == argv[1]
+    assert (cfg.augment, cfg.multi_label, seen["decode_scale"]) == flags
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--profile=trace", "--aot=x.aqx"])
 def test_cli_rejects_flags_of_later_slices(flag, tiles, tmp_path):
     with pytest.raises(SystemExit):
         torch_cli.main(["--source", tiles, "--out", str(tmp_path), "--device", "cpu", flag])

@@ -22,7 +22,8 @@ PORT = ROOT / "aquaculture_tpu_torch"
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "nms_suppress_ab.py"]
+    scripts = [ROOT / "scripts" / n for n in ("nms_suppress_ab.py", "serving_ab.py")]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
 
 
 def test_port_and_chip_smoke_load_no_jax():
@@ -112,3 +113,75 @@ def test_kernel_source_and_build_flags():
     # the build goes where .gitignore keeps it out of commits
     ignored = (ROOT / ".gitignore").read_text().split()
     assert os.path.relpath(nms_cuda.BUILD_DIR, ROOT) + "/" in ignored
+
+
+def test_serving_options_load_no_jax():
+    """The P6 family, TTA, multi-label and feature-map NMS, the letterbox,
+    and the loader's overlap and decode-at-scale paths, run in a fresh
+    interpreter, load no JAX module."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np, torch
+        from PIL import Image
+        from aquaculture_tpu_torch.config import DetectConfig
+        from aquaculture_tpu_torch.models.weights import load_jax_params
+        from aquaculture_tpu_torch.models.yolov5 import yolov5_init
+        from aquaculture_tpu_torch.ops.letterbox import letterbox, unletterbox_boxes
+        from aquaculture_tpu_torch.ops.nms import batched_nms, batched_nms_feats
+        from aquaculture_tpu_torch.ops.tta import tta_predict
+        from aquaculture_tpu_torch.pipeline import detect_files
+        model = load_jax_params(*yolov5_init("n6", num_classes=2))
+        x = torch.from_numpy(np.random.default_rng(0).random((1, 128, 128, 3), dtype=np.float32))
+        with torch.no_grad():
+            det, valid = batched_nms(tta_predict(model, x), conf_thresh=1e-6, multi_label=True)
+            fdet, fvalid = batched_nms_feats(model.features(x), model.anchor_table, model.strides, 1e-6)
+        assert valid.any() and fvalid.any()
+        img, gain, pad = letterbox(torch.zeros((90, 120, 3), dtype=torch.uint8), 64)
+        assert img.shape == (64, 64, 3) and unletterbox_boxes(det[0, :, :4], gain, pad).shape == (300, 4)
+        d = tempfile.mkdtemp()
+        path = os.path.join(d, "ORTHOIMAGERY.ORTHOPHOTOS2014_1_0_0.jpeg")
+        Image.fromarray(np.random.default_rng(1).integers(0, 255, (2048, 1024, 3), dtype=np.uint8)).save(path)
+        cfg = DetectConfig(img_size=128, conf_threshold=1e-6)
+        *_, s1 = detect_files([path], model, cfg, batch_size=4, device="cpu", stride=768)
+        *_, s2 = detect_files([path], model, cfg, batch_size=4, device="cpu", decode_scale=True, decode_threads=1)
+        assert (s1.tiles, s2.tiles, s1.loader, s2.loader) == (3, 2, "python", "python"), (s1, s2)
+        import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_port_reaches_nothing_in_native():
+    """The port keeps its own copies: no source names a path into the JAX
+    package's native/ directory or its library."""
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                text = node.value
+                assert "libaquatile" not in text and "native/" not in text and text != "native", \
+                    f"{path}: {text[:80]!r}"
+
+
+def test_k_cap_error_names_the_p6_limit():
+    """Above MAX_K the wrapper refuses and says why: the whole P6 pool at
+    1280 px (102,000 rows) lies beyond it, and there the plain version's
+    K x K IoU matrix would need 41.6 GB per image."""
+    k = 102_000
+    assert k > nms_cuda.MAX_K and round(k * k * 4 / 1e9, 1) == 41.6
+    boxes = torch.zeros((1, k, 4))
+    valid = torch.ones((1, k), dtype=torch.bool)
+    # the check sits after the device checks, so run it on a CPU stand-in
+    # that claims to be a CUDA tensor
+    class _Cuda(torch.Tensor):
+        is_cuda = True
+
+    with pytest.raises(ValueError, match=r"102,000-row P6 pool at 1280 px.*41\.6 GB"):
+        nms_cuda.greedy_suppress_cuda(boxes.as_subclass(_Cuda), valid.as_subclass(_Cuda), 0.45)
+    assert nms_cuda._lib is None

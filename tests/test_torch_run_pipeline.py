@@ -10,6 +10,10 @@ cli.areas) against the JAX package's, on the CPU.
   within 1 px (np.trunc of boxes that differ by reassociation), meter
   columns within 1e-6 relative, and the rest exactly equal.
 - The staged CLIs are host code on the same numpy: identical files.
+- Overlap serving (overlap=256 on 2048 px rasters: tiles step by 768 px,
+  cross-tile NMS after dedup) and decode-at-scale, f32 with the trained
+  fixture, against the JAX package on its Python loader (the port's only
+  one): the f32 bar above.
 """
 
 import json
@@ -120,7 +124,12 @@ def test_run_pipeline_f32_trained_world_with_land(world):
                               device="cpu")
     assert stats.land_filter == "exact" and stats.batches == 2 and stats.tiles == 8
     assert stats.stage_rows["land_filter"] == len(got) < stats.stage_rows["areas"]  # land removed rows
-    assert len(got) == len(want) >= 20 and got.crs == want.crs == 4326
+    assert_f32_frames_match(got, want)
+
+
+def assert_f32_frames_match(got, want, least=20):
+    """The f32 bar of the module docstring."""
+    assert len(got) == len(want) >= least and got.crs == want.crs == 4326
     assert list(got.columns) == list(want.columns) and list(got.dtypes) == list(want.dtypes)
     assert got["image"].tolist() == want["image"].tolist() and got["type"].tolist() == want["type"].tolist()
     px_diff = np.abs(got[PX].to_numpy() - want[PX].to_numpy())
@@ -209,8 +218,72 @@ def test_pipeline_needs_cuda_unless_cpu_is_asked(world, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", ["--int8", "--overlap=64", "--decode-threads=2", "--decode-scale",
-                                  "--profile=trace"])
+@pytest.fixture(scope="module")
+def rasters(world, tmp_path_factory):
+    """Two 2048 px JPEG rasters, each the world's tiles 4r..4r+3 in a 2 x 2
+    grid, named for download boxes 0 and 1 at offset 0."""
+    from PIL import Image
+
+    d = tmp_path_factory.mktemp("rasters")
+    tiles = sorted(os.listdir(world["images"]))
+    paths = []
+    for r in range(2):
+        quad = [np.asarray(Image.open(os.path.join(world["images"], t)).convert("RGB"))
+                for t in tiles[4 * r: 4 * r + 4]]
+        raster = np.concatenate([np.concatenate(quad[:2], 1), np.concatenate(quad[2:], 1)], 0)
+        paths.append(str(d / f"ORTHOIMAGERY.ORTHOPHOTOS2014_{r}_0_0.jpeg"))
+        Image.fromarray(raster).save(paths[-1], quality=92)
+    return paths
+
+
+def test_run_pipeline_overlap_matches_jax(world, rasters):
+    kw = dict(img_size=160, conf_threshold=0.05, dtype="float32")
+    jmodel, jparams = jax_load_model(FIXTURE, "n", 2)
+    want, jstats = jax_run_pipeline(rasters, jmodel, jparams, jax_load_bboxes(world["bboxes"]),
+                                    JaxDetectConfig(**kw), batch_size=6, land=jgf.read_file(world["land"]),
+                                    use_native=False, overlap=256)
+    got, stats = run_pipeline(rasters, load_model(FIXTURE, "n", 2), load_download_bboxes(world["bboxes"]),
+                              DetectConfig(**kw), batch_size=6, land=tgf.read_file(world["land"]),
+                              device="cpu", overlap=256)
+    assert stats.tiles == jstats.tiles == 18 and stats.batches == 3  # 3 x 3 tiles per raster
+    assert list(stats.stage_rows) == ["detect", "geocode", "dedup", "cross_tile", "areas", "land_filter"]
+    assert stats.stage_rows["cross_tile"] < stats.stage_rows["dedup"]  # overlap copies collapsed
+    assert_f32_frames_match(got, want)
+
+
+def test_run_pipeline_decode_scale_matches_jax(world):
+    """256 px from 1024 px tiles (2/8): the host resizes, the device does not."""
+    paths = sorted(os.path.join(world["images"], f) for f in os.listdir(world["images"]))
+    kw = dict(img_size=256, conf_threshold=0.05, dtype="float32")
+    jmodel, jparams = jax_load_model(FIXTURE, "n", 2)
+    want, _ = jax_run_pipeline(paths, jmodel, jparams, jax_load_bboxes(world["bboxes"]), JaxDetectConfig(**kw),
+                               batch_size=4, use_native=False, decode_scale=True)
+    got, stats = run_pipeline(paths, load_model(FIXTURE, "n", 2), load_download_bboxes(world["bboxes"]),
+                              DetectConfig(**kw), batch_size=4, device="cpu", decode_scale=True,
+                              decode_threads=1)
+    assert stats.loader == "python" and stats.tiles == 8
+    assert_f32_frames_match(got, want, least=10)
+
+
+def test_cli_pipeline_passes_the_new_flags(world, tmp_path, monkeypatch):
+    seen = {}
+
+    def fake_run_pipeline(paths, model, dl, cfg, batch, **kw):
+        seen.update(kw, img_size=cfg.img_size, variant=model.variant)
+        return tgf.GeoFrame({"a": []}, geometry=[], crs=4326), tpipeline.PipelineStats()
+
+    monkeypatch.setattr(torch_pipeline_cli, "run_pipeline", fake_run_pipeline)
+    base = ["--source", world["images"], "--download-bboxes", world["bboxes"], "--device", "cpu",
+            "--out", str(tmp_path / "x.geojson")]
+    torch_pipeline_cli.main(base + ["--variant", "n6", "--num-classes", "2", "--overlap", "256",
+                                    "--decode-threads", "2"])
+    assert (seen["img_size"], seen["variant"], seen["overlap"], seen["decode_threads"], seen["decode_scale"]) \
+        == (1280, "n6", 256, 2, False)
+    torch_pipeline_cli.main(base + ["--variant", "n", "--num-classes", "2", "--decode-scale"])
+    assert (seen["img_size"], seen["overlap"], seen["decode_scale"]) == (640, 0, True)
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--profile=trace", "--aot=x.aqx"])
 def test_cli_pipeline_rejects_flags_of_later_slices(flag, world, tmp_path):
     with pytest.raises(SystemExit):
         torch_pipeline_cli.main(["--source", world["images"], "--download-bboxes", world["bboxes"],
