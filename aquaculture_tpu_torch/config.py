@@ -2,9 +2,8 @@
 
 A copy of what the port needs from aquaculture_tpu/config.py: the imagery
 geometry and CRS registry (reference src/utils.py:17-20), the class
-mappings and ``DetectConfig`` with its serving options (multi-label
-candidates, test-time augmentation). The training settings arrive with
-the slice that uses them.
+mappings, ``DetectConfig`` with its serving options (multi-label
+candidates, test-time augmentation) and ``TrainConfig``, field for field.
 """
 
 from __future__ import annotations
@@ -66,6 +65,59 @@ class DetectConfig:
                 f"tta_scales ({len(self.tta_scales)}) and tta_flips "
                 f"({len(self.tta_flips)}) must have the same length: one "
                 "flip entry (None or 'lr') per scale pass")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration: the reference's ``train.py --img 640
+    --batch 16 --epochs 50`` with ultralytics' default hyperparameters."""
+
+    img_size: int = 640
+    batch_size: int = 16
+    epochs: int = 50
+    lr0: float = 0.01
+    lrf: float = 0.01               # final OneCycle lr fraction
+    momentum: float = 0.937
+    weight_decay: float = 5e-4
+    warmup_epochs: float = 3.0
+    warmup_momentum: float = 0.8
+    warmup_bias_lr: float = 0.1
+    box_gain: float = 0.05
+    cls_gain: float = 0.5
+    obj_gain: float = 1.0
+    anchor_t: float = 4.0           # anchor-match wh ratio threshold
+    fl_gamma: float = 0.0
+    label_smoothing: float = 0.0
+    hsv_h: float = 0.015
+    hsv_s: float = 0.7
+    hsv_v: float = 0.4
+    fliplr: float = 0.5
+    flipud: float = 0.0
+    mosaic: float = 1.0
+    translate: float = 0.1
+    scale: float = 0.5
+    ema_decay: float = 0.9999
+    max_boxes_per_image: int = 120  # fixed-shape label padding
+    # Host feed threads per batch (decode, mosaic, affine and HSV are numpy
+    # and OpenCV, mostly releasing the GIL). 0 = auto (cores capped at 8),
+    # 1 = sequential. Batches are identical for any thread count
+    # (per-sample seeding).
+    feed_threads: int = 0
+    # Decoded-image cache budget (GiB), shared by the full-resolution and
+    # resized caches; past it samples are decoded per use. <= 0 disables.
+    cache_gb: float = 4.0
+    # Recompute each top-level block's activations in the backward pass
+    # (torch.utils.checkpoint): less activation memory for more compute.
+    remat: bool = False
+    # Activations and weight use in this dtype; master parameters, BN
+    # statistics, head maps in the loss and the loss in float32.
+    # "float32" trains in full precision.
+    compute_dtype: str = "bfloat16"
+
+
+# compute dtypes by their config names (DetectConfig.dtype,
+# TrainConfig.compute_dtype)
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

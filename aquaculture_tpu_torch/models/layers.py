@@ -1,10 +1,12 @@
-"""Inference building blocks of the detector family as PyTorch modules.
+"""Building blocks of the detector family as PyTorch modules.
 
-Counterpart of aquaculture_tpu/models/layers.py, fused (``{w, b}``)
-inference path only: Conv(+folded BN)+SiLU, Bottleneck, C3, SPPF, the
-space-to-depth stem and nearest 2x upsample. Modules take and return NCHW
-tensors; callers keep them in ``torch.channels_last`` memory format, which
-is the NHWC layout of the JAX package and what cuDNN runs fastest.
+Counterpart of aquaculture_tpu/models/layers.py: Conv+SiLU with BN folded
+(``ConvBlock``, the fused ``{w, b}`` serving path) or with trainable
+BatchNorm (``TrainConvBlock``, the ``{w, bn}`` training path), Bottleneck,
+C3 and SPPF over either, the space-to-depth stem and nearest 2x upsample.
+Modules take and return NCHW tensors; callers keep them in
+``torch.channels_last`` memory format, which is the NHWC layout of the JAX
+package and what cuDNN runs fastest.
 
 The numpy helpers at the bottom (BN folding and the exact space-to-depth
 weight reparametrizations) work on the JAX package's HWIO parameter trees,
@@ -13,7 +15,9 @@ so a tree saved by either package loads through models/weights.py.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+import dataclasses
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +25,10 @@ import torch.nn.functional as F
 from torch import nn
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
+
+# BatchNorm2d with ultralytics' defaults, as layers.batch_norm
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.03
 
 
 def _same(k: int) -> Padding:
@@ -51,11 +59,78 @@ class ConvBlock(nn.Module):
         return F.silu(y + self.bias.to(x.dtype)[:, None, None])
 
 
-class Bottleneck(nn.Module):
-    def __init__(self, cin: int, cout: int):
+@dataclasses.dataclass
+class TrainOptions:
+    """Switches of one training model, shared by its blocks:
+    rematerialization per top-level block, and whether a train-mode forward
+    writes the BN running statistics (off while a rematerialized block is
+    recomputed in the backward pass, so they move once per step)."""
+
+    remat: bool = False
+    update_stats: bool = True
+
+    @contextlib.contextmanager
+    def stats_frozen(self):
+        prev, self.update_stats = self.update_stats, False
+        try:
+            yield
+        finally:
+            self.update_stats = prev
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm with the JAX package's arithmetic (layers.batch_norm), not
+    ``nn.BatchNorm2d``'s: in train mode the batch mean and the BIASED batch
+    variance normalize, and the f32 running statistics move as
+    ``(1 - 0.03) * old + 0.03 * batch``; ``inv = rsqrt(var + 1e-3) * scale``
+    in f32, then ``(x - mean) * inv + bias`` in the activation dtype."""
+
+    def __init__(self, c: int):
         super().__init__()
-        self.cv1 = ConvBlock(cin, cout, 1)
-        self.cv2 = ConvBlock(cout, cout, 3)
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+        if self.training:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            if update_stats:
+                with torch.no_grad():
+                    self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean.float())
+                    self.var.copy_((1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * var.float())
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var.float() + BN_EPS) * self.scale
+        dt = x.dtype
+        return (x - mean.to(dt)[:, None, None]) * inv.to(dt)[:, None, None] + self.bias.to(dt)[:, None, None]
+
+
+class TrainConvBlock(nn.Module):
+    """Conv2d + BatchNorm + SiLU with trainable OIHW ``weight`` and BN
+    ``scale``/``bias``, f32 ``mean``/``var`` buffers (layers.conv_block's
+    ``{w, bn}`` path). The f32 weight is cast to the activation dtype at
+    use."""
+
+    def __init__(self, cin: int, cout: int, k: int, options: TrainOptions):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
+        self.bn = BatchNorm(cout)
+        self.options = options
+
+    def forward(self, x, stride: int = 1, padding: Padding | None = None):
+        y = conv2d(x, self.weight, stride, padding)
+        return F.silu(self.bn(y, self.options.update_stats))
+
+
+Block = Callable[[int, int, int], nn.Module]
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, cout: int, block: Block = ConvBlock):
+        super().__init__()
+        self.cv1 = block(cin, cout, 1)
+        self.cv2 = block(cout, cout, 3)
 
     def forward(self, x, shortcut: bool):
         y = self.cv2(self.cv1(x))
@@ -67,13 +142,13 @@ class Bottleneck(nn.Module):
 class C3(nn.Module):
     """CSP bottleneck with 3 convs: cv3(cat([m(cv1(x)), cv2(x)]))."""
 
-    def __init__(self, cin: int, cout: int, n: int):
+    def __init__(self, cin: int, cout: int, n: int, block: Block = ConvBlock):
         super().__init__()
         ch = cout // 2
-        self.cv1 = ConvBlock(cin, ch, 1)
-        self.cv2 = ConvBlock(cin, ch, 1)
-        self.cv3 = ConvBlock(2 * ch, cout, 1)
-        self.m = nn.ModuleList(Bottleneck(ch, ch) for _ in range(n))
+        self.cv1 = block(cin, ch, 1)
+        self.cv2 = block(cin, ch, 1)
+        self.cv3 = block(2 * ch, cout, 1)
+        self.m = nn.ModuleList(Bottleneck(ch, ch, block) for _ in range(n))
 
     def forward(self, x, shortcut: bool = True):
         y1 = self.cv1(x)
@@ -88,11 +163,11 @@ def max_pool(x: torch.Tensor, k: int = 5) -> torch.Tensor:
 
 
 class SPPF(nn.Module):
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, block: Block = ConvBlock):
         super().__init__()
         ch = cin // 2
-        self.cv1 = ConvBlock(cin, ch, 1)
-        self.cv2 = ConvBlock(ch * 4, cout, 1)
+        self.cv1 = block(cin, ch, 1)
+        self.cv2 = block(ch * 4, cout, 1)
 
     def forward(self, x, k: int = 5):
         y = self.cv1(x)

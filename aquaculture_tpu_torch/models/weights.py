@@ -5,7 +5,10 @@ The JAX package keeps parameters as nested dicts/lists of HWIO arrays
 ``YoloV5`` names its parameters after the same paths, so the mapping is by
 name: ``b2/m/0/cv1/w`` -> ``b2.m.0.cv1.weight`` (HWIO -> OIHW with
 ``transpose(3, 2, 0, 1)``) and ``.../b`` -> ``.../bias``
-(``load_jax_params``).
+(``load_jax_params``, into the BN-folded serving model). The training model
+keeps the unfused tree's BatchNorm leaves (``b2/m/0/cv1/bn/mean`` <->
+``b2.m.0.cv1.bn.mean``) and goes both ways: ``load_train_params`` in,
+``to_tree`` back out to HWIO float32 (checkpoints, EMA, momenta).
 
 An ultralytics ``.pt`` (the reference's weights, reference README.md:60,77)
 is first turned into that same numpy tree (``load_pretrained``, a copy of
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from aquaculture_tpu_torch.models.yolov5 import DOWN_LAYERS, DOWN_LAYERS_P6
+from aquaculture_tpu_torch.utils.checkpoint import flatten_tree, unflatten_paths
 
 # our-name -> ultralytics model index
 _LAYER_INDEX = {
@@ -69,26 +73,12 @@ def family_layout(model) -> tuple:
     return _LAYER_INDEX, _DETECT_INDEX, "b9"
 
 
-def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict/list tree -> {"/"-joined path: leaf}."""
+def has_bn(tree) -> bool:
+    """Whether a parameter tree holds BatchNorm parameters (unfused)."""
     if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(flatten_tree(v, f"{prefix}{k}/"))
-        return out
+        return "bn" in tree or any(has_bn(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(flatten_tree(v, f"{prefix}{i}/"))
-        return out
-    return {prefix.rstrip("/"): np.asarray(tree)}
-
-
-def _is_unfused(tree) -> bool:
-    if isinstance(tree, dict):
-        return "bn" in tree or any(_is_unfused(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return any(_is_unfused(v) for v in tree)
+        return any(has_bn(v) for v in tree)
     return False
 
 
@@ -111,6 +101,40 @@ def _accepts(name: str, want: tuple, got: tuple) -> bool:
     return False
 
 
+def tree_key(name: str) -> str:
+    """A model's state name -> its path in the JAX tree:
+    ``b2.m.0.cv1.weight`` -> ``b2/m/0/cv1/w``, ``head.0.bias`` ->
+    ``head/0/b``, ``b2.cv1.bn.mean`` -> ``b2/cv1/bn/mean``."""
+    *path, leaf = name.split(".")
+    if leaf == "weight":
+        leaf = "w"
+    elif leaf == "bias" and (not path or path[-1] != "bn"):
+        leaf = "b"
+    return "/".join([*path, leaf])
+
+
+def train_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Every tensor of a model's state by name: the parameters, then the BN
+    running statistics of a training model (the JAX package's ``params``
+    tree)."""
+    return {**dict(model.named_parameters()), **dict(model.named_buffers())}
+
+
+def from_tree(model: torch.nn.Module, tree) -> Dict[str, np.ndarray]:
+    """A JAX-format tree -> float32 arrays by the model's state names (OIHW
+    weights); every leaf consumed once, a missing or extra leaf raises."""
+    flat = flatten_tree(tree)
+    names = {tree_key(n): n for n in train_state(model)}
+    if set(names) != set(flat):
+        raise KeyError(f"parameter tree does not match {type(model).__name__}: "
+                       f"missing {sorted(set(names) - set(flat))}, extra {sorted(set(flat) - set(names))}")
+    out = {}
+    for key, name in names.items():
+        arr = np.asarray(flat[key])
+        out[name] = np.array(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr, dtype=np.float32, order="C")
+    return out
+
+
 def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     """Load a JAX-package tree of numpy arrays into ``model`` (a ``YoloV5``,
     or one of its blocks given a fused tree) in place and return it.
@@ -120,31 +144,50 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     missing or extra leaf, or a shape the model cannot run, raises. Weights
     are stored as float32 (an exact upcast of float16 leaves); cast the
     model for serving."""
-    if _is_unfused(tree):
+    if has_bn(tree):
         tree = model.fuse(tree)
-    flat = flatten_tree(tree)
     params = dict(model.named_parameters())
-    want = {}
-    for name in params:
+    for name, arr in from_tree(model, tree).items():
         *path, leaf = name.split(".")
-        want["/".join([*path, {"weight": "w", "bias": "b"}[leaf]])] = name
-    missing = sorted(set(want) - set(flat))
-    extra = sorted(set(flat) - set(want))
-    if missing or extra:
-        raise KeyError(f"parameter tree does not match {type(model).__name__}: "
-                       f"missing {missing}, extra {extra}")
-    for key, name in want.items():
-        *path, leaf = name.split(".")
-        arr = np.asarray(flat[key])
-        if leaf == "weight":
-            arr = arr.transpose(3, 2, 0, 1)
-        t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
         p = params[name]
-        if not _accepts(name, tuple(p.shape), tuple(t.shape)):
-            raise ValueError(f"{key}: shape {tuple(t.shape)} (OIHW) does not fit {name} {tuple(p.shape)}")
+        if not _accepts(name, tuple(p.shape), arr.shape):
+            raise ValueError(f"{tree_key(name)}: shape {arr.shape} (OIHW) does not fit {name} {tuple(p.shape)}")
         setattr(model.get_submodule(".".join(path)), leaf,
-                torch.nn.Parameter(t.to(p.device), requires_grad=False))
+                torch.nn.Parameter(torch.from_numpy(arr).to(p.device), requires_grad=False))
     return model
+
+
+# ---------------------------------------------------------------------------
+# the training model <-> unfused JAX-format trees, both ways
+# ---------------------------------------------------------------------------
+
+def load_train_params(model: torch.nn.Module, tree) -> torch.nn.Module:
+    """Copy an UNFUSED JAX-format tree (HWIO weights, ``bn`` dicts; from
+    ``YoloV5.init``, a training checkpoint or an ultralytics training
+    ``.pt``) into a training model (``YoloV5(trainable=True)``) in place, as
+    float32, on the model's device. Every leaf is consumed exactly once; a
+    missing or extra leaf or a shape mismatch raises."""
+    state = train_state(model)
+    with torch.no_grad():
+        for name, arr in from_tree(model, tree).items():
+            t = state[name]
+            if arr.shape != tuple(t.shape):
+                raise ValueError(f"{tree_key(name)}: shape {arr.shape} (OIHW) does not fit {name} "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(arr))
+    return model
+
+
+def to_tree(named: Dict[str, torch.Tensor]):
+    """Tensors by training-model name -> the JAX-format numpy tree (HWIO
+    weights, float32), e.g. the model's state, its EMA or its momenta."""
+    flat = {}
+    for name, t in named.items():
+        arr = t.detach().float().cpu().numpy()
+        if arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+        flat[tree_key(name)] = np.ascontiguousarray(arr)
+    return unflatten_paths(flat)
 
 
 # ---------------------------------------------------------------------------

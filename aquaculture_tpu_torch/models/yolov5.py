@@ -5,10 +5,12 @@ Counterpart of aquaculture_tpu/models/yolov5.py: CSPDarknet backbone (6x6/s2
 stem, C3 blocks, SPPF), PANet neck and the anchor-based detect head at
 strides 8/16/32 or, for the *6 variants, an extra 768 -> 1024 backbone
 stage, a 4-level PANet and a stride-64 detect level (public yolov5-p6
-yaml). Inference only: the module holds BN-folded weights, loaded
-from a JAX-package parameter tree by models/weights.py. ``init`` builds the
-same random tree as the JAX package's ``yolov5_init`` from a seed, with
-numpy.
+yaml). The serving model holds BN-folded weights; the training model
+(``trainable=True``) holds the unfused layout the JAX package trains: the
+k6/s2 stem on 3 channels, k3/s2 downsamples and Conv+BatchNorm+SiLU blocks
+with trainable parameters. Either loads from a JAX-package parameter tree
+through models/weights.py. ``init`` builds the same random tree as the JAX
+package's ``yolov5_init`` from a seed, with numpy.
 
 Public layouts are the JAX package's: ``features`` takes NHWC images
 (B, H, W, 3) in [0, 1] and returns NHWC head maps; ``decode`` returns
@@ -18,11 +20,14 @@ NCHW in channels_last memory format.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aquaculture_tpu_torch.models import layers as L
 
@@ -84,27 +89,37 @@ def _depth(n: int, dm: float) -> int:
 
 
 class HeadConv(nn.Module):
-    """The detect head's 1x1 conv with bias and no activation."""
+    """The detect head's 1x1 conv with bias and no activation, in the
+    activation dtype."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, trainable: bool = False):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin, 1, 1), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        self.weight = nn.Parameter(torch.zeros(cout, cin, 1, 1), requires_grad=trainable)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=trainable)
 
     def forward(self, x):
         return L.conv2d(x, self.weight) + self.bias.to(x.dtype)[:, None, None]
 
 
 class YoloV5(nn.Module):
-    """YOLOv5 inference model, P5 or P6 by variant. Parameter names follow
-    the JAX package's tree (``b2.m.0.cv1.weight`` <-> ``b2/m/0/cv1/w``);
-    ``n20`` is a C3 in P5 and a 1x1 conv in P6, as there. The stem starts in the
+    """YOLOv5 model, P5 or P6 by variant. Parameter names follow the JAX
+    package's tree (``b2.m.0.cv1.weight`` <-> ``b2/m/0/cv1/w``,
+    ``b2.m.0.cv1.bn.mean`` <-> ``b2/m/0/cv1/bn/mean``); ``n20`` is a C3 in
+    P5 and a 1x1 conv in P6, as there.
+
+    Serving (``trainable=False``): BN-folded blocks; the stem starts in the
     fused space-to-depth layout (k3 over 12 channels) and every downsample
     as k3/s2; models/weights.py may load the other layouts the JAX package
     stores, and ``features`` dispatches on the stored kernel shape as the
-    JAX package does."""
+    JAX package does.
 
-    def __init__(self, variant: str = "m", num_classes: int = 5, anchors: Sequence | None = None):
+    Training (``trainable=True``): Conv+BatchNorm+SiLU blocks
+    (``layers.TrainConvBlock``), the k6/s2 stem on 3 channels, trainable
+    f32 parameters and f32 BN running statistics; ``train_options`` holds
+    the model's remat switch."""
+
+    def __init__(self, variant: str = "m", num_classes: int = 5, anchors: Sequence | None = None,
+                 trainable: bool = False):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"unknown or unported variant {variant!r}; have {sorted(VARIANTS)}")
@@ -115,48 +130,57 @@ class YoloV5(nn.Module):
         self.anchor_table = anchors if anchors is not None else family_anchors
         self.strides = STRIDES_P6 if self.is_p6 else STRIDES
         self.down_layers = DOWN_LAYERS_P6 if self.is_p6 else DOWN_LAYERS
+        self.trainable = trainable
         ch, dp = self.channels(), self.depths()
         c1, c2, c3, c4, c5 = (ch[f"c{i}"] for i in range(1, 6))
         n3, n6, n9 = dp["n3"], dp["n6"], dp["n9"]
-        self.b0 = L.ConvBlock(4 * 3, c1, 3)
-        self.b1 = L.ConvBlock(c1, c2, 3)
-        self.b2 = L.C3(c2, c2, n3)
-        self.b3 = L.ConvBlock(c2, c3, 3)
-        self.b4 = L.C3(c3, c3, n6)
-        self.b5 = L.ConvBlock(c3, c4, 3)
-        self.b6 = L.C3(c4, c4, n9)
-        self.b7 = L.ConvBlock(c4, c5, 3)
-        self.b8 = L.C3(c5, c5, n3)
+        if trainable:
+            self.train_options = L.TrainOptions()
+            conv = functools.partial(L.TrainConvBlock, options=self.train_options)
+            self.b0 = conv(3, c1, 6)
+        else:
+            self.train_options = None
+            conv = L.ConvBlock
+            self.b0 = conv(4 * 3, c1, 3)
+        c3_ = functools.partial(L.C3, block=conv)
+        self.b1 = conv(c1, c2, 3)
+        self.b2 = c3_(c2, c2, n3)
+        self.b3 = conv(c2, c3, 3)
+        self.b4 = c3_(c3, c3, n6)
+        self.b5 = conv(c3, c4, 3)
+        self.b6 = c3_(c4, c4, n9)
+        self.b7 = conv(c4, c5, 3)
+        self.b8 = c3_(c5, c5, n3)
         if self.is_p6:
             c6 = ch["c6"]
-            self.b9 = L.ConvBlock(c5, c6, 3)
-            self.b10 = L.C3(c6, c6, n3)
-            self.b11 = L.SPPF(c6, c6)
-            self.n12 = L.ConvBlock(c6, c5, 1)
-            self.n15 = L.C3(2 * c5, c5, n3)
-            self.n16 = L.ConvBlock(c5, c4, 1)
-            self.n19 = L.C3(2 * c4, c4, n3)
-            self.n20 = L.ConvBlock(c4, c3, 1)
-            self.n23 = L.C3(2 * c3, c3, n3)
-            self.n24 = L.ConvBlock(c3, c3, 3)
-            self.n26 = L.C3(2 * c3, c4, n3)
-            self.n27 = L.ConvBlock(c4, c4, 3)
-            self.n29 = L.C3(2 * c4, c5, n3)
-            self.n30 = L.ConvBlock(c5, c5, 3)
-            self.n32 = L.C3(2 * c5, c6, n3)
+            self.b9 = conv(c5, c6, 3)
+            self.b10 = c3_(c6, c6, n3)
+            self.b11 = L.SPPF(c6, c6, conv)
+            self.n12 = conv(c6, c5, 1)
+            self.n15 = c3_(2 * c5, c5, n3)
+            self.n16 = conv(c5, c4, 1)
+            self.n19 = c3_(2 * c4, c4, n3)
+            self.n20 = conv(c4, c3, 1)
+            self.n23 = c3_(2 * c3, c3, n3)
+            self.n24 = conv(c3, c3, 3)
+            self.n26 = c3_(2 * c3, c4, n3)
+            self.n27 = conv(c4, c4, 3)
+            self.n29 = c3_(2 * c4, c5, n3)
+            self.n30 = conv(c5, c5, 3)
+            self.n32 = c3_(2 * c5, c6, n3)
             head_in = (c3, c4, c5, c6)
         else:
-            self.b9 = L.SPPF(c5, c5)
-            self.n10 = L.ConvBlock(c5, c4, 1)
-            self.n13 = L.C3(2 * c4, c4, n3)
-            self.n14 = L.ConvBlock(c4, c3, 1)
-            self.n17 = L.C3(2 * c3, c3, n3)
-            self.n18 = L.ConvBlock(c3, c3, 3)
-            self.n20 = L.C3(2 * c3, c4, n3)
-            self.n21 = L.ConvBlock(c4, c4, 3)
-            self.n23 = L.C3(2 * c4, c5, n3)
+            self.b9 = L.SPPF(c5, c5, conv)
+            self.n10 = conv(c5, c4, 1)
+            self.n13 = c3_(2 * c4, c4, n3)
+            self.n14 = conv(c4, c3, 1)
+            self.n17 = c3_(2 * c3, c3, n3)
+            self.n18 = conv(c3, c3, 3)
+            self.n20 = c3_(2 * c3, c4, n3)
+            self.n21 = conv(c4, c4, 3)
+            self.n23 = c3_(2 * c4, c5, n3)
             head_in = (c3, c4, c5)
-        self.head = nn.ModuleList(HeadConv(c, self.na * self.no) for c in head_in)
+        self.head = nn.ModuleList(HeadConv(c, self.na * self.no, trainable) for c in head_in)
 
     @property
     def na(self) -> int:
@@ -276,57 +300,71 @@ class YoloV5(nn.Module):
     # forward
     # ------------------------------------------------------------------
 
+    def _run(self, m: nn.Module, *args, **kwargs) -> torch.Tensor:
+        """Call one top-level block; under ``train_options.remat`` (train
+        mode, autograd on) through torch.utils.checkpoint, with the BN
+        running statistics frozen while the backward pass recomputes it."""
+        opts = self.train_options
+        if opts is not None and opts.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(m, *args, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(), opts.stats_frozen()), **kwargs)
+        return m(*args, **kwargs)
+
     def _down(self, name: str, t: torch.Tensor) -> torch.Tensor:
         # k2 kernel = fuse(down_s2d=...): space-to-depth + k2/s1, (1, 0) pad
         m = getattr(self, name)
         if m.weight.shape[-1] == 2:
-            return m(L.space_to_depth2(t), 1, ((1, 0), (1, 0)))
-        return m(t, 2)
+            return self._run(m, L.space_to_depth2(t), 1, ((1, 0), (1, 0)))
+        return self._run(m, t, 2)
 
     def features(self, x: torch.Tensor) -> List[torch.Tensor]:
         """(B, H, W, 3) NHWC images in [0, 1] -> per-level raw head maps,
-        each (B, H/s, W/s, na*no) NHWC: three levels for P5, four for P6."""
+        each (B, H/s, W/s, na*no) NHWC in the input's dtype: three levels for
+        P5, four for P6. In train mode (``self.train()``) every BatchNorm
+        normalizes with batch statistics and moves its running statistics
+        once per call."""
+        run = self._run
         x = x.permute(0, 3, 1, 2)  # NCHW view; channels_last when x is NHWC-contiguous
         w0 = self.b0.weight
         if w0.shape[-1] == 3 and w0.shape[1] == 4 * x.shape[1]:
-            y = self.b0(L.space_to_depth2(x), 1, ((1, 1), (1, 1)))
+            y = run(self.b0, L.space_to_depth2(x), 1, ((1, 1), (1, 1)))
         else:
-            y = self.b0(x, 2, ((2, 2), (2, 2)))
+            y = run(self.b0, x, 2, ((2, 2), (2, 2)))
         y = self._down("b1", y)
-        y = self.b2(y)
+        y = run(self.b2, y)
         y = self._down("b3", y)
-        p3 = self.b4(y)                                   # stride 8
+        p3 = run(self.b4, y)                              # stride 8
         y = self._down("b5", p3)
-        p4 = self.b6(y)                                   # stride 16
+        p4 = run(self.b6, y)                              # stride 16
         y = self._down("b7", p4)
         if self.is_p6:
-            p5 = self.b8(y)                               # stride 32
+            p5 = run(self.b8, y)                          # stride 32
             y = self._down("b9", p5)
-            y = self.b11(self.b10(y))                     # stride 64
-            t12 = self.n12(y)
-            y = self.n15(torch.cat([L.upsample2x(t12), p5], dim=1), shortcut=False)
-            t16 = self.n16(y)
-            y = self.n19(torch.cat([L.upsample2x(t16), p4], dim=1), shortcut=False)
-            t20 = self.n20(y)
-            o3 = self.n23(torch.cat([L.upsample2x(t20), p3], dim=1), shortcut=False)
+            y = run(self.b11, run(self.b10, y))           # stride 64
+            t12 = run(self.n12, y)
+            y = run(self.n15, torch.cat([L.upsample2x(t12), p5], dim=1), shortcut=False)
+            t16 = run(self.n16, y)
+            y = run(self.n19, torch.cat([L.upsample2x(t16), p4], dim=1), shortcut=False)
+            t20 = run(self.n20, y)
+            o3 = run(self.n23, torch.cat([L.upsample2x(t20), p3], dim=1), shortcut=False)
             y = self._down("n24", o3)
-            o4 = self.n26(torch.cat([y, t20], dim=1), shortcut=False)
+            o4 = run(self.n26, torch.cat([y, t20], dim=1), shortcut=False)
             y = self._down("n27", o4)
-            o5 = self.n29(torch.cat([y, t16], dim=1), shortcut=False)
+            o5 = run(self.n29, torch.cat([y, t16], dim=1), shortcut=False)
             y = self._down("n30", o5)
-            o6 = self.n32(torch.cat([y, t12], dim=1), shortcut=False)
+            o6 = run(self.n32, torch.cat([y, t12], dim=1), shortcut=False)
             outs = (o3, o4, o5, o6)
         else:
-            y = self.b8(y)
-            y = self.b9(y)                                # stride 32
-            t10 = self.n10(y)
-            y = self.n13(torch.cat([L.upsample2x(t10), p4], dim=1), shortcut=False)
-            t14 = self.n14(y)
-            o3 = self.n17(torch.cat([L.upsample2x(t14), p3], dim=1), shortcut=False)
+            y = run(self.b8, y)
+            y = run(self.b9, y)                           # stride 32
+            t10 = run(self.n10, y)
+            y = run(self.n13, torch.cat([L.upsample2x(t10), p4], dim=1), shortcut=False)
+            t14 = run(self.n14, y)
+            o3 = run(self.n17, torch.cat([L.upsample2x(t14), p3], dim=1), shortcut=False)
             y = self._down("n18", o3)
-            o4 = self.n20(torch.cat([y, t14], dim=1), shortcut=False)
+            o4 = run(self.n20, torch.cat([y, t14], dim=1), shortcut=False)
             y = self._down("n21", o4)
-            o5 = self.n23(torch.cat([y, t10], dim=1), shortcut=False)
+            o5 = run(self.n23, torch.cat([y, t10], dim=1), shortcut=False)
             outs = (o3, o4, o5)
         return [h(o).permute(0, 2, 3, 1) for h, o in zip(self.head, outs)]
 

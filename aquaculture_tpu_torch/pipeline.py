@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from aquaculture_tpu_torch import frame as gf
-from aquaculture_tpu_torch.config import IM_WIDTH, DetectConfig, resolve_device
+from aquaculture_tpu_torch.config import DTYPES, IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import TileSpec
 from aquaculture_tpu_torch.data.loader import tile_batches
 from aquaculture_tpu_torch.models.yolov5 import YoloV5
@@ -39,8 +39,6 @@ from aquaculture_tpu_torch.post.landmask import remove_land_detections_hybrid
 # (remove_land_detections_hybrid, row-for-row the exact result); below it
 # the exact sjoin is cheaper than building the mask.
 HYBRID_LAND_FILTER_ROWS = 2000
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclasses.dataclass
@@ -91,7 +89,7 @@ def make_infer_fn(model: YoloV5, cfg: DetectConfig, tile: int = IM_WIDTH, device
     and returns (B, max_det, 6) rows [x0, y0, x1, y1, conf, cls] in tile
     pixels plus the (B, max_det) validity mask, both on the device."""
     dev = resolve_device(device)
-    dtype = _DTYPES[cfg.dtype]
+    dtype = DTYPES[cfg.dtype]
     gain = torch.full((), cfg.img_size / tile, device=dev)  # a device divisor, as in preprocess
     model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
 

@@ -38,7 +38,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      of TIMED_SHAPES; m6: (128, 1024)), and its bare scan with no valid
      candidate, on a queue of launches held behind a device sleep, so that
      the time is the card's and not the host's enqueue; time the plain
-     version beside it.
+     version beside it;
+  6. the train phase: two f32 train steps of n at 160 px (batch 4, TF32
+     off) on the card against the CPU, the losses, every leaf of params,
+     EMA and momentum, and the change of the params per optimizer group;
+     ``aquaculture_tpu_torch.cli.train`` as the reference recipe runs it
+     (m at 640, batch 16, 2 epochs, augmentation on, bf16) on 32 rendered
+     1024 px tiles with YOLO labels, then its EMA checkpoint served by
+     cli.detect over the main path's tiles with the counters zeroed around
+     it (launches == batches); the device time of one bf16 train step of m
+     at 640, batch 16, plain and with remat (img/s, training TFLOP/s as 3x
+     the forward's conv FLOPs, peak memory), the plain step's profile (host
+     enqueue, device busy and idle share, kernels by kind), and the
+     augmented feed's img/s alone.
 The last lines are the {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -239,16 +251,18 @@ def write_tiles(d: str, n: int = 16, seed: int = 0, specs=None, px: int = 1024) 
     return paths
 
 
-def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, options: tuple = ()) -> dict:
-    """cli.detect on mt at 640 over the tiles, with serving ``options``
-    (e.g. --augment --multi-label) after the defaults."""
+def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, options: tuple = (),
+                  variant: str = "mt") -> dict:
+    """cli.detect on ``variant`` (mt) at 640 over the tiles, with serving
+    ``options`` (e.g. --augment --multi-label, or --weights) after the
+    defaults."""
     from aquaculture_tpu_torch.cli import detect as cli_detect
     from aquaculture_tpu_torch.ops import nms_cuda
 
     nms_cuda.launches = 0
     t0 = time.perf_counter()
     stats = cli_detect.main([
-        "--source", tile_dir, "--out", label_dir, "--variant", "mt",
+        "--source", tile_dir, "--out", label_dir, "--variant", variant,
         "--batch", str(batch), "--conf", "1e-5", *options,
     ])
     seconds = time.perf_counter() - t0
@@ -806,6 +820,288 @@ def time_serving_and_kernel(dev, card: str, tiles, variant: str = "mt", shapes=T
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training (aq-train)
+# ---------------------------------------------------------------------------
+
+# Limits of the f32 train steps card vs CPU (n at 160 px, batch 4, two
+# steps, TF32 off), each about ten times this comparison's own readings on
+# an H100 (PERF.md): per leaf of params, EMA and momentum, the largest
+# difference as a share of the leaf's magnitude (read: 8.6e-5); per tree,
+# the relative L2 difference (params and EMA 6.7e-8, momentum 4.3e-5); per
+# parameter group, the relative L2 difference of the change the two steps
+# made, params minus init (BN scales 3.4e-4, weights 2.7e-4, biases
+# 4.6e-5, running statistics 2.2e-6). The first step runs at a warmup lr
+# of 0 for weights and BN scales, so the params tree barely moves and only
+# the change per group shows a skipped or wrong update (relative L2 1).
+TRAIN_STEPS_EXACT = 2
+TRAIN_LEAF_TOL = 1e-3
+TRAIN_TREE_TOL = {"params": 1e-6, "ema": 1e-6, "opt_momentum": 5e-4}
+TRAIN_DELTA_TOL = 3e-3
+TRAIN_VARIANT, TRAIN_IMG, TRAIN_BATCH, TRAIN_TILES, TRAIN_EPOCHS = "m", 640, 16, 32, 2
+
+
+def _train_batch(rng, b: int, img: int, m: int = 8):
+    """A fixed-shape batch: b images in [0, 1], up to m pixel boxes each."""
+    labels = np.zeros((b, m, 5), np.float32)
+    mask = np.zeros((b, m), bool)
+    for i in range(b):
+        n = 2 + i % (m - 1)
+        wh = rng.uniform(img / 40, img / 4, (n, 2))
+        cxy = rng.uniform(wh / 2, img - wh / 2)
+        labels[i, :n] = np.concatenate([rng.integers(0, 2, (n, 1)), cxy, wh], 1)
+        mask[i, :n] = True
+    return {"images": rng.random((b, img, img, 3), dtype=np.float32), "labels": labels, "label_mask": mask}
+
+
+def _rel_l2(got: dict, want: dict, keys) -> float:
+    err2 = sum(float(((got[k].astype(np.float64) - want[k]) ** 2).sum()) for k in keys)
+    norm2 = sum(float((want[k].astype(np.float64) ** 2).sum()) for k in keys)
+    return (err2 / norm2) ** 0.5 if norm2 else (0.0 if err2 == 0 else float("inf"))
+
+
+def check_train_step_f32_vs_cpu(dev, variant: str = "n", img: int = 160, b: int = 4) -> dict:
+    """TRAIN_STEPS_EXACT f32 train steps (forward, loss, backward, SGD, EMA)
+    of ``variant`` at img px from one seeded init and batch, TF32 off, on the
+    card and on the CPU: each step's loss and its components (rtol 1e-5),
+    every leaf and tree of params, EMA and momentum, and the change of the
+    params per optimizer group (TRAIN_LEAF_TOL, TRAIN_TREE_TOL,
+    TRAIN_DELTA_TOL)."""
+    import torch
+
+    from aquaculture_tpu_torch.config import TrainConfig
+    from aquaculture_tpu_torch.models.weights import flatten_tree, load_train_params
+    from aquaculture_tpu_torch.models.yolov5 import YoloV5, yolov5_init
+    from aquaculture_tpu_torch.train.optimizer import group_of
+    from aquaculture_tpu_torch.train.trainer import init_train_state, make_train_step, state_tree
+
+    _, params = yolov5_init(variant, 2, seed=11)
+    init = flatten_tree(params)
+    rng = np.random.default_rng(12)
+    batches = [_train_batch(rng, b, img) for _ in range(TRAIN_STEPS_EXACT)]
+    cfg = TrainConfig(img_size=img, batch_size=b, compute_dtype="float32")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for key, device in (("cpu", torch.device("cpu")), ("card", dev)):
+            model = load_train_params(YoloV5(variant, 2, trainable=True), params)
+            model.to(device=device, memory_format=torch.channels_last)
+            state = init_train_state(model)
+            step = make_train_step(model, cfg, 1)
+            losses = [step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+                      for batch in batches]
+            runs[key] = ([{k: float(v) for k, v in m.items()} for m in losses], state_tree(state))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (want_m, want), (got_m, got) = runs["cpu"], runs["card"]
+    for i, (w_m, g_m) in enumerate(zip(want_m, got_m)):
+        for k in w_m:
+            if not abs(g_m[k] - w_m[k]) <= 1e-5 * abs(w_m[k]) + 1e-9:
+                fail(f"f32 train step {i + 1} card vs CPU: loss {k} {g_m[k]} vs {w_m[k]}")
+    report = {"loss_card": got_m[-1], "loss_cpu": want_m[-1]}
+    for part in ("params", "ema", "opt_momentum"):
+        w, g = flatten_tree(want[part]), flatten_tree(got[part])
+        worst = max((float(np.abs(g[k].astype(np.float64) - w[k]).max()) / (float(np.abs(w[k]).max()) or 1.0), k)
+                    for k in w)
+        tree = _rel_l2(g, w, w)
+        if worst[0] > TRAIN_LEAF_TOL or not tree <= TRAIN_TREE_TOL[part]:
+            fail(f"f32 train step card vs CPU: {part} worst leaf {worst}, tree relative L2 {tree}")
+        report[part] = {"worst_leaf_share": worst[0], "worst_leaf": worst[1], "tree_rel_l2": tree}
+    # the change the steps made, per optimizer group and for the running
+    # statistics, which the forward moves
+    w, g = flatten_tree(want["params"]), flatten_tree(got["params"])
+    w_delta = {k: w[k].astype(np.float64) - init[k] for k in w}
+    g_delta = {k: g[k].astype(np.float64) - init[k] for k in w}
+    groups = {"bn_scale": 0, "weight": 1, "bias": 2}
+    delta = {}
+    for name in (*groups, "running_stats"):
+        keys = [k for k in w if (k.endswith(("/mean", "/var")) if name == "running_stats"
+                                 else not k.endswith(("/mean", "/var")) and group_of(k) == groups[name])]
+        err = _rel_l2(g_delta, w_delta, keys)
+        norm = sum(float((w_delta[k] ** 2).sum()) for k in keys) ** 0.5
+        if not (norm > 0 and err <= TRAIN_DELTA_TOL):
+            fail(f"f32 train steps card vs CPU: the {name} change, relative L2 {err} (its norm on the CPU {norm})")
+        delta[name] = {"rel_l2": err, "norm_cpu": norm}
+    report["change"] = delta
+    return {"variant": variant, "img": img, "batch": b, "steps": TRAIN_STEPS_EXACT, "leaf_tol": TRAIN_LEAF_TOL,
+            "tree_tol": TRAIN_TREE_TOL, "change_tol": TRAIN_DELTA_TOL, **report}
+
+
+def drive_train_full_width(d: str, tile_dir: str, n_tiles: int, variant: str = TRAIN_VARIANT,
+                           img: int = TRAIN_IMG, batch: int = TRAIN_BATCH, epochs: int = TRAIN_EPOCHS,
+                           detect_batch: int = 8) -> dict:
+    """cli.train as the reference recipe runs it (augmentation on, bf16) on
+    TRAIN_TILES rendered 1024 px JPEG tiles with YOLO labels, then the EMA
+    checkpoint it saved served by cli.detect over the main path's tiles with
+    the launch counter zeroed around it."""
+    import torch
+
+    from examples.end_to_end_demo import render_world
+
+    from aquaculture_tpu_torch.cli import train as cli_train
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.utils.checkpoint import load_metadata, load_params
+
+    img_dir, _ = render_world(os.path.join(d, "world"), n_images=TRAIN_TILES, seed=5)
+    out = os.path.join(d, "ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = cli_train.main(["--images", img_dir, "--out", out, "--variant", variant, "--img", str(img),
+                            "--batch", str(batch), "--epochs", str(epochs)])
+    seconds = time.perf_counter() - t0
+    steps = epochs * (TRAIN_TILES // batch)
+    losses = [[e[k] for k in ("total", "box", "obj", "cls")] for e in stats["epochs"]]
+    if not np.isfinite(losses).all():
+        fail(f"cli.train {variant}: non-finite losses {losses}")
+    state = load_params(os.path.join(out, "state"))
+    if not int(state["step"]) == int(state["opt_step"]) == stats["step"] == steps:
+        fail(f"cli.train {variant}: state/step {int(state['step'])}, expected {steps}")
+    meta = load_metadata(os.path.join(out, "last"))
+    if meta != {"epoch": epochs, "variant": variant, "num_classes": 5, "img_size": img}:
+        fail(f"cli.train {variant}: last/ metadata {meta}")
+    load_model(os.path.join(out, "last"), variant, 5)  # the port loads what it saved
+    served = run_main_path(tile_dir, os.path.join(d, "labels_trained"), n_tiles, detect_batch,
+                           options=("--weights", os.path.join(out, "last")), variant=variant)
+    return {"variant": variant, "img": img, "batch": batch, "tiles": TRAIN_TILES, "epochs": stats["epochs"],
+            "steps": steps, "seconds": seconds, "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "served": served}
+
+
+# kernel kinds of a train step's profile, matched on the kernel's name in
+# this order
+KERNEL_KINDS = (
+    ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit_gemm", "dgrad", "wgrad", "fprop", "cutlass", "gemm")),
+    ("multi_tensor", ("multi_tensor", "foreach")),
+    ("reduction", ("reduce", "welford", "var_mean", "norm")),
+    ("copy", ("copy", "cat", "memcpy", "memset", "fill")),
+    ("elementwise", ("elementwise", "vectorized", "silu", "sigmoid", "pointwise")),
+)
+
+
+def profile_train_step(step, n: int = 3) -> dict:
+    """Where a step's time goes: the host's enqueue ms per step (the wall
+    clock of the Python call, no profiler attached, median of n), then n
+    steps under torch.profiler: device busy ms per step (the sum of kernel
+    times), kernels per step, kernel ms by kind and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels, launches = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = getattr(ev, "self_cuda_time_total", 0) if t is None else t
+        kernels[ev.key] = kernels.get(ev.key, 0.0) + t / 1e3 / n
+        launches += ev.count
+    by_kind = {}
+    for name, t in kernels.items():
+        kind = next((k for k, keys in KERNEL_KINDS if any(x in name.lower() for x in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + t
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"host_enqueue_ms_per_step": statistics.median(host), "device_busy_ms_per_step": sum(kernels.values()),
+            "kernels_per_step": launches / n, "by_kind_ms": by_kind,
+            "top_kernels_ms": [[name[:80], t] for name, t in top]}
+
+
+def time_train_step(dev, card: str, batch: dict, variant: str = TRAIN_VARIANT, iters: int = 5,
+                    windows: int = 3) -> dict:
+    """Device time of one bf16 train step (forward, loss, backward, SGD,
+    EMA) of ``variant`` on a batch already on the card, plain and with
+    --remat; img/s, training TFLOP/s (3x the forward's conv FLOPs), its
+    share of the bf16 dense peak, and peak memory of each; the plain step's
+    profile (profile_train_step) and the card's idle share of it."""
+    import torch
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.config import TrainConfig
+    from aquaculture_tpu_torch.models.weights import load_train_params
+    from aquaculture_tpu_torch.models.yolov5 import YoloV5, yolov5_init
+    from aquaculture_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    b, img = batch["images"].shape[:2]
+    flops_fwd = conv_flops_per_image(load_model(None, variant, 5).to(dev).eval(), img, dev)
+    model = load_train_params(YoloV5(variant, 5, trainable=True), yolov5_init(variant, 5)[1])
+    model.to(device=dev, memory_format=torch.channels_last)
+    state = init_train_state(model)
+    on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    rows = {}
+    for name, kw in (("plain", {}), ("remat", {"remat": True})):
+        step = make_train_step(model, TrainConfig(img_size=img, batch_size=b, **kw), 100)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_cuda(lambda: step(state, on_card), iters=iters, windows=windows)
+        rate = 3 * flops_fwd * b / (ms / 1e3)
+        rows[name] = {"ms_per_step": ms, "img_per_s": b / ms * 1e3, "train_tflop_per_s": rate / 1e12,
+                      "share_of_bf16_dense_peak": rate / BF16_FLOP_PER_S,
+                      "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if name == "plain":
+            prof = profile_train_step(lambda: step(state, on_card))
+            rows[name]["profile"] = {**prof, "idle_share": max(0.0, 1 - prof["device_busy_ms_per_step"] / ms)}
+        print(json.dumps({"metric": "train_step", "variant": variant, "img": img, "batch": b,
+                          "dtype": "bfloat16", "option": name, **rows[name], "card": card}), flush=True)
+    if not np.isfinite([state.ema[n].float().sum().item() for n in list(state.ema)[:8]]).all():
+        fail("timed train steps left non-finite EMA weights")
+    return {"conv_gflop_per_image_fwd": flops_fwd / 1e9, **rows}
+
+
+def time_feed(img_dir: str, variant: str = TRAIN_VARIANT, img: int = TRAIN_IMG, batch: int = TRAIN_BATCH) -> dict:
+    """The augmented feed alone (DetectionDataset.epoch, the default feed
+    threads): img/s of a cold epoch (decode and resize caches empty) and a
+    warm one."""
+    from aquaculture_tpu_torch.config import TrainConfig
+    from aquaculture_tpu_torch.train.dataset import DetectionDataset
+
+    ds = DetectionDataset(img_dir, None, TrainConfig(img_size=img, batch_size=batch), augment=True)
+    out = {"threads": min(os.cpu_count() or 1, 8), "images": len(ds)}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        n = sum(len(bt["images"]) for bt in ds.epoch(0))
+        out[f"{name}_img_per_s"] = n / (time.perf_counter() - t0)
+    return out
+
+
+def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
+    """The train phase: f32 card vs CPU, the full-width cli.train drive and
+    its checkpoint served, then times (step, feed)."""
+    import torch
+
+    exact = check_train_step_f32_vs_cpu(dev)
+    print(json.dumps({"phase": "train_f32_card_vs_cpu", "tf32": False, **exact}), flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        drive = drive_train_full_width(d, tile_dir, n_tiles)
+        print(json.dumps({"phase": "train", **drive, "card": card}), flush=True)
+        feed = time_feed(os.path.join(d, "world", "images"))
+        from aquaculture_tpu_torch.config import TrainConfig
+        from aquaculture_tpu_torch.train.dataset import DetectionDataset
+
+        cfg = TrainConfig(img_size=TRAIN_IMG, batch_size=TRAIN_BATCH)
+        batch = next(iter(DetectionDataset(os.path.join(d, "world", "images"), None, cfg, seed=1).epoch(0)))
+    steps = time_train_step(dev, card, batch)
+    # the host sets the pace when cli.train's last epoch runs below 90% of
+    # the step alone on a batch already on the card
+    e2e = drive["epochs"][-1]["img_per_s"]
+    device_img_s = steps["plain"]["img_per_s"]
+    pace = "host" if e2e < 0.9 * device_img_s else "device"
+    times = {"cli_train_img_per_s_last_epoch": e2e, "device_step_img_per_s": device_img_s,
+             "e2e_over_step": e2e / device_img_s, "feed": feed, "paced_by": pace, "steps": steps}
+    print(json.dumps({"phase": "train_times", **times, "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    return {"exact": exact, "drive": drive, "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -870,6 +1166,16 @@ def main() -> int:
     times = time_serving_and_kernel(dev, card, tiles)
     times_p6 = time_serving_and_kernel(dev, card, tiles, "m6", shapes=((128, 1024),), iters=3)
     k, k6 = times["kernel"], times_p6["kernel"]
+    del tiles
+    torch.cuda.empty_cache()
+
+    # 6. training: f32 card vs CPU, cli.train at full width, its checkpoint
+    # served over the main path's tiles, step and feed times
+    with tempfile.TemporaryDirectory() as d:
+        tile_dir = os.path.join(d, "tiles")
+        os.makedirs(tile_dir)
+        write_tiles(tile_dir, 16)
+        train = run_train_phase(dev, card, tile_dir, n_tiles=16)
     summary = {"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
@@ -881,6 +1187,7 @@ def main() -> int:
         "launches_tta_multi_label": options["tta_multi_label"]["launches"]["nms_suppress"],
         "launches_decode_scale": options["decode_scale"]["launches"]["nms_suppress"],
         "launches_overlap": overlap["launches"]["nms_suppress"],
+        "launches_train_detect": train["drive"]["served"]["launches"]["nms_suppress"],
         "max_abs_err": max(k["max_abs_err"], k6["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

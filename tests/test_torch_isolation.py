@@ -22,7 +22,7 @@ PORT = ROOT / "aquaculture_tpu_torch"
 
 
 def _port_sources():
-    scripts = [ROOT / "scripts" / n for n in ("nms_suppress_ab.py", "serving_ab.py")]
+    scripts = [ROOT / "scripts" / n for n in ("nms_suppress_ab.py", "serving_ab.py", "train_step_ab.py")]
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
 
 
@@ -156,6 +156,55 @@ def test_serving_options_load_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_training_loads_no_jax():
+    """One train step of the port (remat on) and one augmented
+    dataset batch, in a fresh interpreter, load no JAX module."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np, torch
+        from PIL import Image
+        from aquaculture_tpu_torch.config import TrainConfig
+        from aquaculture_tpu_torch.models.weights import load_train_params
+        from aquaculture_tpu_torch.models.yolov5 import YoloV5, yolov5_init
+        from aquaculture_tpu_torch.train.dataset import DetectionDataset
+        from aquaculture_tpu_torch.train.trainer import init_train_state, make_train_step
+        d = tempfile.mkdtemp()
+        os.makedirs(os.path.join(d, "images")); os.makedirs(os.path.join(d, "labels"))
+        for i in range(2):
+            Image.fromarray(np.random.default_rng(i).integers(0, 255, (96, 96, 3), dtype=np.uint8)).save(
+                os.path.join(d, "images", f"t{i}.jpg"))
+            open(os.path.join(d, "labels", f"t{i}.txt"), "w").write("1 0.5 0.5 0.3 0.3\\n")
+        cfg = TrainConfig(img_size=64, batch_size=2, remat=True)
+        batch = next(iter(DetectionDataset(os.path.join(d, "images"), None, cfg, augment=True).epoch(0)))
+        model = load_train_params(YoloV5("n", 2, trainable=True), yolov5_init("n", 2)[1])
+        state = init_train_state(model)
+        m = make_train_step(model, cfg, 1)(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        assert torch.isfinite(m["total"]) and state.step == 1, m
+        import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_train_cli_refuses_mesh_and_needs_a_gpu_unless_asked(tmp_path, monkeypatch):
+    from aquaculture_tpu_torch.cli import train as cli_train
+
+    with pytest.raises(SystemExit):
+        cli_train.main(["--images", str(tmp_path), "--out", str(tmp_path / "o"), "--device", "cpu",
+                        "--mesh", "4"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli_train.main(["--images", str(tmp_path), "--out", str(tmp_path / "o")])
+    assert not os.path.exists(tmp_path / "o")
 
 
 def test_port_reaches_nothing_in_native():
