@@ -8,10 +8,11 @@ Emits one ``<image-stem>.txt`` per image with detections, rows
 
     python -m aquaculture_tpu_torch.cli.detect --source DIR --out LABELS/ \\
         [--weights CKPT_DIR | X.pt] --variant mt \\
-        [--augment] [--multi-label] [--decode-scale]
+        [--augment] [--multi-label] [--decode-scale] [--int8]
 
 ``--variant m6`` (the P6 family) serves at 1280 px unless --img says
-otherwise.
+otherwise. ``--int8`` serves the int8 PTQ model, calibrated on the first
+source images (``quantize_for_serving``).
 """
 
 from __future__ import annotations
@@ -20,11 +21,33 @@ import argparse
 import glob
 import os
 
+import torch
+
 from aquaculture_tpu_torch.config import IM_HEIGHT, IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import encode_tile_name
 from aquaculture_tpu_torch.models.weights import load_jax_params, load_pretrained
 from aquaculture_tpu_torch.models.yolov5 import VARIANTS, YoloV5, yolov5_init
 from aquaculture_tpu_torch.pipeline import detect_files
+
+
+def quantize_for_serving(model: YoloV5, sample_paths, img_size: int = 640, skip=None,
+                         device="cuda") -> YoloV5:
+    """int8 PTQ of the float serving ``model``, calibrated on ``device`` on
+    up to 8 source images through the serving letterbox (bf16, as the JAX
+    package's ``quantize_for_serving``), with the variant's
+    localization-safe split unless ``skip`` names one. Returns the new
+    int8 YoloV5 (models/quantize.quantize_model)."""
+    from aquaculture_tpu_torch.data.geotiff import read_image
+    from aquaculture_tpu_torch.models.quantize import quantize_model, serving_int8_safe_skip
+    from aquaculture_tpu_torch.ops.letterbox import letterbox
+
+    if skip is None:
+        skip = serving_int8_safe_skip(model.variant)
+    dev = resolve_device(device)
+    imgs = [letterbox(torch.from_numpy(read_image(p).copy()).to(dev), img_size)[0] for p in sample_paths[:8]]
+    if not imgs:
+        raise ValueError("no readable calibration images")
+    return quantize_model(model.to(dev), torch.stack(imgs), skip=skip)
 
 
 def resolve_model_args(
@@ -112,6 +135,8 @@ def main(argv=None):
                     help="inference size (default: 640, or 1280 for *6 variants)")
     ap.add_argument("--pre-topk", type=int, default=None,
                     help="candidate pool cap before suppression (default 1024)")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 PTQ serving path (calibrates on the first source images)")
     ap.add_argument("--augment", action="store_true",
                     help="test-time augmentation (multi-scale + lr-flip, "
                          "ultralytics detect.py --augment)")
@@ -140,6 +165,8 @@ def main(argv=None):
 
     args.img = default_img_size(args.img, args.variant)
     model = load_model(args.weights, args.variant, args.num_classes)
+    if args.int8:
+        model = quantize_for_serving(model, paths, args.img, device=device)
     cfg_kw = dict(img_size=args.img, conf_threshold=args.conf, iou_threshold=args.iou,
                   multi_label=args.multi_label, augment=args.augment)
     if args.pre_topk:

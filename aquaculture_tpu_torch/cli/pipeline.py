@@ -10,7 +10,10 @@ program, as ``aquaculture_tpu.cli.pipeline`` does: detection on the GPU
     python -m aquaculture_tpu_torch.cli.pipeline --source DIR \\
         --download-bboxes wanted_bboxes.csv --out detections.geojson \\
         [--weights CKPT_DIR | X.pt] [--land LAND.geojson] \\
-        [--overlap PX | --decode-scale] [--decode-threads N]
+        [--overlap PX | --decode-scale] [--decode-threads N] [--int8]
+
+``--int8`` serves the int8 PTQ model; as in the JAX package's CLI, it
+calibrates at 640 px whatever ``--img`` says.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import os
 import time
 
 from aquaculture_tpu_torch import frame as gf
-from aquaculture_tpu_torch.cli.detect import default_img_size, load_model, resolve_model_args
+from aquaculture_tpu_torch.cli.detect import (
+    default_img_size, load_model, quantize_for_serving, resolve_model_args)
 from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
 from aquaculture_tpu_torch.config import DetectConfig, resolve_device
 from aquaculture_tpu_torch.models.yolov5 import VARIANTS
@@ -47,6 +51,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--land", default=None, help="land polygons GeoJSON")
     ap.add_argument("--no-dedup", action="store_true")
+    ap.add_argument("--int8", action="store_true", help="int8 PTQ serving path")
     ap.add_argument("--overlap", type=int, default=0,
                     help="overlap serving: tile overlap in px on large rasters "
                          "(boundary objects appear whole in a neighbouring tile; "
@@ -74,6 +79,10 @@ def main(argv=None):
         args.weights, args.variant, args.num_classes
     )
     model = load_model(args.weights, args.variant, args.num_classes)
+    if args.int8:
+        # calibrated at the default 640 px, not --img: the JAX package's CLI
+        # passes no size here (ROADMAP records it)
+        model = quantize_for_serving(model, paths, device=device)
     cfg_kw = dict(img_size=default_img_size(args.img, args.variant), conf_threshold=args.conf)
     if args.pre_topk:
         cfg_kw["pre_nms_topk"] = args.pre_topk

@@ -1,9 +1,14 @@
 """Building blocks of the detector family as PyTorch modules.
 
 Counterpart of aquaculture_tpu/models/layers.py: Conv+SiLU with BN folded
-(``ConvBlock``, the fused ``{w, b}`` serving path) or with trainable
-BatchNorm (``TrainConvBlock``, the ``{w, bn}`` training path), Bottleneck,
-C3 and SPPF over either, the space-to-depth stem and nearest 2x upsample.
+(``ConvBlock``, the fused ``{w, b}`` serving path), with trainable
+BatchNorm (``TrainConvBlock``, the ``{w, bn}`` training path) or quantized
+to int8 (``QConvBlock``, the ``{wq, wscale, xscale, b[, yscale]}`` serving
+path that models/quantize.py builds), Bottleneck, C3 and SPPF over any of
+them, the space-to-depth stem and nearest 2x upsample. Between quantized
+blocks activations travel as ``QTensor`` (int8 codes and a per-tensor
+scale); ``qcat``, ``qup2`` and ``qs2d`` pass them through concatenation,
+upsampling and space-to-depth, and ``deq`` turns them back into floats.
 Modules take and return NCHW tensors; callers keep them in
 ``torch.channels_last`` memory format, which is the NHWC layout of the JAX
 package and what cuDNN runs fastest.
@@ -17,12 +22,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Sequence, Tuple
+import functools
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from aquaculture_tpu_torch.ops.int8_conv import int8_conv2d
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 
@@ -34,6 +42,80 @@ BN_MOMENTUM = 0.03
 def _same(k: int) -> Padding:
     p = k // 2
     return ((p, p), (p, p))
+
+
+class QTensor(NamedTuple):
+    """int8 activations and their per-tensor scale (value ~ q * scale), as
+    the int8 serving path hands them from one quantized block to the next
+    (layers.QTensor). ``q`` is NCHW int8 in channels_last memory, ``scale``
+    a 0-dim float32 tensor on the same device."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+
+def deq(x, dtype: torch.dtype = torch.bfloat16):
+    """QTensor -> float activations in ``dtype`` (bf16 by default, as the
+    JAX package's deq); identity on plain tensors."""
+    if isinstance(x, QTensor):
+        return (x.q.float() * x.scale).to(dtype)
+    return x
+
+
+def requant(act: torch.Tensor, yscale: torch.Tensor) -> QTensor:
+    """float activations -> int8 at the calibrated output scale (round half
+    to even, clipped to +-127); the divisor is the 0-dim scale tensor."""
+    q = torch.clamp(torch.round(act.float() / yscale), -127, 127)
+    return QTensor(q.to(torch.int8), yscale)
+
+
+def qcat(parts):
+    """Concatenate along channels: QTensors rescaled to their largest scale
+    and rounded (the ratio is at most 1, so nothing clips), plain tensors
+    as they are; a mix is dequantized to floats, in the promoted dtype."""
+    if all(isinstance(p, QTensor) for p in parts):
+        s = parts[0].scale
+        for p in parts[1:]:
+            s = torch.maximum(s, p.scale)
+        qs = [torch.round(p.q.float() * (p.scale / s)).to(torch.int8) for p in parts]
+        return QTensor(torch.cat(qs, dim=1), s)
+    if any(isinstance(p, QTensor) for p in parts):
+        parts = [deq(p) for p in parts]
+        dtype = functools.reduce(torch.promote_types, (p.dtype for p in parts))
+        parts = [p.to(dtype) for p in parts]
+    return torch.cat(parts, dim=1)
+
+
+def qup2(x):
+    """2x nearest upsample, QTensor-aware (int8 codes are repeated, the
+    scale kept)."""
+    if isinstance(x, QTensor):
+        b, c, h, w = x.q.shape
+        nhwc = x.q.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+        return QTensor(nhwc.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2), x.scale)
+    return upsample2x(x)
+
+
+def qs2d(x):
+    """space_to_depth2, QTensor-aware (pure data movement, scale kept)."""
+    if isinstance(x, QTensor):
+        return QTensor(space_to_depth2(x.q), x.scale)
+    return space_to_depth2(x)
+
+
+# Calibration (models/quantize.calibrate): while this is a dict, every float
+# ConvBlock records its input's and its output's absolute maximum, and every
+# shortcut Bottleneck the sum's, keyed by module (("out", block) and ("sum",
+# its cv2) for the latter two), as layers.conv_block does by weight identity.
+_CALIB_STATS: dict | None = None
+
+
+def _record(key, t: torch.Tensor) -> None:
+    _CALIB_STATS[key] = max(_CALIB_STATS.get(key, 0.0), float(t.abs().max()))
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: Padding | None = None):
@@ -55,8 +137,69 @@ class ConvBlock(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
 
     def forward(self, x, stride: int = 1, padding: Padding | None = None):
+        # a float block downstream of a quantized one (the mixed splits)
+        # takes the dequantized activations
+        x = deq(x)
+        if _CALIB_STATS is not None:
+            _record(self, x)
         y = conv2d(x, self.weight, stride, padding)
-        return F.silu(y + self.bias.to(x.dtype)[:, None, None])
+        out = F.silu(y + self.bias.to(x.dtype)[:, None, None])
+        if _CALIB_STATS is not None:
+            _record(("out", self), out)
+        return out
+
+
+class QConvBlock(nn.Module):
+    """Conv2d + SiLU on int8 (layers.conv_block's ``{wq, wscale, xscale,
+    b[, yscale]}`` branch): OIHW int8 ``wq`` with per-output-channel float32
+    ``wscale``, a float32 input scale ``xscale`` for a float input, the
+    float32 ``bias``, and with ``yscale`` a requantized QTensor output.
+
+    A float input quantizes at ``xscale`` and a float output keeps the
+    input's dtype; a QTensor input brings its own scale, and a float output
+    is then bfloat16 whatever the serving dtype, as in the JAX package. The
+    convolution is exact int32 (ops/int8_conv.py); the epilogue
+    ``y32 * (xscale * wscale) + b`` and the SiLU run in float32."""
+
+    def __init__(self, cin: int, cout: int, k: int, requantize: bool):
+        super().__init__()
+        self.wq = nn.Parameter(torch.zeros(cout, cin, k, k, dtype=torch.int8), requires_grad=False)
+        self.wscale = nn.Parameter(torch.ones(cout), requires_grad=False)
+        self.xscale = nn.Parameter(torch.ones(()), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        self.yscale = nn.Parameter(torch.ones(()), requires_grad=False) if requantize else None
+
+    def forward(self, x, stride: int = 1, padding: Padding | None = None):
+        if isinstance(x, QTensor):
+            xq, xscale, float_dtype = x.q, x.scale, torch.bfloat16
+        else:
+            xscale, float_dtype = self.xscale, x.dtype
+            xq = torch.clamp(torch.round(x.float() / xscale), -127, 127).to(torch.int8)
+        y32 = int8_conv2d(xq, self.wq, stride, padding)
+        y = y32.float() * (xscale * self.wscale)[:, None, None] + self.bias[:, None, None]
+        act = F.silu(y)
+        if self.yscale is not None:
+            return requant(act, self.yscale)
+        return act.to(float_dtype)
+
+
+def kernel_of(block: nn.Module) -> torch.Tensor:
+    """A conv block's stored kernel: int8 ``wq`` or float ``weight``."""
+    return block.wq if isinstance(block, QConvBlock) else block.weight
+
+
+def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast ``model``'s float parameters to ``dtype`` in place, except the
+    int8 path's: a QConvBlock keeps its int8 weight and float32 scales and
+    bias, a shortcut Bottleneck its float32 ``sum_yscale`` (the JAX package
+    keeps them in f32 whatever the serving dtype)."""
+    for m in model.modules():
+        if isinstance(m, QConvBlock):
+            continue
+        for name, p in m.named_parameters(recurse=False):
+            if p.is_floating_point() and name != "sum_yscale":
+                p.data = p.data.to(dtype)
+    return model
 
 
 @dataclasses.dataclass
@@ -127,15 +270,28 @@ Block = Callable[[int, int, int], nn.Module]
 
 
 class Bottleneck(nn.Module):
+    """cv2(cv1(x)), plus x on a shortcut. In an int8 model whose cv2 emits
+    float (a shortcut bottleneck of the backbone), the sum requantizes at
+    its own calibrated scale ``sum_yscale`` (None until models/weights.py
+    loads one); a partly quantized one without it adds in float32."""
+
     def __init__(self, cin: int, cout: int, block: Block = ConvBlock):
         super().__init__()
         self.cv1 = block(cin, cout, 1)
         self.cv2 = block(cout, cout, 3)
+        self.register_parameter("sum_yscale", None)
 
     def forward(self, x, shortcut: bool):
         y = self.cv2(self.cv1(x))
         if shortcut and x.shape[1] == y.shape[1]:
-            y = x + y
+            if self.sum_yscale is not None:
+                y = requant(y.float() + deq(x, torch.float32), self.sum_yscale)
+            elif isinstance(x, QTensor) or isinstance(y, QTensor):
+                y = deq(x, torch.float32) + deq(y, torch.float32)
+            else:
+                y = x + y
+                if _CALIB_STATS is not None:
+                    _record(("sum", self.cv2), y)
         return y
 
 
@@ -154,11 +310,15 @@ class C3(nn.Module):
         y1 = self.cv1(x)
         for b in self.m:
             y1 = b(y1, shortcut)
-        return self.cv3(torch.cat([y1, self.cv2(x)], dim=1))
+        return self.cv3(qcat([y1, self.cv2(x)]))
 
 
 def max_pool(x: torch.Tensor, k: int = 5) -> torch.Tensor:
-    """k x k stride-1 max pool with same padding; the padding is -inf."""
+    """k x k stride-1 max pool with same padding; the padding is -inf.
+    int8 codes (the quantized SPPF) pool as float32, exact for |q| <= 127:
+    every window holds its centre, so the padding never wins."""
+    if x.dtype == torch.int8:
+        return F.max_pool2d(x.float(), k, stride=1, padding=k // 2).to(torch.int8)
     return F.max_pool2d(x, k, stride=1, padding=k // 2)
 
 
@@ -171,10 +331,16 @@ class SPPF(nn.Module):
 
     def forward(self, x, k: int = 5):
         y = self.cv1(x)
-        y1 = max_pool(y, k)
-        y2 = max_pool(y1, k)
-        y3 = max_pool(y2, k)
-        return self.cv2(torch.cat([y, y1, y2, y3], dim=1))
+        if isinstance(y, QTensor):
+            # max pool is order-preserving: it runs on the codes, scale kept
+            y1 = QTensor(max_pool(y.q, k), y.scale)
+            y2 = QTensor(max_pool(y1.q, k), y.scale)
+            y3 = QTensor(max_pool(y2.q, k), y.scale)
+        else:
+            y1 = max_pool(y, k)
+            y2 = max_pool(y1, k)
+            y3 = max_pool(y2, k)
+        return self.cv2(qcat([y, y1, y2, y3]))
 
 
 def space_to_depth2(x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,12 @@ The JAX package keeps parameters as nested dicts/lists of HWIO arrays
 ``YoloV5`` names its parameters after the same paths, so the mapping is by
 name: ``b2/m/0/cv1/w`` -> ``b2.m.0.cv1.weight`` (HWIO -> OIHW with
 ``transpose(3, 2, 0, 1)``) and ``.../b`` -> ``.../bias``
-(``load_jax_params``, into the BN-folded serving model). The training model
+(``load_jax_params``, into the BN-folded serving model). The int8 tree the
+JAX package's ``models/quantize.quantize`` builds (and the port's copy)
+loads the same way: a conv of ``{wq, wscale, xscale, b[, yscale]}`` becomes
+a ``layers.QConvBlock`` (``b5/wq`` -> ``b5.wq``, kept int8), a shortcut
+bottleneck's ``sum_yscale`` a parameter of its ``Bottleneck``, and the
+scales stay float32. The training model
 keeps the unfused tree's BatchNorm leaves (``b2/m/0/cv1/bn/mean`` <->
 ``b2.m.0.cv1.bn.mean``) and goes both ways: ``load_train_params`` in,
 ``to_tree`` back out to HWIO float32 (checkpoints, EMA, momenta).
@@ -43,6 +48,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from aquaculture_tpu_torch.models import layers as L
 from aquaculture_tpu_torch.models.yolov5 import DOWN_LAYERS, DOWN_LAYERS_P6
 from aquaculture_tpu_torch.utils.checkpoint import flatten_tree, unflatten_paths
 
@@ -121,8 +127,9 @@ def train_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def from_tree(model: torch.nn.Module, tree) -> Dict[str, np.ndarray]:
-    """A JAX-format tree -> float32 arrays by the model's state names (OIHW
-    weights); every leaf consumed once, a missing or extra leaf raises."""
+    """A JAX-format tree -> arrays by the model's state names (OIHW
+    weights), float32 but for int8 leaves (quantized weights), which stay
+    int8; every leaf consumed once, a missing or extra leaf raises."""
     flat = flatten_tree(tree)
     names = {tree_key(n): n for n in train_state(model)}
     if set(names) != set(flat):
@@ -131,8 +138,29 @@ def from_tree(model: torch.nn.Module, tree) -> Dict[str, np.ndarray]:
     out = {}
     for key, name in names.items():
         arr = np.asarray(flat[key])
-        out[name] = np.array(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr, dtype=np.float32, order="C")
+        dtype = np.int8 if arr.dtype == np.int8 else np.float32
+        out[name] = np.array(arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr, dtype=dtype, order="C")
     return out
+
+
+def _place_quantized_blocks(model: torch.nn.Module, node, path=()) -> None:
+    """Swap a ``layers.QConvBlock`` in for every conv of ``node`` that holds
+    int8 weights, and register ``sum_yscale`` on every bottleneck that has
+    one, so that the model's state names match the quantized tree."""
+    if isinstance(node, dict):
+        if "wq" in node:
+            k, _, cin, cout = node["wq"].shape
+            *parent, name = path
+            setattr(model.get_submodule(".".join(parent)), name, L.QConvBlock(cin, cout, k, "yscale" in node))
+            return
+        if "sum_yscale" in node:
+            model.get_submodule(".".join(path)).register_parameter(
+                "sum_yscale", torch.nn.Parameter(torch.zeros(()), requires_grad=False))
+        for k, v in node.items():
+            _place_quantized_blocks(model, v, (*path, k))
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _place_quantized_blocks(model, v, (*path, str(i)))
 
 
 def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
@@ -143,9 +171,11 @@ def load_jax_params(model: torch.nn.Module, tree) -> torch.nn.Module:
     package's ``YoloV5.fuse``). Every leaf is consumed exactly once; a
     missing or extra leaf, or a shape the model cannot run, raises. Weights
     are stored as float32 (an exact upcast of float16 leaves); cast the
-    model for serving."""
+    model for serving. An int8 tree (models/quantize.py, either package)
+    first puts a QConvBlock at each quantized conv of ``model``."""
     if has_bn(tree):
         tree = model.fuse(tree)
+    _place_quantized_blocks(model, tree)
     params = dict(model.named_parameters())
     for name, arr in from_tree(model, tree).items():
         *path, leaf = name.split(".")

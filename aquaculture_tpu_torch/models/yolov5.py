@@ -310,11 +310,11 @@ class YoloV5(nn.Module):
                               context_fn=lambda: (contextlib.nullcontext(), opts.stats_frozen()), **kwargs)
         return m(*args, **kwargs)
 
-    def _down(self, name: str, t: torch.Tensor) -> torch.Tensor:
+    def _down(self, name: str, t):
         # k2 kernel = fuse(down_s2d=...): space-to-depth + k2/s1, (1, 0) pad
         m = getattr(self, name)
-        if m.weight.shape[-1] == 2:
-            return self._run(m, L.space_to_depth2(t), 1, ((1, 0), (1, 0)))
+        if L.kernel_of(m).shape[-1] == 2:
+            return self._run(m, L.qs2d(t), 1, ((1, 0), (1, 0)))
         return self._run(m, t, 2)
 
     def features(self, x: torch.Tensor) -> List[torch.Tensor]:
@@ -322,10 +322,15 @@ class YoloV5(nn.Module):
         each (B, H/s, W/s, na*no) NHWC in the input's dtype: three levels for
         P5, four for P6. In train mode (``self.train()``) every BatchNorm
         normalizes with batch statistics and moves its running statistics
-        once per call."""
+        once per call.
+
+        An int8 model (models/quantize.py) hands QTensors between its
+        quantized blocks: concatenation, upsampling and space-to-depth pass
+        them through (layers.qcat, qup2, qs2d), and the detect head takes
+        them dequantized (bf16), as the JAX package's ``features`` does."""
         run = self._run
         x = x.permute(0, 3, 1, 2)  # NCHW view; channels_last when x is NHWC-contiguous
-        w0 = self.b0.weight
+        w0 = L.kernel_of(self.b0)
         if w0.shape[-1] == 3 and w0.shape[1] == 4 * x.shape[1]:
             y = run(self.b0, L.space_to_depth2(x), 1, ((1, 1), (1, 1)))
         else:
@@ -342,31 +347,32 @@ class YoloV5(nn.Module):
             y = self._down("b9", p5)
             y = run(self.b11, run(self.b10, y))           # stride 64
             t12 = run(self.n12, y)
-            y = run(self.n15, torch.cat([L.upsample2x(t12), p5], dim=1), shortcut=False)
+            y = run(self.n15, L.qcat([L.qup2(t12), p5]), shortcut=False)
             t16 = run(self.n16, y)
-            y = run(self.n19, torch.cat([L.upsample2x(t16), p4], dim=1), shortcut=False)
+            y = run(self.n19, L.qcat([L.qup2(t16), p4]), shortcut=False)
             t20 = run(self.n20, y)
-            o3 = run(self.n23, torch.cat([L.upsample2x(t20), p3], dim=1), shortcut=False)
+            o3 = run(self.n23, L.qcat([L.qup2(t20), p3]), shortcut=False)
             y = self._down("n24", o3)
-            o4 = run(self.n26, torch.cat([y, t20], dim=1), shortcut=False)
+            o4 = run(self.n26, L.qcat([y, t20]), shortcut=False)
             y = self._down("n27", o4)
-            o5 = run(self.n29, torch.cat([y, t16], dim=1), shortcut=False)
+            o5 = run(self.n29, L.qcat([y, t16]), shortcut=False)
             y = self._down("n30", o5)
-            o6 = run(self.n32, torch.cat([y, t12], dim=1), shortcut=False)
+            o6 = run(self.n32, L.qcat([y, t12]), shortcut=False)
             outs = (o3, o4, o5, o6)
         else:
             y = run(self.b8, y)
             y = run(self.b9, y)                           # stride 32
             t10 = run(self.n10, y)
-            y = run(self.n13, torch.cat([L.upsample2x(t10), p4], dim=1), shortcut=False)
+            y = run(self.n13, L.qcat([L.qup2(t10), p4]), shortcut=False)
             t14 = run(self.n14, y)
-            o3 = run(self.n17, torch.cat([L.upsample2x(t14), p3], dim=1), shortcut=False)
+            o3 = run(self.n17, L.qcat([L.qup2(t14), p3]), shortcut=False)
             y = self._down("n18", o3)
-            o4 = run(self.n20, torch.cat([y, t14], dim=1), shortcut=False)
+            o4 = run(self.n20, L.qcat([y, t14]), shortcut=False)
             y = self._down("n21", o4)
-            o5 = run(self.n23, torch.cat([y, t10], dim=1), shortcut=False)
+            o5 = run(self.n23, L.qcat([y, t10]), shortcut=False)
             outs = (o3, o4, o5)
-        return [h(o).permute(0, 2, 3, 1) for h, o in zip(self.head, outs)]
+        # the head stays floating point (it feeds the box decode)
+        return [h(L.deq(o)).permute(0, 2, 3, 1) for h, o in zip(self.head, outs)]
 
     def decode(self, feats: List[torch.Tensor]) -> torch.Tensor:
         """Raw NHWC head maps -> (B, N, 5+nc) f32 rows [cx, cy, w, h, obj,

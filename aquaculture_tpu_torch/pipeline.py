@@ -26,6 +26,7 @@ from aquaculture_tpu_torch import frame as gf
 from aquaculture_tpu_torch.config import DTYPES, IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import TileSpec
 from aquaculture_tpu_torch.data.loader import tile_batches
+from aquaculture_tpu_torch.models.layers import to_compute_dtype
 from aquaculture_tpu_torch.models.yolov5 import YoloV5
 from aquaculture_tpu_torch.ops.nms import batched_nms
 from aquaculture_tpu_torch.ops.tta import tta_predict
@@ -84,14 +85,15 @@ def make_infer_fn(model: YoloV5, cfg: DetectConfig, tile: int = IM_WIDTH, device
     """Build the (uint8 NHWC tile batch) -> (dets, valid) function.
 
     Moves ``model`` (in place) to ``device``, the compute dtype and
-    channels_last. The returned function takes a (B, tile, tile, 3) uint8
+    channels_last; an int8 model (models/quantize.py) keeps its int8
+    weights and its float32 scales and biases. The returned function takes a (B, tile, tile, 3) uint8
     tensor on the host (pinned for an asynchronous copy) or on the device
     and returns (B, max_det, 6) rows [x0, y0, x1, y1, conf, cls] in tile
     pixels plus the (B, max_det) validity mask, both on the device."""
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     gain = torch.full((), cfg.img_size / tile, device=dev)  # a device divisor, as in preprocess
-    model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
+    to_compute_dtype(model.to(device=dev, memory_format=torch.channels_last), dtype).eval()
 
     @torch.inference_mode()
     def infer(images_u8: torch.Tensor):

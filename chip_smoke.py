@@ -21,7 +21,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      download boxes, two of them overlapping, with land; more than 2,000
      rows reach the hybrid land filter), with the counters zeroed around
      it, printing each stage's rows and host seconds; then the committed
-     trained fixture over its rendered world, once on the card and once on
+     trained fixture over its rendered 12-tile world, once on the card and once on
      the CPU, in bf16 through cli.pipeline (deviation reported) and in f32
      through run_pipeline (held to the golden bar);
   4c. the serving options: the ``p6`` phase drives cli.pipeline on m6 at
@@ -50,8 +50,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      at 640, batch 16, plain and with remat (img/s, training TFLOP/s as 3x
      the forward's conv FLOPs, peak memory), the plain step's profile (host
      enqueue, device busy and idle share, kernels by kind), and the
-     augmented feed's img/s alone.
-The last lines are the {"kernels": [...]} summary, the card's name and power
+     augmented feed's img/s alone, and the checkpoint's mAP on its own
+     world (reported, not gated: four steps learn nothing);
+  7. the int8 and accuracy phases, run where their inputs are: after phase
+     1 a probe line (the triton version, where CUTLASS's headers are,
+     whether matplotlib imports; it gates nothing); after phase 3
+     ``int8_conv``, the int8 convolution's card route (torch._int_mm)
+     exactly equal to its plain route on every conv call of mt's int8_full
+     model at 640 px (batch 2), at M <= 16, M = 200 and the stem's padded
+     K = 108; in phases 4 and 4b ``cli.detect --int8`` on the main path's
+     tiles and ``cli.pipeline --int8`` at full width with the counters
+     zeroed around each (suppression launches == batches, every int8 conv
+     through _int_mm, none through the plain route); then one int8 n tree
+     at 160 px card vs CPU (the codes at each requant and the head maps) and
+     ``accuracy``, ``eval.accuracy.serving_accuracy_table`` for the trained
+     fixture on its rendered 12-image world at 160 px on the card and on the
+     CPU, every row: the f32 rows agree card vs CPU, and every card row
+     holds tests/test_accuracy.py's bounds against the card's bf16 row; in
+     phase 5 mt int8_safe b128 serving timed beside bf16, with its stages
+     and both forwards' profiles.
+The last lines are the script seconds per group of phases, the total, the
+{"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -257,9 +276,9 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, optio
     ``options`` (e.g. --augment --multi-label, or --weights) after the
     defaults."""
     from aquaculture_tpu_torch.cli import detect as cli_detect
-    from aquaculture_tpu_torch.ops import nms_cuda
+    from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
 
-    nms_cuda.launches = 0
+    nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
     t0 = time.perf_counter()
     stats = cli_detect.main([
         "--source", tile_dir, "--out", label_dir, "--variant", variant,
@@ -267,6 +286,7 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, optio
     ])
     seconds = time.perf_counter() - t0
     launches = {"nms_suppress": nms_cuda.launches}
+    int8_calls = check_int8_routes(f"cli.detect {list(options)}", "--int8" in options)
 
     n_batches = -(-n_tiles // batch)
     if launches["nms_suppress"] != n_batches:
@@ -285,8 +305,21 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, optio
         if not ((arr[:, 0] >= 0) & (arr[:, 0] < 5)).all() or not (arr[:, 5] > 0).all():
             fail(f"{name}: class or confidence out of range")
         rows += len(arr)
-    return {"options": list(options), "launches": launches, "seconds": seconds, "label_files": len(labels),
-            "rows": rows, "tiles": stats.tiles, "batches": stats.batches, "loader": stats.loader}
+    return {"options": list(options), "launches": launches, "int8_conv_calls": int8_calls, "seconds": seconds,
+            "label_files": len(labels), "rows": rows, "tiles": stats.tiles, "batches": stats.batches,
+            "loader": stats.loader}
+
+
+def check_int8_routes(what: str, int8: bool) -> dict:
+    """The int8 convolutions of a drive on the card since the counters were
+    zeroed: all through torch._int_mm (at least one when ``int8``), none
+    through the plain route."""
+    from aquaculture_tpu_torch.ops import int8_conv
+
+    calls = {"int_mm": int8_conv.mm_calls, "plain": int8_conv.plain_calls}
+    if calls["plain"] or (calls["int_mm"] > 0) != int8:
+        fail(f"{what}: int8 convs through _int_mm {calls['int_mm']}, through the plain route {calls['plain']}")
+    return calls
 
 
 # ---------------------------------------------------------------------------
@@ -389,24 +422,25 @@ def write_pipeline_inputs(d: str) -> tuple:
     return tile_dir, boxes_csv, land
 
 
-def drive_pipeline_full_width(d: str, inputs: tuple, variant: str = "mt") -> dict:
+def drive_pipeline_full_width(d: str, inputs: tuple, variant: str = "mt", options: tuple = ()) -> dict:
     """cli.pipeline on the card: ``variant`` at its default size (mt at
     640, m6 at 1280) over write_pipeline_inputs' tiles, random weights from
-    seed 0, conf 1e-5."""
+    seed 0, conf 1e-5, serving ``options`` (e.g. --int8) after those."""
     from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
     from aquaculture_tpu_torch.cli.detect import default_img_size
-    from aquaculture_tpu_torch.ops import nms_cuda
+    from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
 
     tile_dir, boxes_csv, land = inputs
-    out = os.path.join(d, f"det_{variant}.geojson")
-    nms_cuda.launches = 0
+    out = os.path.join(d, f"det_{variant}{''.join(options)}.geojson")
+    nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
     t0 = time.perf_counter()
     det, stats = cli_pipeline.main([
         "--source", tile_dir, "--download-bboxes", boxes_csv, "--land", land, "--out", out,
-        "--variant", variant, "--batch", str(PIPELINE_BATCH), "--conf", "1e-5",
+        "--variant", variant, "--batch", str(PIPELINE_BATCH), "--conf", "1e-5", *options,
     ])
     seconds = time.perf_counter() - t0
     launches = nms_cuda.launches
+    int8_calls = check_int8_routes(f"pipeline {variant} {list(options)}", "--int8" in options)
 
     n_batches = -(-PIPELINE_TILES // PIPELINE_BATCH)
     if not launches == stats.batches == n_batches or stats.tiles != PIPELINE_TILES:
@@ -422,9 +456,10 @@ def drive_pipeline_full_width(d: str, inputs: tuple, variant: str = "mt") -> dic
         fail(f"pipeline {variant}: land filter {stats.land_filter!r} on {rows['areas']} rows removed "
              f"{rows['areas'] - rows['land_filter']}; expected the hybrid filter on > 2000 rows to remove some")
     check_geojson(out, det, n_classes=5)
-    return {"variant": variant, "img": default_img_size(None, variant), "tiles": PIPELINE_TILES,
-            "batch": PIPELINE_BATCH, "download_boxes": len(PIPELINE_BOXES), "launches": {"nms_suppress": launches},
-            "dedup_clipped_rows": clipped, "seconds": seconds, "loader": stats.loader, **_stage_report(stats)}
+    return {"variant": variant, "options": list(options), "img": default_img_size(None, variant),
+            "tiles": PIPELINE_TILES, "batch": PIPELINE_BATCH, "download_boxes": len(PIPELINE_BOXES),
+            "launches": {"nms_suppress": launches}, "int8_conv_calls": int8_calls, "dedup_clipped_rows": clipped,
+            "seconds": seconds, "loader": stats.loader, **_stage_report(stats)}
 
 
 OVERLAP = 256
@@ -498,9 +533,10 @@ def _match_golden(got, want) -> dict:
             "best_iou_p05_p50": [float(q) for q in np.percentile(best, [5, 50])] if best else None}
 
 
-def drive_pipeline_trained_card_vs_cpu(d: str) -> dict:
+def drive_pipeline_trained_card_vs_cpu(d: str, img_dir: str) -> dict:
     """The committed trained fixture (n, 2 classes) at 160 px on its
-    rendered 24-tile world (seed 0), with land over part of it, once on the
+    rendered 12-tile world (seed 0, in ``d``: the accuracy phase's), with
+    land over part of it, once on the
     card and once on the CPU:
 
     - ``cli.pipeline`` as users run it (bf16): launches, land branch and
@@ -512,8 +548,6 @@ def drive_pipeline_trained_card_vs_cpu(d: str) -> dict:
       rows at the golden bar."""
     import torch
 
-    from examples.end_to_end_demo import render_world
-
     from aquaculture_tpu_torch import frame as gf
     from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
     from aquaculture_tpu_torch.cli.detect import load_model
@@ -522,7 +556,6 @@ def drive_pipeline_trained_card_vs_cpu(d: str) -> dict:
     from aquaculture_tpu_torch.ops import nms_cuda
     from aquaculture_tpu_torch.pipeline import run_pipeline
 
-    img_dir, _ = render_world(d, seed=0)
     boxes_csv, land = os.path.join(d, "wanted_bboxes.csv"), os.path.join(d, "land.geojson")
     write_land(land, -100.0, 3700.0, 1100.0, 2500.0, seed=3)
     args = ["--source", img_dir, "--download-bboxes", boxes_csv, "--land", land,
@@ -559,7 +592,7 @@ def drive_pipeline_trained_card_vs_cpu(d: str) -> dict:
     match = _match_golden(frames["float32", "cuda"], frames["float32", "cpu"])
     if match["rows"][0] != match["rows"][1] or match["unmatched"] or match["rows"][0] < 50:
         fail(f"trained fixture f32 card vs CPU (TF32 off) misses the golden bar: {match}")
-    return {"variant": "n", "img": 160, "tiles": 24, "weights": "tests/data/demo_ckpt_n160",
+    return {"variant": "n", "img": 160, "tiles": len(paths), "weights": "tests/data/demo_ckpt_n160",
             "f32_card_vs_cpu_golden_bar": match, "bf16_card_vs_cpu": bf16, "runs": runs}
 
 
@@ -670,19 +703,20 @@ def conv_flops_per_image(model, img: int, dev) -> int:
     convs see (forward hooks on one image)."""
     import torch
 
-    from aquaculture_tpu_torch.models.layers import ConvBlock
+    from aquaculture_tpu_torch.models.layers import ConvBlock, QConvBlock, kernel_of
     from aquaculture_tpu_torch.models.yolov5 import HeadConv
 
     total = [0]
 
     def hook(m, _inp, out):
-        o, i, kh, kw = m.weight.shape
+        o, i, kh, kw = kernel_of(m).shape
         total[0] += 2 * o * i * kh * kw * out.shape[-2] * out.shape[-1]
 
-    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (ConvBlock, HeadConv))]
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (ConvBlock, QConvBlock, HeadConv))]
     try:
         with torch.inference_mode():
-            model(torch.zeros((1, img, img, 3), device=dev, dtype=next(model.parameters()).dtype))
+            model(torch.zeros((1, img, img, 3), device=dev, dtype=model.head[0].weight.dtype))
     finally:
         for h in hooks:
             h.remove()
@@ -769,26 +803,32 @@ def time_suppress(preds, card: str, shapes, variant: str) -> list:
 
 
 def time_serving_and_kernel(dev, card: str, tiles, variant: str = "mt", shapes=TIMED_SHAPES,
-                            iters: int = 5) -> dict:
+                            iters: int = 5, int8_paths=None, profile: bool = False) -> dict:
     """The serving program of ``variant`` at its default size (mt at 640,
     m6 at 1280) on the 1024 px ``tiles``, random weights from seed 0:
     tiles/s at conf 0.25 and 1e-5, the stage breakdown at conf 1e-5, the
-    forward's conv rate, and the kernel on its candidates at ``shapes``."""
+    forward's conv rate, and the kernel on its candidates at ``shapes``.
+    int8_paths: serve the int8_safe model instead (cli.detect --int8's),
+    calibrated on these image files. profile: also profile the forward
+    (profile_step: device busy, idle share, kernels by kind)."""
     import torch
 
-    from aquaculture_tpu_torch.cli.detect import default_img_size, load_model
+    from aquaculture_tpu_torch.cli.detect import default_img_size, load_model, quantize_for_serving
     from aquaculture_tpu_torch.config import DetectConfig
     from aquaculture_tpu_torch.ops import nms as N
     from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
     from aquaculture_tpu_torch.pipeline import make_infer_fn, preprocess
 
     model, img, b = load_model(None, variant, 5), default_img_size(None, variant), tiles.shape[0]
-    out = {}
+    serving = "bfloat16"
+    if int8_paths:
+        model, serving = quantize_for_serving(model, int8_paths, img, device=dev), "int8_safe"
+    out = {"serving": serving}
     for conf in (0.25, 1e-5):
         infer = make_infer_fn(model, DetectConfig(img_size=img, conf_threshold=conf), tile=1024, device=dev)
         ms = time_cuda(lambda: infer(tiles), iters=iters)
         out[f"conf_{conf:g}"] = {"ms_per_batch": ms, "tiles_per_s": b / ms * 1e3}
-        print(json.dumps({"metric": "serving", "variant": variant, "dtype": "bfloat16", "batch": b,
+        print(json.dumps({"metric": "serving", "variant": variant, "dtype": serving, "batch": b,
                           "img": img, "tile": 1024, "conf": conf, "ms_per_batch": ms,
                           "tiles_per_s": b / ms * 1e3, "card": card}), flush=True)
 
@@ -808,9 +848,15 @@ def time_serving_and_kernel(dev, card: str, tiles, variant: str = "mt", shapes=T
         }
         flops = conv_flops_per_image(model, img, dev)
         fwd_rate = flops * b / (stages["forward"] / 1e3)
-        print(json.dumps({"metric": "stages_ms", "variant": variant, "img": img, "batch": b, "conf": 1e-5,
-                          **stages, "card": card}), flush=True)
-        print(json.dumps({"metric": "forward_rate", "variant": variant, "img": img, "batch": b,
+        print(json.dumps({"metric": "stages_ms", "variant": variant, "dtype": serving, "img": img, "batch": b,
+                          "conf": 1e-5, **stages, "card": card}), flush=True)
+        if profile:
+            prof = profile_step(lambda: model(x))
+            prof["idle_share"] = max(0.0, 1 - prof["device_busy_ms_per_step"] / stages["forward"])
+            out["forward_profile"] = prof
+            print(json.dumps({"metric": "forward_profile", "variant": variant, "dtype": serving, "img": img,
+                              "batch": b, **prof, "card": card}), flush=True)
+        print(json.dumps({"metric": "forward_rate", "variant": variant, "dtype": serving, "img": img, "batch": b,
                           "conv_gflop_per_tile": flops / 1e9, "tflop_per_s": fwd_rate / 1e12,
                           "share_of_bf16_dense_peak": fwd_rate / BF16_FLOP_PER_S, "card": card}),
               flush=True)
@@ -840,6 +886,17 @@ TRAIN_TREE_TOL = {"params": 1e-6, "ema": 1e-6, "opt_momentum": 5e-4}
 TRAIN_DELTA_TOL = 3e-3
 TRAIN_VARIANT, TRAIN_IMG, TRAIN_BATCH, TRAIN_TILES, TRAIN_EPOCHS = "m", 640, 16, 32, 2
 
+
+# Limits of the int8 phases on an H100 (PERF.md). The int8 n forward card
+# vs CPU read 0 of 1,478,400 codes differing and head maps within 5e-9 of
+# their magnitude: at most one code in 10^4 may differ, by one, and the
+# head maps by one bf16 spacing at their largest magnitude (the head
+# convolves dequantized bf16 activations). The f32 rows of the accuracy
+# table read equal card vs CPU (mAP): limit 1e-3.
+INT8_FLIP_SHARE = 1e-4
+INT8_WORST_CODE = 1
+INT8_HEAD_TOL = 2.0 ** -8
+ACC_F32_TOL = 1e-3
 
 def _train_batch(rng, b: int, img: int, m: int = 8):
     """A fixed-shape batch: b images in [0, 1], up to m pixel boxes each."""
@@ -934,16 +991,19 @@ def drive_train_full_width(d: str, tile_dir: str, n_tiles: int, variant: str = T
     """cli.train as the reference recipe runs it (augmentation on, bf16) on
     TRAIN_TILES rendered 1024 px JPEG tiles with YOLO labels, then the EMA
     checkpoint it saved served by cli.detect over the main path's tiles with
-    the launch counter zeroed around it."""
+    the launch counter zeroed around it, and its mAP on its own world
+    (bf16, conf 1e-3; reported, not gated)."""
     import torch
 
     from examples.end_to_end_demo import render_world
 
     from aquaculture_tpu_torch.cli import train as cli_train
     from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.eval.accuracy import world_map
     from aquaculture_tpu_torch.utils.checkpoint import load_metadata, load_params
 
-    img_dir, _ = render_world(os.path.join(d, "world"), n_images=TRAIN_TILES, seed=5)
+    img_dir, lab_dir = render_world(os.path.join(d, "world"), n_images=TRAIN_TILES, seed=5)
     out = os.path.join(d, "ckpt")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -963,14 +1023,18 @@ def drive_train_full_width(d: str, tile_dir: str, n_tiles: int, variant: str = T
     load_model(os.path.join(out, "last"), variant, 5)  # the port loads what it saved
     served = run_main_path(tile_dir, os.path.join(d, "labels_trained"), n_tiles, detect_batch,
                            options=("--weights", os.path.join(out, "last")), variant=variant)
+    world = world_map(sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir)), lab_dir,
+                      load_model(os.path.join(out, "last"), variant, 5),
+                      DetectConfig(img_size=img, conf_threshold=1e-3), num_classes=5, device="cuda")
     return {"variant": variant, "img": img, "batch": batch, "tiles": TRAIN_TILES, "epochs": stats["epochs"],
             "steps": steps, "seconds": seconds, "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "served": served}
+            "served": served, "own_world_map": {"map50": world["map50"], "map": world["map"]}}
 
 
 # kernel kinds of a train step's profile, matched on the kernel's name in
 # this order
 KERNEL_KINDS = (
+    ("int8_gemm", ("i8i8", "s8s8", "imma", "_s8_", "i16832", "int8")),
     ("convolution", ("conv", "cudnn", "sm90_xmma", "implicit_gemm", "dgrad", "wgrad", "fprop", "cutlass", "gemm")),
     ("multi_tensor", ("multi_tensor", "foreach")),
     ("reduction", ("reduce", "welford", "var_mean", "norm")),
@@ -979,11 +1043,12 @@ KERNEL_KINDS = (
 )
 
 
-def profile_train_step(step, n: int = 3) -> dict:
-    """Where a step's time goes: the host's enqueue ms per step (the wall
-    clock of the Python call, no profiler attached, median of n), then n
-    steps under torch.profiler: device busy ms per step (the sum of kernel
-    times), kernels per step, kernel ms by kind and the top kernels."""
+def profile_step(step, n: int = 3) -> dict:
+    """Where a step's time goes (a train step, or a serving forward): the
+    host's enqueue ms per step (the wall clock of the Python call, no
+    profiler attached, median of n), then n steps under torch.profiler:
+    device busy ms per step (the sum of kernel times), kernels per step,
+    kernel ms by kind and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1022,7 +1087,7 @@ def time_train_step(dev, card: str, batch: dict, variant: str = TRAIN_VARIANT, i
     EMA) of ``variant`` on a batch already on the card, plain and with
     --remat; img/s, training TFLOP/s (3x the forward's conv FLOPs), its
     share of the bf16 dense peak, and peak memory of each; the plain step's
-    profile (profile_train_step) and the card's idle share of it."""
+    profile (profile_step) and the card's idle share of it."""
     import torch
 
     from aquaculture_tpu_torch.cli.detect import load_model
@@ -1048,7 +1113,7 @@ def time_train_step(dev, card: str, batch: dict, variant: str = TRAIN_VARIANT, i
                       "share_of_bf16_dense_peak": rate / BF16_FLOP_PER_S,
                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
         if name == "plain":
-            prof = profile_train_step(lambda: step(state, on_card))
+            prof = profile_step(lambda: step(state, on_card))
             rows[name]["profile"] = {**prof, "idle_share": max(0.0, 1 - prof["device_busy_ms_per_step"] / ms)}
         print(json.dumps({"metric": "train_step", "variant": variant, "img": img, "batch": b,
                           "dtype": "bfloat16", "option": name, **rows[name], "card": card}), flush=True)
@@ -1089,7 +1154,7 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 
         cfg = TrainConfig(img_size=TRAIN_IMG, batch_size=TRAIN_BATCH)
         batch = next(iter(DetectionDataset(os.path.join(d, "world", "images"), None, cfg, seed=1).epoch(0)))
-    steps = time_train_step(dev, card, batch)
+    steps = time_train_step(dev, card, batch, iters=3)
     # the host sets the pace when cli.train's last epoch runs below 90% of
     # the step alone on a batch already on the card
     e2e = drive["epochs"][-1]["img_per_s"]
@@ -1102,6 +1167,183 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
     return {"exact": exact, "drive": drive, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: int8 serving and the serving-accuracy harness
+# ---------------------------------------------------------------------------
+
+def probe() -> dict:
+    """What the card's machine offers later perf work: triton, CUTLASS's
+    headers (a fused int8 conv), matplotlib (figures). Gates nothing."""
+    out = {}
+    try:
+        import triton
+
+        out["triton"] = triton.__version__
+    except ImportError as e:
+        out["triton"] = f"absent: {e}"
+    roots = [os.environ.get("CUTLASS_PATH", ""), "/usr/local/cutlass", "/usr/local"]
+    heads = [os.path.join(r, "include") for r in roots if r]
+    out["cutlass_include"] = next((h for h in heads if os.path.exists(os.path.join(h, "cutlass", "cutlass.h"))), None)
+    try:
+        import matplotlib
+
+        out["matplotlib"] = matplotlib.__version__
+    except ImportError as e:
+        out["matplotlib"] = f"absent: {e}"
+    return out
+
+
+def check_int8_conv(dev) -> dict:
+    """The int8 convolution's card route (torch._int_mm) against its plain
+    route (float64 convolution of the integer values) on the card, exact
+    int32, on every conv call of mt's int8_full model at 640 px (batch 2,
+    random weights from seed 0, calibrated on random images) and on two
+    small products: M = 9 rows (padded to ROW_MULTIPLE) at the stem's K = 108,
+    a 1x1 of M = 16, and a 1x1 of M = 200 at K = N = 64 (n's at 160 px,
+    which cuBLASLt refused unpadded)."""
+    import torch
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.models import layers as L
+    from aquaculture_tpu_torch.models.quantize import quantize_model
+    from aquaculture_tpu_torch.ops import int8_conv
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    imgs = torch.rand((2, 640, 640, 3), generator=gen, device=dev)
+    qmodel = quantize_model(load_model(None, "mt", 5).to(dev), imgs.to(torch.bfloat16))
+    seen = {}
+
+    def compare(xq, wq, stride=1, padding=None):
+        got = int8_conv.int8_conv2d_mm(xq, wq, stride, padding)
+        want = int8_conv.int8_conv2d_plain(xq, wq, stride, padding)
+        key = (tuple(xq.shape), tuple(wq.shape), stride, padding)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            fail(f"int8 conv _int_mm != plain at input {key[0]}, weight {key[1]}, stride {stride}, "
+                 f"padding {padding}: max |diff| {int((got.double() - want.double()).abs().max())}")
+        seen[key] = seen.get(key, 0) + 1
+        return got
+
+    prev, L.int8_conv2d = L.int8_conv2d, compare
+    try:
+        with torch.inference_mode():
+            qmodel.to(dev, memory_format=torch.channels_last)(imgs)
+            small = torch.randint(-127, 128, (1, 12, 3, 3), generator=gen, device=dev, dtype=torch.int8)
+            compare(small, torch.randint(-127, 128, (24, 12, 3, 3), generator=gen, device=dev, dtype=torch.int8))
+            for shape in ((1, 64, 4, 4), (2, 64, 10, 10)):
+                one = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                compare(one.contiguous(memory_format=torch.channels_last),
+                        torch.randint(-127, 128, (64, 64, 1, 1), generator=gen, device=dev, dtype=torch.int8))
+    finally:
+        L.int8_conv2d = prev
+    torch.cuda.synchronize()
+    kinds = sorted({f"k{w[-1]}/s{st}" + ("/stem" if w[1] == 12 else "") for _, w, st, _ in seen})
+    return {"calls": sum(seen.values()), "shapes": len(seen), "kinds": kinds, "max_abs_err": 0}
+
+
+def check_int8_forward_card_vs_cpu(dev, img: int = 160) -> dict:
+    """One int8_full n tree (random weights from seed 7, calibrated on the
+    CPU on random images) served in f32 on the CPU and on the card (TF32
+    off): the int8 codes at each requant, and the head maps (bf16: the head
+    takes the dequantized activations)."""
+    import torch
+
+    from aquaculture_tpu_torch.models import layers as L
+    from aquaculture_tpu_torch.models.quantize import quantize_model
+    from aquaculture_tpu_torch.models.weights import load_jax_params
+    from aquaculture_tpu_torch.models.yolov5 import yolov5_init
+
+    rng = np.random.default_rng(4)
+    qmodel = quantize_model(load_jax_params(*yolov5_init("n", 5, seed=7)).eval(),
+                            torch.from_numpy(rng.random((2, img, img, 3), dtype=np.float32)))
+    x = torch.from_numpy(rng.random((2, img, img, 3), dtype=np.float32))
+    runs = {}
+    prev_requant = L.requant
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", dev):
+            codes = []
+
+            def record(act, yscale):
+                q = prev_requant(act, yscale)
+                codes.append(q.q)
+                return q
+
+            L.requant = record
+            qmodel.to(device, memory_format=torch.channels_last)
+            with torch.inference_mode():
+                feats = qmodel.features(x.to(device))
+            runs[str(device)] = ([c.cpu().int() for c in codes], [f.cpu().float() for f in feats])
+    finally:
+        L.requant = prev_requant
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (want_c, want_f), (got_c, got_f) = runs["cpu"], runs[str(dev)]
+    if len(got_c) != len(want_c) or len(want_c) < 50:
+        fail(f"int8 n forward: {len(got_c)} requants on the card, {len(want_c)} on the CPU")
+    flips = sum(int((g != w).sum()) for g, w in zip(got_c, want_c))
+    codes = sum(w.numel() for w in want_c)
+    worst = max(int((g - w).abs().max()) for g, w in zip(got_c, want_c))
+    head = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(got_f, want_f))
+    if flips > INT8_FLIP_SHARE * codes or worst > INT8_WORST_CODE or head > INT8_HEAD_TOL:
+        fail(f"int8 n forward card vs CPU: {flips} of {codes} codes differ (worst by {worst}), "
+             f"head maps {head} of their magnitude")
+    return {"variant": "n", "img": img, "split": "int8_full", "requants": len(want_c), "codes": codes,
+            "codes_differing": flips, "worst_code_diff": worst, "head_max_rel_err": head}
+
+
+def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
+    """serving_accuracy_table for the trained fixture on its rendered
+    12-image world (seed 0; tests/test_accuracy.py's) at 160 px, every row,
+    on the card (TF32 off, so that the f32 row is f32) and on the CPU: the
+    f32 rows agree, and every card row holds tests/test_accuracy.py's
+    bounds against the card's bf16 row."""
+    import torch
+
+    from aquaculture_tpu_torch.eval.accuracy import SERVING_CONFIGS, serving_accuracy_table
+    from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
+
+    configs = SERVING_CONFIGS + ("topk512",)
+    tables = {}
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    for device in ("cpu", "cuda"):
+        nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        try:
+            rows = serving_accuracy_table(img_dir, lab_dir, FIXTURE, img_size=160, configs=configs,
+                                          device=device)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        tables[device] = {"rows": {r.name: {"map50": r.map50, "map": r.map} for r in rows},
+                          "seconds": time.perf_counter() - t0, "launches": nms_cuda.launches}
+        if device == "cuda":
+            tables[device]["int8_conv_calls"] = check_int8_routes("accuracy table", True)
+    card, cpu = tables["cuda"]["rows"], tables["cpu"]["rows"]
+    # two batches of 8 tiles per row, one launch each, on the card only
+    if tables["cuda"]["launches"] != 2 * len(configs) or tables["cpu"]["launches"]:
+        fail(f"accuracy table: {tables['cuda']['launches']} launches on the card, "
+             f"{tables['cpu']['launches']} on the CPU")
+    f32_diff = max(abs(card["f32"][k] - cpu["f32"][k]) for k in ("map50", "map"))
+    if f32_diff > ACC_F32_TOL:
+        fail(f"accuracy table: f32 card {card['f32']} vs CPU {cpu['f32']}")
+    bf16 = card["bf16"]
+    d = {name: (r["map50"] - bf16["map50"], r["map"] - bf16["map"]) for name, r in card.items()}
+    bounds = {
+        "bf16_map50_at_least_0.5": bf16["map50"] >= 0.5,
+        "int8_mixed_map50_within_0.05": abs(d["int8_mixed"][0]) <= 0.05,
+        "int8_safe_map50_within_0.05": abs(d["int8_safe"][0]) <= 0.05,
+        "int8_safe_map_within_0.03": abs(d["int8_safe"][1]) <= 0.03,
+        "topk512_within_0.02": max(abs(v) for v in d["topk512"]) <= 0.02,
+        "multi_label_map50_above_minus_0.05": d["multi_label"][0] >= -0.05,
+    }
+    if not all(bounds.values()):
+        fail(f"accuracy table on the card misses tests/test_accuracy.py's bounds: "
+             f"{[k for k, ok in bounds.items() if not ok]}; rows {card}")
+    return {"weights": "tests/data/demo_ckpt_n160", "img": 160, "world_images": 12, "configs": list(configs),
+            "on_card": tables["cuda"], "on_cpu": tables["cpu"], "f32_card_vs_cpu_max_diff": f32_diff,
+            "f32_tol": ACC_F32_TOL, "bounds": bounds}
+
+
 def main() -> int:
     import torch
 
@@ -1111,6 +1353,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # script seconds per group of phases, printed before the summary
+    phase_seconds, t_mark = {}, [t_start]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_seconds[name] = round(now - t_mark[0], 2)
+        t_mark[0] = now
 
     # 1. card, torch, nvcc
     card = card_line()
@@ -1120,6 +1369,7 @@ def main() -> int:
          if "release" in ln), "unknown")
     print(f"card: {card} | torch {torch.__version__} (CUDA {torch.version.cuda}) | nvcc: {nvcc_release}",
           flush=True)
+    print(json.dumps({"probe": probe()}), flush=True)
 
     # 2. build
     t0 = time.perf_counter()
@@ -1132,50 +1382,76 @@ def main() -> int:
     suites = check_kernels(dev, shapes)
     print(f"kernels: nms_suppress == plain (exact) on suites {','.join(suites)} x shapes "
           f"{list(shapes)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"phase": "int8_conv", **check_int8_conv(dev)}), flush=True)
 
-    # 4. the main path
-    with tempfile.TemporaryDirectory() as d:
-        tile_dir, label_dir = os.path.join(d, "tiles"), os.path.join(d, "labels")
-        os.makedirs(tile_dir)
-        paths = write_tiles(tile_dir, 16)
-        main_path = run_main_path(tile_dir, label_dir, n_tiles=16, batch=8)
-        print(json.dumps({"phase": "main_path", **main_path}), flush=True)
-        # 4c. cli.detect's serving options on the same tiles
-        options = {}
-        for name, opts in (("tta_multi_label", ("--augment", "--multi-label")),
-                           ("decode_scale", ("--decode-scale",))):
-            options[name] = run_main_path(tile_dir, os.path.join(d, name), n_tiles=16, batch=8, options=opts)
-            print(json.dumps({"phase": f"detect_{name}", **options[name]}), flush=True)
-        print(json.dumps({"phase": "nms_kernel_vs_plain_batch", **check_nms_paths(paths, dev)}), flush=True)
-    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
-        inputs = write_pipeline_inputs(d1)
-        pipeline = {"full_width": drive_pipeline_full_width(d1, inputs),
-                    "trained_fixture": drive_pipeline_trained_card_vs_cpu(d2), "card": card}
-        print(json.dumps({"phase": "pipeline", **pipeline}), flush=True)
-        p6 = drive_pipeline_full_width(d1, inputs, variant="m6")
-        print(json.dumps({"phase": "p6", **p6, "card": card}), flush=True)
-        overlap = drive_pipeline_overlap(d1, inputs[1])
-        print(json.dumps({"phase": "overlap", **overlap, "card": card}), flush=True)
+    # 4. the main path; the tiles serve every later phase that needs files
+    root = tempfile.TemporaryDirectory()
+    d = root.name
+    tile_dir, label_dir = os.path.join(d, "tiles"), os.path.join(d, "labels")
+    os.makedirs(tile_dir)
+    paths = write_tiles(tile_dir, 16)
+    mark("kernels_and_tiles")
+    main_path = run_main_path(tile_dir, label_dir, n_tiles=16, batch=8)
+    print(json.dumps({"phase": "main_path", **main_path}), flush=True)
+    # 4c. cli.detect's serving options on the same tiles
+    options = {}
+    for name, opts in (("tta_multi_label", ("--augment", "--multi-label")),
+                       ("decode_scale", ("--decode-scale",))):
+        options[name] = run_main_path(tile_dir, os.path.join(d, name), n_tiles=16, batch=8, options=opts)
+        print(json.dumps({"phase": f"detect_{name}", **options[name]}), flush=True)
+    # 7. int8_serving: cli.detect --int8 on the same tiles
+    int8_detect = run_main_path(tile_dir, os.path.join(d, "int8"), n_tiles=16, batch=8, options=("--int8",))
+    print(json.dumps({"phase": "int8_detect", **int8_detect}), flush=True)
+    print(json.dumps({"phase": "nms_kernel_vs_plain_batch", **check_nms_paths(paths, dev)}), flush=True)
+    mark("detect")
+    # 4b/4c. aq-pipeline at full width, the trained fixture on its world (the
+    # accuracy phase's), P6, overlap, --int8
+    from examples.end_to_end_demo import render_world
+
+    d1, dw = os.path.join(d, "pipeline"), os.path.join(d, "world")
+    os.makedirs(d1)
+    inputs = write_pipeline_inputs(d1)
+    world = render_world(dw, n_images=12, seed=0)
+    pipeline = {"full_width": drive_pipeline_full_width(d1, inputs),
+                "trained_fixture": drive_pipeline_trained_card_vs_cpu(dw, world[0]), "card": card}
+    print(json.dumps({"phase": "pipeline", **pipeline}), flush=True)
+    p6 = drive_pipeline_full_width(d1, inputs, variant="m6")
+    print(json.dumps({"phase": "p6", **p6, "card": card}), flush=True)
+    overlap = drive_pipeline_overlap(d1, inputs[1])
+    print(json.dumps({"phase": "overlap", **overlap, "card": card}), flush=True)
+    int8_pipeline = drive_pipeline_full_width(d1, inputs, options=("--int8",))
+    print(json.dumps({"phase": "int8_pipeline", **int8_pipeline, "card": card}), flush=True)
+    mark("pipeline")
     print(json.dumps({"phase": "f32_card_vs_cpu_n160", "tf32": False, **check_f32_vs_cpu(dev)}), flush=True)
     print(json.dumps({"phase": "f32_card_vs_cpu_n6_256", "tf32": False, **check_f32_vs_cpu(dev, "n6", 256)}),
           flush=True)
     print(json.dumps({"phase": "m_builds", **check_m_builds(dev)}), flush=True)
+    print(json.dumps({"phase": "int8_n160_card_vs_cpu", "tf32": False, **check_int8_forward_card_vs_cpu(dev)}),
+          flush=True)
+    mark("card_vs_cpu")
+    accuracy = run_accuracy_phase(dev, card, *world)
+    print(json.dumps({"phase": "accuracy", **accuracy, "card": card}), flush=True)
+    mark("accuracy")
 
-    # 5. times
+    # 5. times (the int8 model calibrated on the main path's first 8 tiles)
     tiles = serving_tiles(dev)
-    times = time_serving_and_kernel(dev, card, tiles)
-    times_p6 = time_serving_and_kernel(dev, card, tiles, "m6", shapes=((128, 1024),), iters=3)
+    times = time_serving_and_kernel(dev, card, tiles, profile=True)
+    times_p6 = time_serving_and_kernel(dev, card, tiles, "m6", shapes=((128, 1024),), iters=2)
+    times_int8 = time_serving_and_kernel(dev, card, tiles, shapes=((128, 1024),), iters=3,
+                                         int8_paths=paths[:8], profile=True)
+    print(json.dumps({"metric": "int8_safe_over_bf16", "variant": "mt", "batch": tiles.shape[0],
+                      **{c: times_int8[c]["tiles_per_s"] / times[c]["tiles_per_s"] for c in ("conf_0.25", "conf_1e-05")},
+                      "card": card}), flush=True)
     k, k6 = times["kernel"], times_p6["kernel"]
     del tiles
     torch.cuda.empty_cache()
+    mark("serving_times")
 
     # 6. training: f32 card vs CPU, cli.train at full width, its checkpoint
     # served over the main path's tiles, step and feed times
-    with tempfile.TemporaryDirectory() as d:
-        tile_dir = os.path.join(d, "tiles")
-        os.makedirs(tile_dir)
-        write_tiles(tile_dir, 16)
-        train = run_train_phase(dev, card, tile_dir, n_tiles=16)
+    train = run_train_phase(dev, card, tile_dir, n_tiles=16)
+    root.cleanup()
+    mark("train")
     summary = {"kernels": [{
         "name": "nms_suppress",
         "route": "cuda",
@@ -1188,6 +1464,9 @@ def main() -> int:
         "launches_decode_scale": options["decode_scale"]["launches"]["nms_suppress"],
         "launches_overlap": overlap["launches"]["nms_suppress"],
         "launches_train_detect": train["drive"]["served"]["launches"]["nms_suppress"],
+        "launches_int8_detect": int8_detect["launches"]["nms_suppress"],
+        "launches_int8_pipeline": int8_pipeline["launches"]["nms_suppress"],
+        "launches_accuracy": accuracy["on_card"]["launches"],
         "max_abs_err": max(k["max_abs_err"], k6["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1201,6 +1480,7 @@ def main() -> int:
         "p6_bound_by": k6["bound_by"],
         "suites_passed": list(suites),
     }]}
+    print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)
     print(card, flush=True)

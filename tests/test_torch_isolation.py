@@ -22,7 +22,8 @@ PORT = ROOT / "aquaculture_tpu_torch"
 
 
 def _port_sources():
-    scripts = [ROOT / "scripts" / n for n in ("nms_suppress_ab.py", "serving_ab.py", "train_step_ab.py")]
+    scripts = [ROOT / "scripts" / n
+               for n in ("nms_suppress_ab.py", "serving_ab.py", "train_step_ab.py", "int_mm_probe.py")]
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
 
 
@@ -182,6 +183,50 @@ def test_training_loads_no_jax():
         state = init_train_state(model)
         m = make_train_step(model, cfg, 1)(state, {k: torch.from_numpy(v) for k, v in batch.items()})
         assert torch.isfinite(m["total"]) and state.step == 1, m
+        import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_int8_and_accuracy_load_no_jax():
+    """int8 PTQ (calibrate, quantize, the int8 forward through both conv
+    routes), cli.detect --int8 and the accuracy harness on a rendered
+    world, in a fresh interpreter, load no JAX module."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np, torch
+        sys.path.insert(0, "examples")
+        from end_to_end_demo import render_world
+        from aquaculture_tpu_torch.cli import detect as cli_detect
+        from aquaculture_tpu_torch.config import DetectConfig
+        from aquaculture_tpu_torch.eval.accuracy import load_checkpoint_f32, world_map
+        from aquaculture_tpu_torch.eval.map import evaluate_map
+        from aquaculture_tpu_torch.models import layers
+        from aquaculture_tpu_torch.models.quantize import quantize_model
+        from aquaculture_tpu_torch.ops import int8_conv
+        model = load_checkpoint_f32("tests/data/demo_ckpt_n160", "n", 2)
+        x = torch.from_numpy(np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32))
+        q = quantize_model(model, x)
+        assert isinstance(q.b5, layers.QConvBlock)
+        with torch.no_grad():
+            plain = q(x)
+            layers.int8_conv2d = int8_conv.int8_conv2d_mm
+            assert torch.equal(q(x), plain)
+        d = tempfile.mkdtemp()
+        img_dir, lab_dir = render_world(d, n_images=2, seed=0)
+        cli_detect.main(["--source", img_dir, "--out", os.path.join(d, "lab"), "--weights",
+                         "tests/data/demo_ckpt_n160", "--img", "64", "--int8", "--device", "cpu"])
+        paths = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+        m = world_map(paths, lab_dir, model, DetectConfig(img_size=160, conf_threshold=1e-3), device="cpu")
+        assert m["map50"] > 0, m
         import shutil; shutil.rmtree(d)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -283,7 +283,7 @@ def test_cli_pipeline_passes_the_new_flags(world, tmp_path, monkeypatch):
     assert (seen["img_size"], seen["overlap"], seen["decode_scale"]) == (640, 0, True)
 
 
-@pytest.mark.parametrize("flag", ["--int8", "--profile=trace", "--aot=x.aqx"])
+@pytest.mark.parametrize("flag", ["--profile=trace", "--aot=x.aqx"])
 def test_cli_pipeline_rejects_flags_of_later_slices(flag, world, tmp_path):
     with pytest.raises(SystemExit):
         torch_pipeline_cli.main(["--source", world["images"], "--download-bboxes", world["bboxes"],

@@ -567,3 +567,76 @@ def test_bf16_training_forward_matches_jax(bf16_forward, part):
     else:
         for k in ("box", "obj", "cls", "total"):
             assert g_loss[k] == pytest.approx(w_loss[k], rel=1e-2), k
+
+
+# ---------------------------------------------------------------------------
+# the P6 family: n6 at 128 px, f32
+# ---------------------------------------------------------------------------
+
+# Bars about ten times the readings of n6 at 128 px, batch 2, f32 (one
+# training forward; then two steps): head maps 3.4e-5 of their magnitude,
+# running statistics 5.1e-5 of theirs, the box, cls and total losses 4.6e-6
+# relative and obj 1.5e-5. On this file's seeds: head maps 1.3e-5 to 4.7e-5,
+# statistics 5.6e-5, obj 8.5e-6 and the others 1.8e-6. The worst leaf of
+# params, EMA and momentum read 2.9e-4 to 6.2e-4 of its magnitude: held to
+# P5's LEAF_RTOL (3e-3), five times the larger.
+P6_HEAD_RTOL, P6_STATS_RTOL = 3.4e-4, 5.1e-4
+P6_LOSS_RTOL = {"box": 4.6e-5, "cls": 4.6e-5, "total": 4.6e-5, "obj": 1.5e-4}
+
+
+@pytest.fixture(scope="module")
+def p6_steps():
+    """One f32 training forward of n6 at 128 px through both packages from
+    the same init, then two f32 train steps on the same batches (JAX jitted
+    once)."""
+    jmodel, params = jax_yolov5_init("n6", 2, seed=0)
+    rng = np.random.default_rng(13)
+    x = rng.random((2, 128, 128, 3), dtype=np.float32)
+    want_feats, want_params = jax.jit(lambda p, x_: jmodel.features(p, x_, True))(params, jnp.asarray(x))
+    model = load_train_params(YoloV5("n6", 2, trainable=True), params).train()
+    got_feats = [f.detach().numpy() for f in model.features(torch.from_numpy(x))]
+    forward = {"want": ([np.asarray(f) for f in want_feats], _np(want_params)),
+               "got": (got_feats, flatten_tree(to_tree(train_state(model))))}
+
+    labels, mask = _labels(rng, 2, 6, 128, [3, 4], 2)
+    images = rng.random((2, 2, 128, 128, 3), dtype=np.float32)
+    jcfg = JaxTrainConfig(img_size=128, batch_size=2, compute_dtype="float32")
+    jstate, jstep = jax_init_state(jmodel, params), jax.jit(jax_make_step(jmodel, jcfg, 1))
+    model = load_train_params(YoloV5("n6", 2, trainable=True), params)
+    state = init_train_state(model)
+    step = make_train_step(model, TrainConfig(img_size=128, batch_size=2, compute_dtype="float32"), 1)
+    jl, gl = [], []
+    for i in range(2):
+        jstate, m = jstep(jstate, {"images": jnp.asarray(images[i]), "labels": jnp.asarray(labels),
+                                   "label_mask": jnp.asarray(mask)})
+        jl.append({k: float(v) for k, v in m.items()})
+        m = step(state, {"images": torch.from_numpy(images[i]), "labels": torch.from_numpy(labels),
+                         "label_mask": torch.from_numpy(mask)})
+        gl.append({k: float(v) for k, v in m.items()})
+    return {"forward": forward, "jax_state": jstate, "jax_losses": jl, "state": state, "losses": gl}
+
+
+def test_p6_training_forward_matches_jax(p6_steps):
+    """Four head maps within P6_HEAD_RTOL of their magnitude, and each of
+    the 150 running statistics after one forward within P6_STATS_RTOL of
+    its largest magnitude."""
+    (want_feats, want), (got_feats, got) = p6_steps["forward"]["want"], p6_steps["forward"]["got"]
+    assert len(got_feats) == len(want_feats) == 4
+    for g, w in zip(got_feats, want_feats):
+        assert g.shape == w.shape
+        assert float(np.abs(g - w).max()) <= P6_HEAD_RTOL * float(np.abs(w).max())
+    stats = [k for k in want if k.endswith(("/bn/mean", "/bn/var"))]
+    assert len(stats) == 150
+    for k in stats:
+        scale = float(np.abs(want[k]).max())
+        assert float(np.abs(got[k] - want[k]).max()) <= P6_STATS_RTOL * scale, k
+
+
+def test_p6_two_steps_match_jax(p6_steps):
+    for want, got in zip(p6_steps["jax_losses"], p6_steps["losses"]):
+        for k, rtol in P6_LOSS_RTOL.items():
+            assert got[k] == pytest.approx(want[k], rel=rtol), k
+    jstate, got = p6_steps["jax_state"], state_tree(p6_steps["state"])
+    assert p6_steps["state"].step == p6_steps["state"].opt_step == 2
+    for part, want in (("params", jstate.params), ("ema", jstate.ema), ("opt_momentum", jstate.opt.momentum)):
+        _assert_leaves_close(want, got[part])
