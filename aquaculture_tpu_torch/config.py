@@ -2,8 +2,9 @@
 
 A copy of what the port needs from aquaculture_tpu/config.py: the imagery
 geometry and CRS registry (reference src/utils.py:17-20), the class
-mappings, ``DetectConfig`` with its serving options (multi-label
-candidates, test-time augmentation) and ``TrainConfig``, field for field.
+mappings, the clustering operating point, ``DetectConfig`` with its serving
+options (multi-label candidates, test-time augmentation) and
+``TrainConfig``, field for field.
 """
 
 from __future__ import annotations
@@ -30,6 +31,12 @@ CLASS_NAMES = (
 )
 REVERSE_CLASS_MAPPING = {i: n for i, n in enumerate(CLASS_NAMES)}
 CLASS_MAPPING = {n: i for i, n in enumerate(CLASS_NAMES)}
+
+# Operating point found by the reference's grid search
+# (reference: src/get_kfold_cluster_performance.py:538-540)
+OPTIMAL_CONF_THRESHOLD = 0.785
+OPTIMAL_DISTANCE_THRESHOLD = 50.0   # DBSCAN eps in meters (EPSG:3035)
+OPTIMAL_MIN_CLUSTER_SIZE = 5
 
 
 @dataclasses.dataclass(frozen=True)

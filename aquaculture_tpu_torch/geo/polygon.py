@@ -6,7 +6,8 @@ boxes, simple polygons, multipolygons; predicates (intersects / contains),
 measures (area, bounds, centroid) and affine/CRS vertex transforms. The overlay operations (intersection,
 difference, union, buffer) and the boolean engine under them come with a
 later slice of the port; download-box dedup runs on the exact rectilinear
-algebra of ``aquaculture_tpu_torch.geo.region`` instead.
+algebra of ``aquaculture_tpu_torch.geo.region`` instead. ``centroid_array``
+(the port's own) takes many centroids at once, bit for bit.
 
 Coordinates are float64 NumPy arrays. Geometries are immutable.
 """
@@ -396,6 +397,41 @@ def box(minx: float, miny: float, maxx: float, maxy: float) -> Polygon:
     if maxy < miny:
         miny, maxy = maxy, miny
     return Polygon([(maxx, miny), (maxx, maxy), (minx, maxy), (minx, miny)])
+
+
+def centroid_array(geoms: Sequence[Geometry]) -> np.ndarray:
+    """(N, 2) centroids of ``geoms``, bit for bit ``[g.centroid.x,
+    g.centroid.y]``. Open hole-free polygons are computed together, one
+    (M, n) array per vertex count n, with ``Polygon.centroid``'s operations
+    in its order (each row reduces as its 1-D ring would); the rest one by
+    one. The k-fold sweep and the clustering take every detection's
+    centroid, many times over in a k-fold evaluation."""
+    out = np.empty((len(geoms), 2), np.float64)
+    groups: dict = {}
+    for i, g in enumerate(geoms):
+        if type(g) is Polygon and not g.holes and len(g.exterior) >= 3 \
+                and not np.array_equal(g.exterior[0], g.exterior[-1]):
+            groups.setdefault(len(g.exterior), []).append(i)
+        else:
+            c = g.centroid
+            out[i] = (c.x, c.y)
+    for idx in groups.values():
+        ext = np.stack([geoms[i].exterior for i in idx])
+        ox = ext[:, :, 0].mean(axis=1)[:, None]
+        oy = ext[:, :, 1].mean(axis=1)[:, None]
+        x, y = ext[:, :, 0] - ox, ext[:, :, 1] - oy
+        nxt = np.roll(ext, -1, axis=1)
+        xn, yn = nxt[:, :, 0] - ox, nxt[:, :, 1] - oy
+        cross = x * yn - xn * y
+        a = 0.5 * np.sum(cross, axis=1)
+        flat = np.abs(a) < _EPS
+        with np.errstate(divide="ignore", invalid="ignore"):
+            cx = np.sum((x + xn) * cross, axis=1) / (6.0 * a)
+            cy = np.sum((y + yn) * cross, axis=1) / (6.0 * a)
+            px = np.where(flat, np.mean(x, axis=1) + ox[:, 0], (a * cx) / a + ox[:, 0])
+            py = np.where(flat, np.mean(y, axis=1) + oy[:, 0], (a * cy) / a + oy[:, 0])
+        out[idx] = np.stack([px, py], 1)
+    return out
 
 
 # ---------------------------------------------------------------------------

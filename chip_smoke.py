@@ -68,7 +68,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      CPU, every row: the f32 rows agree card vs CPU, and every card row
      holds tests/test_accuracy.py's bounds against the card's bf16 row; in
      phase 5 mt int8_safe b128 serving timed beside bf16, with its stages
-     and both forwards' profiles.
+     and both forwards' profiles;
+  8. after 4b, ``cluster_evaluate`` on an evaluation world at the
+     reference's scale written from a numpy seed (8 survey years x 2,000
+     cage detections on the French Mediterranean coast, 4,142 labels,
+     35,199 images in 5 strata): DBSCAN on the card equal to the plain BFS
+     label for label per year at (eps, min size) = (50, 5), (10, 1) and
+     (150, 10); ``cli.cluster`` on the card and with --device cpu writing
+     equal facility files; on fold 0's train split the card's grid sweep
+     equal to the plain per-combination loop on a 12-combination sub-grid
+     (NaN in place); ``cli.evaluate`` on the card with the full 6,560-
+     combination grid over 5 folds (the sweep's seconds per fold, the
+     match matrix's host seconds, the fold rows, the held-out table, which
+     must equal test_set_performance with --device cpu). The CPU references
+     run in worker processes beside the card's side.
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -782,12 +795,14 @@ def time_suppress(preds, card: str, shapes, variant: str) -> list:
         if not torch.equal(keep, plain_keep):
             fail(f"nms_suppress != plain on the {variant} serving candidates (B={b}, K={k})")
         bound, bound_by = suppress_bound_ms(keep, valid)
+        # the plain version at the larger shapes takes 0.4-1.5 s a call:
+        # one timed call, no warmup
         reps = 3 if main_shape else 1
         row = {
             "B": b, "K": k, "valid": int(valid.sum()), "kept": int(keep.sum()),
             "ms": time_cuda(lambda: greedy_suppress_cuda(boxes, valid, 0.45), iters=20, queued=True),
             "plain_ms": time_cuda(lambda: N.greedy_suppress_plain(boxes, valid, 0.45), iters=1,
-                                  windows=reps, warmup=reps),
+                                  windows=reps, warmup=reps if main_shape else 0),
             "bound_ms": bound, "bound_by": bound_by, "bound_ms_all_pairs": all_pairs_bound_ms(b, k),
             "max_abs_err": float((keep.float() - plain_keep.float()).abs().max()),
         }
@@ -1154,7 +1169,7 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 
         cfg = TrainConfig(img_size=TRAIN_IMG, batch_size=TRAIN_BATCH)
         batch = next(iter(DetectionDataset(os.path.join(d, "world", "images"), None, cfg, seed=1).epoch(0)))
-    steps = time_train_step(dev, card, batch, iters=3)
+    steps = time_train_step(dev, card, batch, iters=3, windows=2)
     # the host sets the pace when cli.train's last epoch runs below 90% of
     # the step alone on a batch already on the card
     e2e = drive["epochs"][-1]["img_per_s"]
@@ -1344,6 +1359,347 @@ def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
             "f32_tol": ACC_F32_TOL, "bounds": bounds}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: facility clustering (aq-cluster) and k-fold evaluation (aq-evaluate)
+# ---------------------------------------------------------------------------
+
+# The evaluation world at the reference's scale: 8 survey years across the
+# archive's 2000-2021 span, 2,000 cage detections each on the French
+# Mediterranean coast (lon 3.0-7.5 E, lat 42.3-43.6 N), 4,142 labels (the
+# size of humanlabels.geojson) and 35,199 images (the size of cf_images.csv)
+# in 5 strata.
+EVAL_YEARS = (2000, 2003, 2006, 2009, 2012, 2015, 2018, 2021)
+EVAL_PER_YEAR, EVAL_SITES, EVAL_LABELS, EVAL_IMAGES = 2000, 300, 4142, 35_199
+EVAL_TILE_M = 200.0  # EPSG:3857 meters of one 1024 px tile (6 per 1200 m download box)
+# (eps, min size) of the DBSCAN checks: the study's operating point, the
+# grid's smallest eps with every kept point a core, its largest eps
+DBSCAN_CHECKS = ((50.0, 5), (10.0, 1), (150.0, 10))
+# the sub-grid on which the card's sweep is held against the plain loop
+EVAL_SUB_GRID = dict(confidence_thresholds=(0.6, 0.785, 1.005), distance_thresholds=(10.0, 50.0),
+                     minimum_cluster_sizes=(1, 5))
+
+
+def write_evaluation_world(d: str, seed: int = 0) -> tuple:
+    """(detections.geojson, labels.geojson, images.csv) of the evaluation
+    world, from a numpy seed. Per year, ~80% of EVAL_SITES facility sites
+    hold 3-12 cages at 8-20 m spacing, and scattered noise fills the year to
+    EVAL_PER_YEAR detections; boxes in EPSG:3857 with det_conf from a beta,
+    circle/square/rectangle types and the area columns cli.areas writes.
+    Labels are jittered copies of facility cages plus unmatched boxes; the
+    images are the tiles that hold a detection or a label plus empty tiles,
+    bucketed by their largest det_conf (4 bins and "No detection")."""
+    import pandas as pd
+
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
+    from aquaculture_tpu_torch.eval.buckets import CONF_BINS
+    from aquaculture_tpu_torch.geo import crs as C
+    from aquaculture_tpu_torch.geo import polygon as P
+    from aquaculture_tpu_torch.post.areas import circle_areas, square_areas
+
+    rng = np.random.default_rng(seed)
+    (x0, x1), (y0, y1) = C.transform(4326, 3857, np.array([3.0, 7.5]), np.array([42.3, 43.6]))
+    sites = np.stack([rng.uniform(x0, x1, EVAL_SITES), rng.uniform(y0, y1, EVAL_SITES)], 1)
+    n_cages = rng.integers(3, 13, EVAL_SITES)
+    xs, ys, years, facility = [], [], [], []
+    for year in EVAL_YEARS:
+        cx, cy = [], []
+        for (sx, sy), n in zip(sites[rng.random(EVAL_SITES) < 0.8], n_cages):
+            step, cols = rng.uniform(8, 20), int(rng.integers(2, 5))
+            k = np.arange(n)
+            cx.append(sx + step * (k % cols) + rng.normal(0, 1, n))
+            cy.append(sy + step * (k // cols) + rng.normal(0, 1, n))
+        cx, cy = np.concatenate(cx)[:EVAL_PER_YEAR], np.concatenate(cy)[:EVAL_PER_YEAR]
+        n_noise = EVAL_PER_YEAR - len(cx)
+        xs += [cx, rng.uniform(x0, x1, n_noise)]
+        ys += [cy, rng.uniform(y0, y1, n_noise)]
+        years.append(np.full(EVAL_PER_YEAR, year))
+        facility += [np.ones(len(cx), bool), np.zeros(n_noise, bool)]
+    x, y, year, facility = (np.concatenate(a) for a in (xs, ys, years, facility))
+    n = len(x)
+    size = rng.uniform(8, 25, n)
+    types = rng.choice(np.array(["circle_farm", "square_farm", "rectangle_farm"]), n, p=[0.55, 0.4, 0.05])
+    conf = np.where(facility, rng.beta(6.0, 1.5, n), rng.beta(2.0, 3.0, n))
+    is_circle = types == "circle_farm"
+    c_areas, s_areas = circle_areas(size, size, np.zeros(n, bool), np.zeros(n, bool)), square_areas(size, size)
+    ix, iy = np.floor((x - x0) / EVAL_TILE_M).astype(np.int64), np.floor((y - y0) / EVAL_TILE_M).astype(np.int64)
+
+    def tile_names(yr, tx, ty):
+        width = int((x1 - x0) // (6 * EVAL_TILE_M)) + 1
+        return [encode_tile_name(TileSpec(year=int(a), bbox_ind=int(b // 6 + (c // 6) * width),
+                                          x_offset=int(b % 6) * 1024, y_offset=int(c % 6) * 1024))
+                for a, b, c in zip(yr, tx, ty)]
+
+    image = tile_names(year, ix, iy)
+    det = gf.GeoFrame({"image": image, "year": year, "type": types, "det_conf": conf,
+                       **{k: np.where(is_circle, a, b) for k, a, b in
+                          zip(("area", "area_var", "min_area", "max_area"), c_areas, s_areas)}},
+                      geometry=[P.box(a - s / 2, b - s / 2, a + s / 2, b + s / 2) for a, b, s in zip(x, y, size)],
+                      crs=3857)
+
+    n_unmatched = EVAL_LABELS // 10
+    pick = np.sort(rng.choice(np.nonzero(facility)[0], EVAL_LABELS - n_unmatched, replace=False))
+    far = rng.choice(n, n_unmatched)
+    jitter = rng.normal(0, 1.5, (len(pick), 4))
+    lx, ly = x[far] + rng.uniform(60, 120, n_unmatched), y[far] + rng.uniform(60, 120, n_unmatched)
+    lab = gf.GeoFrame(
+        {"image": [image[i] for i in pick] + [image[i] for i in far],
+         "year": np.concatenate([year[pick], year[far]]),
+         "type": np.concatenate([types[pick], np.full(n_unmatched, "circle_farm")])},
+        geometry=[P.box(*(np.asarray(det["geometry"].iloc[i].bounds) + j)) for i, j in zip(pick, jitter)]
+        + [P.box(a, b, a + 12, b + 12) for a, b in zip(lx, ly)],
+        crs=3857)
+
+    held = pd.Series(conf).groupby(np.asarray(image)).max()
+    names = list(held.index) + sorted(set(lab["image"]) - set(held.index))
+    n_empty = EVAL_IMAGES - len(names)
+    empty = tile_names(rng.choice(EVAL_YEARS, n_empty), np.arange(n_empty) % 600, 10_000 + np.arange(n_empty) // 600)
+    images = pd.DataFrame({"image": names + empty})
+    best = held.reindex(images["image"]).to_numpy()
+    images["bucket"] = pd.cut(best, bins=list(CONF_BINS)).astype(str)
+    images.loc[np.isnan(best), "bucket"] = "No detection"
+
+    paths = (os.path.join(d, "detections.geojson"), os.path.join(d, "labels.geojson"), os.path.join(d, "images.csv"))
+    det.to_file(paths[0])
+    lab.to_file(paths[1])
+    images.to_csv(paths[2], index=False)
+    return paths
+
+
+def _read_world(paths: tuple) -> tuple:
+    import pandas as pd
+
+    from aquaculture_tpu_torch import frame as gf
+
+    return gf.read_file(paths[0]), gf.read_file(paths[1]), pd.read_csv(paths[2])
+
+
+def _year_centers(det) -> dict:
+    """The cages' EPSG:3035 centroids per year, as cluster_facilities
+    takes them."""
+    from aquaculture_tpu_torch.geo.polygon import centroid_array
+
+    centers = centroid_array(list(det.to_crs(3035)["geometry"]))
+    years = det["year"].to_numpy()
+    return {int(y): centers[years == y] for y in sorted(set(years))}
+
+
+def _fold0_train(world: tuple) -> tuple:
+    """Detections and labels of fold 0's train split (GridConfig()'s 5
+    folds, seed 1, stratified by bucket)."""
+    from aquaculture_tpu_torch.eval import kfold
+
+    det, lab, images = world
+    train = images.iloc[kfold.stratified_kfold_indices(images["bucket"], 5, 1)[0][0]]
+    return kfold._subset(det, train), kfold._subset(lab, train)
+
+
+# The CPU references of phase 8, each run in a worker process (CPU only)
+# while the main process drives the card: host time, not card time, bounds
+# the phase. Each returns its result and its seconds.
+
+def _ref_init() -> None:
+    import torch
+
+    torch.set_num_threads(2)
+
+
+def _ref_dbscan_plain(paths: tuple) -> tuple:
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.post.cluster import dbscan_plain
+
+    centers = _year_centers(gf.read_file(paths[0]))
+    t0 = time.perf_counter()
+    labels = {(eps, ms, y): dbscan_plain(pts, eps, ms) for eps, ms in DBSCAN_CHECKS for y, pts in centers.items()}
+    return labels, time.perf_counter() - t0
+
+
+def _ref_cli_cluster_cpu(det_path: str, out_path: str) -> tuple:
+    from aquaculture_tpu_torch.cli import cluster as cli_cluster
+
+    t0 = time.perf_counter()
+    fac = cli_cluster.main(["--detections", det_path, "--out", out_path, "--device", "cpu"])
+    return len(fac), time.perf_counter() - t0
+
+
+def _ref_sub_grid_plain(paths: tuple) -> tuple:
+    from aquaculture_tpu_torch.eval import kfold
+
+    det, lab = _fold0_train(_read_world(paths))
+    t0 = time.perf_counter()
+    return kfold.grid_search_plain(det, lab, kfold.GridConfig(**EVAL_SUB_GRID)), time.perf_counter() - t0
+
+
+def _ref_held_out_cpu(paths: tuple) -> tuple:
+    from aquaculture_tpu_torch.config import (OPTIMAL_CONF_THRESHOLD, OPTIMAL_DISTANCE_THRESHOLD,
+                                              OPTIMAL_MIN_CLUSTER_SIZE)
+    from aquaculture_tpu_torch.eval import kfold
+
+    det, lab, images = _read_world(paths)
+    t0 = time.perf_counter()
+    table = kfold.test_set_performance(images, det, lab, OPTIMAL_CONF_THRESHOLD, OPTIMAL_DISTANCE_THRESHOLD,
+                                       OPTIMAL_MIN_CLUSTER_SIZE, "cpu")
+    return table, time.perf_counter() - t0
+
+
+def dbscan_card_labels(det, dev) -> tuple:
+    """The card's DBSCAN labels per (eps, min size, year) of DBSCAN_CHECKS,
+    and their seconds."""
+    import torch
+
+    from aquaculture_tpu_torch.post.cluster import dbscan
+
+    labels, seconds = {}, 0.0
+    for y, pts in _year_centers(det).items():
+        for eps, ms in DBSCAN_CHECKS:
+            t0 = time.perf_counter()
+            labels[eps, ms, y] = dbscan(pts, eps, ms, dev)
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+    return labels, seconds
+
+
+def check_dbscan(card: dict, card_s: float, plain) -> dict:
+    """Per year, the card's DBSCAN labels equal the plain BFS's (``plain``,
+    from _ref_dbscan_plain) elementwise at each DBSCAN_CHECKS (eps, min
+    size)."""
+    want, plain_s = plain.result()
+    for (eps, ms, y), got in card.items():
+        if not np.array_equal(got, want[eps, ms, y]):
+            fail(f"dbscan on the card != dbscan_plain in year {y} at eps {eps}, min size {ms}: "
+                 f"{int((got != want[eps, ms, y]).sum())} of {len(got)} labels differ")
+    clusters = {f"{eps:g}_{ms}": sum(int(w.max()) + 1 for (e, m, _), w in want.items() if (e, m) == (eps, ms))
+                for eps, ms in DBSCAN_CHECKS}
+    return {"checks": [list(c) for c in DBSCAN_CHECKS], "years": len(EVAL_YEARS), "label_arrays": len(card),
+            "card_s": card_s, "plain_s": plain_s, "clusters": clusters}
+
+
+def check_cli_cluster(fac_paths: list, n_card: int, card_s: float, cpu) -> dict:
+    """cli.cluster's facility files on the card and with --device cpu
+    (``cpu``, from _ref_cli_cluster_cpu) are equal, and not empty."""
+    n_cpu, cpu_s = cpu.result()
+    files = []
+    for p in fac_paths:
+        with open(p) as f:
+            files.append(json.load(f))
+    if files[0] != files[1] or not n_card:
+        fail(f"cli.cluster on the card ({n_card} facilities) and with --device cpu ({n_cpu}) wrote "
+             f"different facility files, or none")
+    return {"cuda_facilities": n_card, "cuda_s": card_s, "cpu_facilities": n_cpu, "cpu_s": cpu_s}
+
+
+def check_sub_grid(got, card_s: float, train: tuple, plain) -> dict:
+    """On fold 0's train split, grid_search on the card (``got``) equals
+    grid_search_plain (``plain``, from _ref_sub_grid_plain: every row, NaN
+    in the same places) on EVAL_SUB_GRID; the plain loop's seconds per
+    combination and their extrapolation to the full grid's 5 folds."""
+    want, plain_s = plain.result()
+    if not got.equals(want):
+        fail(f"grid_search on the card != grid_search_plain on the sub-grid:\n{got}\n{want}")
+    combos = len(want)
+    return {"train_detections": len(train[0]), "train_labels": len(train[1]), "combinations": combos,
+            "nan_precision_rows": int(want["precision"].isna().sum()), "card_s": card_s, "plain_s": plain_s,
+            "plain_s_per_combination": plain_s / combos,
+            "plain_s_extrapolated_6560x5": plain_s / combos * 6560 * 5}
+
+
+def drive_evaluate(d: str, paths: tuple) -> tuple:
+    """cli.evaluate on the card with the full GridConfig() (6,560
+    combinations, 5 folds, seed 1): the fold rows, the held-out table, and
+    per fold the sweep's seconds (CUDA-synchronized) and the match matrix's
+    host seconds."""
+    import torch
+
+    from aquaculture_tpu_torch.cli import evaluate as cli_evaluate
+    from aquaculture_tpu_torch.eval import kfold
+
+    sweep_s, match_s = [], []
+    real_sweep, real_match = kfold._sweep, kfold._match_matrix
+
+    def timed(fn, into, sync):
+        def run(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return r
+        return run
+
+    kfold._sweep, kfold._match_matrix = timed(real_sweep, sweep_s, True), timed(real_match, match_s, False)
+    try:
+        res, test, seconds = cli_evaluate.main(["--detections", paths[0], "--labels", paths[1], "--images", paths[2],
+                                                "--out", os.path.join(d, "folds.csv")])
+    finally:
+        kfold._sweep, kfold._match_matrix = real_sweep, real_match
+    if len(res) != 10 or len(sweep_s) != 5 or len(match_s) != 5:
+        fail(f"cli.evaluate: {len(res)} fold rows and {len(sweep_s)} sweeps for 5 folds")
+    num = res[[c for c in res.columns if c != "metric"]].to_numpy(np.float64)
+    if not np.isfinite(num).all() or test.shape != (2, 2) or not np.isfinite(test.to_numpy()).all():
+        fail(f"cli.evaluate: non-finite fold rows or held-out table:\n{res}\n{test}")
+    return test, {"grid": "GridConfig() 82 x 8 x 10 = 6,560, 5 folds, seed 1", "sweep_s_per_fold": sweep_s,
+                  "match_matrix_host_s_per_fold": match_s, "cli_host_s": seconds,
+                  "fold_rows": res.to_dict("records"), "held_out": test.to_dict("index")}
+
+
+def run_cluster_evaluate_phase(dev, d: str) -> dict:
+    """Phase 8 on the evaluation world: the card's side in this process,
+    the CPU references in worker processes beside it, compared at the end.
+    ``at_s`` gives the script seconds since the phase began at which each
+    stage ended."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from aquaculture_tpu_torch.cli import cluster as cli_cluster
+    from aquaculture_tpu_torch.eval import kfold
+
+    t_phase, at = time.perf_counter(), {}
+
+    def stamp(name):
+        at[name] = time.perf_counter() - t_phase
+
+    paths = write_evaluation_world(d)
+    stamp("world")
+    fac_paths = [os.path.join(d, f"facilities_{x}.geojson") for x in ("cuda", "cpu")]
+    out = {"world": {"years": len(EVAL_YEARS), "detections": EVAL_PER_YEAR * len(EVAL_YEARS),
+                     "labels": EVAL_LABELS, "images": EVAL_IMAGES}}
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn"), initializer=_ref_init) as pool:
+        refs = {"held_out": pool.submit(_ref_held_out_cpu, paths),
+                "cluster": pool.submit(_ref_cli_cluster_cpu, paths[0], fac_paths[1]),
+                "sub_grid": pool.submit(_ref_sub_grid_plain, paths),
+                "dbscan": pool.submit(_ref_dbscan_plain, paths)}
+        world = _read_world(paths)
+        stamp("read")
+        card_labels, dbscan_s = dbscan_card_labels(world[0], dev)
+        stamp("dbscan_card")
+        t0 = time.perf_counter()
+        n_fac = len(cli_cluster.main(["--detections", paths[0], "--out", fac_paths[0]]))
+        cluster_s = time.perf_counter() - t0
+        stamp("cli_cluster_card")
+        train = _fold0_train(world)
+        t0 = time.perf_counter()
+        sub_grid = kfold.grid_search(*train, kfold.GridConfig(**EVAL_SUB_GRID), dev)
+        torch.cuda.synchronize()
+        sub_grid_s = time.perf_counter() - t0
+        stamp("sub_grid_card")
+        test, out["cli_evaluate"] = drive_evaluate(d, paths)
+        stamp("cli_evaluate_card")
+        out["dbscan_card_vs_plain"] = check_dbscan(card_labels, dbscan_s, refs["dbscan"])
+        out["cli_cluster"] = check_cli_cluster(fac_paths, n_fac, cluster_s, refs["cluster"])
+        out["sub_grid_card_vs_plain"] = check_sub_grid(sub_grid, sub_grid_s, train, refs["sub_grid"])
+        cpu, out["cli_evaluate"]["held_out_cpu_s"] = refs["held_out"].result()
+        if not test.equals(cpu):
+            fail(f"test_set_performance on the card != --device cpu:\n{test}\n{cpu}")
+        stamp("references")
+    stamp("workers_joined")
+    out["at_s"] = at
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1422,6 +1778,12 @@ def main() -> int:
     int8_pipeline = drive_pipeline_full_width(d1, inputs, options=("--int8",))
     print(json.dumps({"phase": "int8_pipeline", **int8_pipeline, "card": card}), flush=True)
     mark("pipeline")
+    # 8. aq-cluster and aq-evaluate on the evaluation world
+    d8 = os.path.join(d, "evaluation")
+    os.makedirs(d8)
+    print(json.dumps({"phase": "cluster_evaluate", **run_cluster_evaluate_phase(dev, d8), "card": card}),
+          flush=True)
+    mark("cluster_evaluate")
     print(json.dumps({"phase": "f32_card_vs_cpu_n160", "tf32": False, **check_f32_vs_cpu(dev)}), flush=True)
     print(json.dumps({"phase": "f32_card_vs_cpu_n6_256", "tf32": False, **check_f32_vs_cpu(dev, "n6", 256)}),
           flush=True)
@@ -1436,8 +1798,8 @@ def main() -> int:
     # 5. times (the int8 model calibrated on the main path's first 8 tiles)
     tiles = serving_tiles(dev)
     times = time_serving_and_kernel(dev, card, tiles, profile=True)
-    times_p6 = time_serving_and_kernel(dev, card, tiles, "m6", shapes=((128, 1024),), iters=2)
-    times_int8 = time_serving_and_kernel(dev, card, tiles, shapes=((128, 1024),), iters=3,
+    times_p6 = time_serving_and_kernel(dev, card, tiles, "m6", shapes=((128, 1024),), iters=1)
+    times_int8 = time_serving_and_kernel(dev, card, tiles, shapes=((128, 1024),), iters=2,
                                          int8_paths=paths[:8], profile=True)
     print(json.dumps({"metric": "int8_safe_over_bf16", "variant": "mt", "batch": tiles.shape[0],
                       **{c: times_int8[c]["tiles_per_s"] / times[c]["tiles_per_s"] for c in ("conf_0.25", "conf_1e-05")},

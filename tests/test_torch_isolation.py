@@ -240,6 +240,49 @@ def test_int8_and_accuracy_load_no_jax():
     assert "LOADED []" in proc.stdout
 
 
+def test_cluster_and_evaluate_load_no_jax():
+    """cli.cluster, cli.evaluate (a 2-fold sweep) and the Figure-3 sweep on
+    a small world, in a fresh interpreter, load no JAX module."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np, pandas as pd
+        from aquaculture_tpu_torch import frame as gf
+        from aquaculture_tpu_torch.cli import cluster as cli_cluster, evaluate as cli_evaluate
+        from aquaculture_tpu_torch.geo import polygon as P
+        from aquaculture_tpu_torch.results import stats_at_thresholds
+        rng = np.random.default_rng(0)
+        xy = np.concatenate([rng.normal(0, 15, (12, 2)) + c for c in ((0, 0), (400, 0), (0, 400))])
+        n = len(xy)
+        det = gf.GeoFrame({"year": [2014] * n, "type": ["circle_farm"] * n, "det_conf": rng.uniform(0.7, 1, n),
+                           "image": [f"i{k % 4}" for k in range(n)]},
+                          geometry=[P.box(5e5 + x, 5.3e6 + y, 5e5 + x + 8, 5.3e6 + y + 8) for x, y in xy], crs=3857)
+        lab = det.iloc[::2].drop(columns=["det_conf"])
+        lab.crs = 3857
+        d = tempfile.mkdtemp()
+        det.to_file(os.path.join(d, "det.geojson")); lab.to_file(os.path.join(d, "lab.geojson"))
+        pd.DataFrame({"image": [f"i{k}" for k in range(4)], "bucket": [0, 1, 0, 1]}).to_csv(
+            os.path.join(d, "images.csv"), index=False)
+        fac = cli_cluster.main(["--detections", os.path.join(d, "det.geojson"), "--out",
+                                os.path.join(d, "fac.geojson"), "--device", "cpu"])
+        assert len(fac) == 3, fac
+        res, test, _ = cli_evaluate.main(["--detections", os.path.join(d, "det.geojson"), "--labels",
+                                          os.path.join(d, "lab.geojson"), "--images", os.path.join(d, "images.csv"),
+                                          "--out", os.path.join(d, "folds.csv"), "--folds", "2", "--device", "cpu"])
+        assert len(res) == 4 and test.shape == (2, 2), (res, test)
+        assert len(stats_at_thresholds(lab, det)) == 100
+        import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
 def test_train_cli_refuses_mesh_and_needs_a_gpu_unless_asked(tmp_path, monkeypatch):
     from aquaculture_tpu_torch.cli import train as cli_train
 
