@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of aquaculture_tpu: the aq-detect and aq-pipeline slices
 (tiles -> YOLOv5 -> class-aware NMS with a hand-written CUDA suppression
 kernel -> labels, or -> geocode, download-box dedup, cage areas and the land
-filter -> GeoJSON) and the aq-train slice (YOLO-format data -> augmentation
--> YOLOv5 training with grouped SGD and EMA -> checkpoints).
+filter -> GeoJSON), the aq-train slice (YOLO-format data -> augmentation
+-> YOLOv5 training with grouped SGD and EMA -> checkpoints), and their
+multi-process forms over torch.distributed (aq-pod: corpus shards, chunk
+manifests and one gathered GeoJSON, from files or an object store;
+cli.train --mesh: data- and model-parallel training), among others.
 
 Imports torch, numpy, pandas, PIL and (in the augmentation) OpenCV only;
 nothing of JAX or of aquaculture_tpu.

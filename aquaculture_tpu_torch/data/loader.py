@@ -8,7 +8,9 @@ background prefetch thread. Decode-at-scale (``out_tile``) resizes each
 raster once before slicing, with offsets kept in source pixels. Batches
 are torch tensors; with ``pin_memory`` they sit in pinned host memory, so
 the host-to-device copy can be ``non_blocking``. The object-store path
-comes with the multi-process slice of the port.
+(``iter_tiles_from_store``, ``tile_batches_from_store``) fetches blobs in an
+ordered thread window and then tiles and batches them as the file path
+does, so the two give the same batches.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 
 from aquaculture_tpu_torch.config import IM_WIDTH
 from aquaculture_tpu_torch.data.filenames import TileSpec, decode_tile_name
-from aquaculture_tpu_torch.data.geotiff import read_image
+from aquaculture_tpu_torch.data.geotiff import read_image, read_image_bytes
 from aquaculture_tpu_torch.data.tiling import split_image
 
 
@@ -201,4 +203,35 @@ def tile_batches(
     out_tile > 0 = decode-at-scale, batches (B, out_tile, out_tile, 3)."""
     tiles = iter_tiles_from_files(paths, tile, decode_threads=decode_threads, stride=stride,
                                   out_tile=out_tile)
+    return prefetch(batch_tiles(tiles, batch_size, out_tile or tile, pin_memory))
+
+
+# ---------------------------------------------------------------------------
+# Object-store streaming (the reference's corpus transport: GCS blobs,
+# src/utils.py:192-238 listing + geocode_results.py:34-66 download)
+# ---------------------------------------------------------------------------
+
+def iter_tiles_from_store(
+    store, keys: Sequence[str], tile: int = IM_WIDTH, fetch_threads: int = 4,
+    stride: int = 0, out_tile: int = 0,
+) -> Iterator[Tuple[np.ndarray, TileSpec]]:
+    """Yield (tile_array, spec) streaming blob bytes from a BlobStore
+    (data/store.py). A thread pool keeps a bounded window of ``store.get``
+    calls ahead of the decoder, so fetch latency overlaps decode and device
+    work; decode and tiling are the file path's, so a store corpus and a
+    file corpus give the same tiles. A failed fetch raises here."""
+    keys = list(keys)
+    if not keys:
+        return
+    for data, key in _window_map(store.get, keys, fetch_threads):
+        yield from _emit_tiles(read_image_bytes(data), decode_tile_name(key), tile, stride, out_tile)
+
+
+def tile_batches_from_store(
+    store, keys: Sequence[str], batch_size: int = 32, tile: int = IM_WIDTH, pin_memory: bool = False,
+    fetch_threads: int = 4, stride: int = 0, out_tile: int = 0,
+) -> Iterator[TileBatch]:
+    """(store, keys) -> prefetched fixed-shape TileBatches: the streaming
+    twin of ``tile_batches``."""
+    tiles = iter_tiles_from_store(store, keys, tile, fetch_threads, stride=stride, out_tile=out_tile)
     return prefetch(batch_tiles(tiles, batch_size, out_tile or tile, pin_memory))

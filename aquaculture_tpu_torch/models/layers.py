@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -205,12 +206,15 @@ def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 @dataclasses.dataclass
 class TrainOptions:
     """Switches of one training model, shared by its blocks:
-    rematerialization per top-level block, and whether a train-mode forward
+    rematerialization per top-level block, whether a train-mode forward
     writes the BN running statistics (off while a rematerialized block is
-    recomputed in the backward pass, so they move once per step)."""
+    recomputed in the backward pass, so they move once per step), and the
+    data-axis process group over which BatchNorm takes its statistics
+    (None: this process's batch is the whole batch)."""
 
     remat: bool = False
     update_stats: bool = True
+    data_group: object = None
 
     @contextlib.contextmanager
     def stats_frozen(self):
@@ -221,12 +225,59 @@ class TrainOptions:
             self.update_stats = prev
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group forward, and the output gradient summed over the
+    group backward (each rank's input feeds every rank's output): the
+    autograd-aware all-reduce of torch.distributed.nn.functional, which
+    torch 2.13 deprecates."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def global_batch_stats(x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(biased variance, mean) per channel of NCHW ``x`` over the batch of
+    every rank of ``group``, in ``x``'s dtype. Each rank takes its own
+    statistics in one fused pass (``torch.var_mean``, f32 accumulation);
+    they combine exactly over the group (Chan et al.'s pairwise update):
+    the global mean from the all-reduced sums and counts, then the global
+    sum of squared deviations from the all-reduced ``M2_r + n_r (mean_r -
+    mean)^2``. Only per-channel vectors travel, and the all-reduces are
+    autograd-aware, so each rank's gradient flows through the global mean
+    and variance. One rank gives its own var_mean back (to rounding)."""
+    all_reduce = _AllReduceSum.apply
+    c = x.shape[1]
+    n_r = x.numel() // c
+    var_r, mean_r = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+    mean_r, var_r = mean_r.float(), var_r.float()
+    tot = all_reduce(torch.cat([mean_r * n_r, mean_r.new_full((1,), float(n_r))]), group)
+    n = tot[c:].detach()
+    mean = tot[:c] / n
+    var = all_reduce((var_r + torch.square(mean_r - mean)) * n_r, group) / n
+    return var.to(x.dtype), mean.to(x.dtype)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm with the JAX package's arithmetic (layers.batch_norm), not
     ``nn.BatchNorm2d``'s: in train mode the batch mean and the BIASED batch
     variance normalize, and the f32 running statistics move as
     ``(1 - 0.03) * old + 0.03 * batch``; ``inv = rsqrt(var + 1e-3) * scale``
-    in f32, then ``(x - mean) * inv + bias`` in the activation dtype."""
+    in f32, then ``(x - mean) * inv + bias`` in the activation dtype.
+
+    With a process ``group`` (the data axis of a multi-process run) the
+    batch is the global one, as under the JAX package's GSPMD: the
+    statistics come from ``global_batch_stats``, and the running statistics
+    move equally on every rank."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -235,9 +286,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor, update_stats: bool = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = True, group=None) -> torch.Tensor:
         if self.training:
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            if group is None:
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            else:
+                var, mean = global_batch_stats(x, group)
             if update_stats:
                 with torch.no_grad():
                     self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean.float())
@@ -249,21 +303,80 @@ class BatchNorm(nn.Module):
         return (x - mean.to(dt)[:, None, None]) * inv.to(dt)[:, None, None] + self.bias.to(dt)[:, None, None]
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the input gradient all-reduced (summed) over the
+    model group backward: each model rank's channel slice contributes its
+    part of the gradient of the replicated input."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """All-gather NCHW channel slices over the model group forward (rank
+    order); this rank's slice of the gradient backward. The consumers are
+    replicated over the model ranks, so their gradients are equal there:
+    summing them (all_gather's own backward, a reduce-scatter) would count
+    each one once per model rank."""
+
+    @staticmethod
+    def forward(ctx, y, group, rank):
+        ctx.c, ctx.rank = y.shape[1], rank
+        y = y.contiguous()
+        parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, y, group=group)
+        return torch.cat(parts, dim=1).contiguous(memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[:, ctx.rank * ctx.c : (ctx.rank + 1) * ctx.c], None, None
+
+
+@dataclasses.dataclass
+class ModelShard:
+    """Where a channel-sharded TrainConvBlock sits on the model axis: its
+    process group, its rank there, and the group's size."""
+
+    group: object
+    rank: int
+    size: int
+
+
 class TrainConvBlock(nn.Module):
     """Conv2d + BatchNorm + SiLU with trainable OIHW ``weight`` and BN
     ``scale``/``bias``, f32 ``mean``/``var`` buffers (layers.conv_block's
     ``{w, bn}`` path). The f32 weight is cast to the activation dtype at
-    use."""
+    use. BatchNorm takes its statistics over ``options.data_group``.
+
+    Sharded over a model axis (``shard``, set by parallel/sharded.py) the
+    block holds its rank's slice of the output channels, of the weight and
+    of every BN vector: conv on the replicated input, BN on the local
+    channels, SiLU, then the channels gathered over the model group
+    (Megatron's copy / gather pair), so the output is replicated again."""
 
     def __init__(self, cin: int, cout: int, k: int, options: TrainOptions):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bn = BatchNorm(cout)
         self.options = options
+        self.shard: ModelShard | None = None
 
     def forward(self, x, stride: int = 1, padding: Padding | None = None):
+        if self.shard is not None:
+            x = _CopyToModel.apply(x, self.shard.group)
         y = conv2d(x, self.weight, stride, padding)
-        return F.silu(self.bn(y, self.options.update_stats))
+        y = F.silu(self.bn(y, self.options.update_stats, self.options.data_group))
+        if self.shard is not None:
+            y = _GatherChannels.apply(y, self.shard.group, self.shard.rank)
+        return y
 
 
 Block = Callable[[int, int, int], nn.Module]

@@ -3,7 +3,8 @@
 Counterpart of ``make_infer_fn``, ``overlap_stride``, ``detect_files`` and
 ``run_pipeline`` in aquaculture_tpu/pipeline.py, on the Python file loader
 (the port has no native loader: its H100 hosts lack the libjpeg and
-libtiff development headers; ROADMAP.md). Tiles stream through the
+libtiff development headers; ROADMAP.md) or, with ``store=``, on blobs
+streamed from an object store (data/store.py). Tiles stream through the
 prefetched loader; normalize + resize + forward (or the test-time-augmented
 forward) + NMS run as one function per fixed-shape batch on the device;
 batch N+1 is dispatched before batch N is harvested, so the device-to-host copy and the
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from aquaculture_tpu_torch import frame as gf
 from aquaculture_tpu_torch.config import DTYPES, IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import TileSpec
-from aquaculture_tpu_torch.data.loader import tile_batches
+from aquaculture_tpu_torch.data.loader import tile_batches, tile_batches_from_store
 from aquaculture_tpu_torch.models.layers import to_compute_dtype
 from aquaculture_tpu_torch.models.yolov5 import YoloV5
 from aquaculture_tpu_torch.ops.nms import batched_nms
@@ -137,10 +138,15 @@ def detect_files(
     stride: int = 0,
     decode_threads: int = 0,
     decode_scale: bool = False,
+    store=None,
 ):
-    """Run inference over image files on ``device`` (CUDA unless the CPU is
-    asked for). infer_fn: a prebuilt make_infer_fn result for repeated
-    calls.
+    """Run inference over image files, or object-store blobs, on ``device``
+    (CUDA unless the CPU is asked for). infer_fn: a prebuilt make_infer_fn
+    result for repeated calls (the pod runner's checkpoint chunks).
+
+    store: a data.store.BlobStore; when given, ``paths`` are blob KEYS
+    streamed through a threaded fetch window, and no local image file is
+    read. decode_threads applies to files only.
 
     stride: 0 = the reference's hard grid; 0 < stride < tile overlaps the
     tiles of large rasters (overlap serving; run_pipeline dedups the
@@ -189,8 +195,13 @@ def detect_files(
             all_specs.extend([spec] * len(d))
 
     t0 = time.perf_counter()
-    batches = tile_batches(paths, batch_size, tile, pin_memory=dev.type == "cuda", stride=stride,
-                           decode_threads=decode_threads, out_tile=out_tile)
+    pin = dev.type == "cuda"
+    if store is not None:
+        batches = tile_batches_from_store(store, paths, batch_size, tile, pin_memory=pin, stride=stride,
+                                          out_tile=out_tile)
+    else:
+        batches = tile_batches(paths, batch_size, tile, pin_memory=pin, stride=stride,
+                               decode_threads=decode_threads, out_tile=out_tile)
     # Double-buffered: dispatch batch N+1 before harvesting batch N (CUDA
     # work is asynchronous; the .cpu() copies in harvest are the sync point).
     pending = None
@@ -228,9 +239,11 @@ def run_pipeline(
     overlap_iou: float = 0.5,
     decode_threads: int = 0,
     decode_scale: bool = False,
+    store=None,
 ):
     """Files -> geocoded, area-annotated ocean detections, on ``device``
-    (CUDA unless the CPU is asked for).
+    (CUDA unless the CPU is asked for). With ``store`` set, ``paths`` are
+    object-store keys streamed through the BlobStore protocol.
 
     Mirrors geocode_results.py __main__ + calc_net_areas.py __main__
     (reference: src/process_yolo/) in one call, in the JAX package's order:
@@ -247,7 +260,7 @@ def run_pipeline(
     t = clock()
     boxes, conf, cls, specs, stats = detect_files(
         paths, model, cfg, batch_size, device=device, stride=overlap_stride(overlap),
-        decode_threads=decode_threads, decode_scale=decode_scale,
+        decode_threads=decode_threads, decode_scale=decode_scale, store=store,
     )
 
     def lap(stage: str, rows: int) -> None:

@@ -19,7 +19,7 @@ import glob
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -153,20 +153,25 @@ class DetectionDataset:
         boxes[:, 1:5] *= g
         return img.copy(), boxes
 
-    def epoch(self, epoch_index: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def epoch(self, epoch_index: int = 0, slots: Optional[Sequence[int]] = None) -> Iterator[Dict[str, np.ndarray]]:
         """One epoch of fixed-shape batches, prefetched. Samples are made on
-        ``cfg.feed_threads`` threads (0 = cores capped at 8)."""
+        ``cfg.feed_threads`` threads (0 = cores capped at 8).
+
+        slots: the rows of each global batch (of ``cfg.batch_size``) to
+        build, default all; a data rank of a multi-process step builds its
+        own rows alone, each the sample a single process puts there."""
         cfg = self.cfg
         workers = cfg.feed_threads or min(os.cpu_count() or 1, 8)
+        slots = list(range(cfg.batch_size) if slots is None else slots)
 
         def make(step: int, b: int) -> Tuple[np.ndarray, np.ndarray]:
             rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch_index, step, b]))
             return self._make_sample(rng)
 
         def assemble(samples) -> Dict[str, np.ndarray]:
-            images = np.zeros((cfg.batch_size, cfg.img_size, cfg.img_size, 3), np.float32)
-            labels = np.zeros((cfg.batch_size, cfg.max_boxes_per_image, 5), np.float32)
-            mask = np.zeros((cfg.batch_size, cfg.max_boxes_per_image), bool)
+            images = np.zeros((len(slots), cfg.img_size, cfg.img_size, 3), np.float32)
+            labels = np.zeros((len(slots), cfg.max_boxes_per_image, 5), np.float32)
+            mask = np.zeros((len(slots), cfg.max_boxes_per_image), bool)
             for b, (img, boxes) in enumerate(samples):
                 images[b] = img.astype(np.float32) / 255.0
                 n = min(len(boxes), cfg.max_boxes_per_image)
@@ -179,10 +184,10 @@ class DetectionDataset:
             if workers > 1:
                 with ThreadPoolExecutor(max_workers=workers) as pool:
                     for step in range(self.steps_per_epoch):
-                        samples = list(pool.map(make, [step] * cfg.batch_size, range(cfg.batch_size)))
+                        samples = list(pool.map(make, [step] * len(slots), slots))
                         yield assemble(samples)
             else:
                 for step in range(self.steps_per_epoch):
-                    yield assemble([make(step, b) for b in range(cfg.batch_size)])
+                    yield assemble([make(step, b) for b in slots])
 
         return prefetch(gen(), depth=2)

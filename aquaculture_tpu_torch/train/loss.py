@@ -22,6 +22,7 @@ import math
 from typing import Dict, List, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 # Per-level objectness balance: 3-level P5 models use ultralytics'
 # [4.0, 1.0, 0.4]; 4-level P6 models its nl=4 table [4.0, 1.0, 0.25, 0.06].
@@ -155,6 +156,7 @@ def yolo_loss(
     obj_gain: float = 1.0,
     anchor_t: float = 4.0,
     label_smoothing: float = 0.0,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total detection loss over raw head maps.
 
@@ -171,6 +173,15 @@ def yolo_loss(
     Callers pass the raw hyp gains; they are rescaled here as ultralytics'
     train.py does (box *= 3/nl, cls *= nc/80 * 3/nl, obj *= (img/640)^2 *
     3/nl), with nl from ``feats``, img from the stride-8 grid.
+
+    group: the data-axis process group of a multi-process step, whose ranks
+    each hold their rows of the global batch. The normalizers are then the
+    global batch's, as in the JAX package's step over a mesh: the match
+    count and the objectness element count of each level and the batch size
+    are all-reduced, so the returned loss is this rank's SHARE of the
+    global loss (the shares sum to it, and so do their gradients), and the
+    metrics are all-reduced sums of the shares: the global values, equal
+    on every rank.
     """
     b = feats[0].shape[0]
     na = len(anchors[0])
@@ -198,15 +209,22 @@ def yolo_loss(
             "anchors=model.anchor_table")
     balance = OBJ_BALANCE_P6 if len(feats) == 4 else OBJ_BALANCE
     lab = labels.float()
-    for li, (f, stride, bal) in enumerate(zip(feats, strides, balance)):
+    levels = []
+    for li, (f, stride) in enumerate(zip(feats, strides)):
+        anc = _constant(dev, tuple(map(tuple, anchors[li]))) / float(stride)  # grid units
+        lab_grid = torch.cat([lab[..., 0:1], lab[..., 1:5] / float(stride)], -1)
+        levels.append((anc, _level_matches(lab_grid, label_mask, anc, f.shape[1], f.shape[2], anchor_t)))
+    if group is not None:
+        # the global batch's normalizers: per level the matches and the
+        # objectness elements, then the batch size, in one all-reduce
+        sizes = tuple(float(b * f.shape[1] * f.shape[2] * na) for f in feats) + (float(b),)
+        norms = torch.cat([torch.stack([mt["valid"].sum() for _, mt in levels]).float(), _constant(dev, sizes)])
+        dist.all_reduce(norms, group=group)
+    for li, (f, bal, (anc, mt)) in enumerate(zip(feats, balance, levels)):
         gh, gw = f.shape[1], f.shape[2]
         p = f.reshape(b, gh, gw, na, no).float()
-        anc = _constant(dev, tuple(map(tuple, anchors[li]))) / float(stride)  # grid units
-
-        lab_grid = torch.cat([lab[..., 0:1], lab[..., 1:5] / float(stride)], -1)
-        mt = _level_matches(lab_grid, label_mask, anc, gh, gw, anchor_t)
         valid = mt["valid"]  # (B, M, na, O)
-        n_match = valid.sum().clamp_min(1).float()
+        n_match = valid.sum().clamp_min(1).float() if group is None else norms[li].clamp_min(1)
 
         # gather the predictions at matched cells (repeated cells accumulate
         # their gradients)
@@ -230,8 +248,11 @@ def yolo_loss(
         idx = ((bidx * (gh * gw) + lin) * na + aidx).reshape(-1)
         tobj = torch.zeros(b * gh * gw * na, dtype=torch.float32, device=dev)
         tobj = tobj.scatter_reduce(0, idx, scat.reshape(-1), "amax", include_self=True)
-        obj_logit = flat[..., 4]
-        lobj = lobj + bal * torch.mean(_bce(obj_logit, tobj.reshape(b, gh * gw, na)))
+        obj_bce = _bce(flat[..., 4], tobj.reshape(b, gh * gw, na))
+        if group is None:
+            lobj = lobj + bal * torch.mean(obj_bce)
+        else:
+            lobj = lobj + bal * (obj_bce.sum() / norms[nl + li])
 
         # classification (only when multi-class); an out-of-range class
         # index gives an all-zero row, as jax.nn.one_hot does
@@ -243,5 +264,10 @@ def yolo_loss(
     lbox = lbox * box_gain
     lobj = lobj * obj_gain
     lcls = lcls * cls_gain if num_classes > 1 else torch.zeros((), dtype=torch.float32, device=dev)
-    total = (lbox + lobj + lcls) * b
-    return total, {"box": lbox, "obj": lobj, "cls": lcls, "total": total}
+    if group is None:
+        total = (lbox + lobj + lcls) * b
+        return total, {"box": lbox, "obj": lobj, "cls": lcls, "total": total}
+    total = (lbox + lobj + lcls) * norms[-1]
+    metrics = torch.stack([lbox, lobj, lcls, total]).detach()
+    dist.all_reduce(metrics, group=group)
+    return total, dict(zip(("box", "obj", "cls", "total"), metrics.unbind()))

@@ -11,6 +11,13 @@ autocast): the input is cast to ``cfg.compute_dtype``, which every conv,
 BatchNorm and activation then follows; the master parameters stay float32
 and are cast to the activation dtype at use; the BN running statistics
 update in float32; the loss casts the head maps to float32.
+
+Across processes (parallel/sharded.py sets ``model.train_options
+.data_group``) the step keeps the JAX package's global-batch arithmetic:
+BatchNorm's statistics and the loss's normalizers are the global batch's,
+each rank's loss is its share of the global loss, and the parameter
+gradients are all-reduced with SUM over the data group, so SGD and EMA run
+replicated from identical gradients.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aquaculture_tpu_torch.config import DTYPES, TrainConfig
 from aquaculture_tpu_torch.models.weights import from_tree, load_train_params, to_tree, train_state
@@ -53,13 +61,19 @@ def state_tree(state: TrainState) -> dict:
     """The JAX package's ``state/`` tree: params, opt_momentum (zeros for
     the BN running statistics, which have no momentum), opt_step, ema,
     step."""
-    momentum = {n: state.momentum.get(n, torch.zeros_like(t)) for n, t in train_state(state.model).items()}
+    return make_state_tree(train_state(state.model), state.momentum, state.opt_step, state.ema, state.step)
+
+
+def make_state_tree(named: Dict[str, torch.Tensor], momentum: Dict[str, torch.Tensor], opt_step: int,
+                    ema: Dict[str, torch.Tensor], step: int) -> dict:
+    """``state_tree`` from its parts, by training-model name."""
+    momentum = {n: momentum.get(n, torch.zeros_like(t)) for n, t in named.items()}
     return {
-        "params": to_tree(train_state(state.model)),
+        "params": to_tree(named),
         "opt_momentum": to_tree(momentum),
-        "opt_step": np.asarray(state.opt_step, np.int32),
-        "ema": to_tree(state.ema),
-        "step": np.asarray(state.step, np.int32),
+        "opt_step": np.asarray(opt_step, np.int32),
+        "ema": to_tree(ema),
+        "step": np.asarray(step, np.int32),
     }
 
 
@@ -76,18 +90,32 @@ def load_state_tree(state: TrainState, tree: dict) -> None:
     state.step = int(tree["step"])
 
 
+def all_reduce_sum(tensors, group):
+    """The tensors summed over ``group``, through one flat buffer (one
+    collective for every gradient of the step)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i : i + t.numel()].view_as(t))
+        i += t.numel()
+    return out
+
+
 def make_train_step(model: YoloV5, cfg: TrainConfig, steps_per_epoch: int) -> Callable:
     """Build ``train_step(state, batch) -> metrics`` for ``model`` (a
     training ``YoloV5``); sets the model's remat switch from ``cfg``.
 
     Batch dict, on the model's device: images (B, S, S, 3) float in [0, 1];
     labels (B, M, 5) pixel [cls, cx, cy, w, h]; label_mask (B, M) bool.
-    Metrics are 0-dim float32 tensors on the device (box, obj, cls, total).
+    Metrics are 0-dim float32 tensors on the device (box, obj, cls, total),
+    the global batch's under a data group.
     """
     if not model.trainable:
         raise ValueError("make_train_step needs a training model: YoloV5(..., trainable=True)")
     model.train_options.remat = cfg.remat
     compute_dtype = DTYPES[cfg.compute_dtype]
+    group = model.train_options.data_group
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -104,9 +132,12 @@ def make_train_step(model: YoloV5, cfg: TrainConfig, steps_per_epoch: int) -> Ca
             obj_gain=cfg.obj_gain,
             anchor_t=cfg.anchor_t,
             label_smoothing=cfg.label_smoothing,
+            group=group,
         )
         params = dict(model.named_parameters())
         grads = torch.autograd.grad(loss, list(params.values()))
+        if group is not None:
+            grads = all_reduce_sum(grads, group)
         sgd_update(params, dict(zip(params, grads)), state.momentum, state.opt_step, steps_per_epoch, cfg)
         state.opt_step += 1
         ema_update(state.ema, train_state(model), state.step + 1, cfg.ema_decay)

@@ -81,7 +81,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      combination grid over 5 folds (the sweep's seconds per fold, the
      match matrix's host seconds, the fold rows, the held-out table, which
      must equal test_set_performance with --device cpu). The CPU references
-     run in worker processes beside the card's side.
+     run in worker processes beside the card's side;
+  9. after 4b, the ``pod`` phase: ``aquaculture_tpu_torch.cli.pod``'s main
+     on two processes sharing cuda:0 (gloo, tcp rendezvous on this
+     machine), mt at 640 over the main path's 16 tiles streamed from a
+     local store (``store:ROOT::tiles/``), batch 8, so that each rank's
+     batch is one of the 1-rank run's: rank 0's GeoJSON equal row for row
+     to the in-process 1-rank run_pod_pipeline's, suppression launches per
+     rank (each process counts its own) == its batches; rank 1's last chunk
+     manifest deleted and the run repeated by two new processes (the same
+     output, rank 1 serving exactly that chunk's tiles); one f32 n step at
+     160 px under a one-rank NCCL sharded_train_step against the plain card
+     step (TF32 off). The processes start after 4b and import while the
+     card-vs-CPU and accuracy checks run; phase 6 times the m/640/b16 bf16
+     step under the one-rank mesh beside the plain step.
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -90,6 +103,8 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import json
 import os
 import statistics
@@ -179,25 +194,28 @@ def _boundary_boxes(rng, b, k, shift=0):
     within a few float32 ulps of 0.45; pairs are stacked 300 px apart in y
     only, so x keeps d's full precision. shift=1 starts the pairs at index
     1 after a lone box, so pairs (31, 32), (63, 64), ... straddle the
-    kernel's 32-candidate words."""
+    kernel's 32-candidate words. Each pair's shift in ulps (-6..6 per
+    image) is one ``rng.integers`` draw per pair, in order."""
     d0 = np.float32(100.0 * 0.55 / 1.45)
+    ulps = np.empty(13, np.float32)  # d0 moved -6..6 float32 ulps
+    ulps[6] = d0
+    for n in range(1, 7):
+        ulps[6 + n] = np.nextafter(ulps[5 + n], np.float32(np.inf))
+        ulps[6 - n] = np.nextafter(ulps[7 - n], np.float32(-np.inf))
     out = np.zeros((b, k, 4), np.float32)
     out[:, :shift] = [0, -300, 100, -200]
-    for i in range(shift, k):
-        q = i - shift
-        oy = np.float32(300 * (q // 2))
-        if q % 2 == 0:
-            out[:, i] = [0, oy, 100, oy + 100]
-        else:
-            steps = rng.integers(-6, 7, b)
-            d = np.array([d0] * b, np.float32)
-            for j, s in enumerate(steps):
-                for _ in range(abs(int(s))):
-                    d[j] = np.nextafter(d[j], np.float32(np.inf if s > 0 else -np.inf))
-            out[:, i, 0] = d
-            out[:, i, 1] = oy
-            out[:, i, 2] = np.float32(100) + d
-            out[:, i, 3] = oy + np.float32(100)
+    q = np.arange(k - shift)
+    oy = (300 * (q // 2)).astype(np.float32)
+    base, moved = q[q % 2 == 0], q[q % 2 == 1]
+    out[:, shift + base, 1] = oy[base]
+    out[:, shift + base, 2] = 100
+    out[:, shift + base, 3] = oy[base] + np.float32(100)
+    steps = np.asarray([rng.integers(-6, 7, b) for _ in moved], np.int64).reshape(len(moved), b)
+    d = ulps[steps + 6].T  # (b, pairs)
+    out[:, shift + moved, 0] = d
+    out[:, shift + moved, 1] = oy[moved]
+    out[:, shift + moved, 2] = np.float32(100) + d
+    out[:, shift + moved, 3] = oy[moved] + np.float32(100)
     return out
 
 
@@ -790,19 +808,21 @@ def time_suppress(preds, card: str, shapes, variant: str) -> list:
     for b, k, boxes, valid in timed_suppress_inputs(preds, shapes):
         main_shape = not rows
         keep = greedy_suppress_cuda(boxes, valid, 0.45)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         plain_keep = N.greedy_suppress_plain(boxes, valid, 0.45)
+        end.record()
         torch.cuda.synchronize()
         if not torch.equal(keep, plain_keep):
             fail(f"nms_suppress != plain on the {variant} serving candidates (B={b}, K={k})")
         bound, bound_by = suppress_bound_ms(keep, valid)
-        # the plain version at the larger shapes takes 0.4-1.5 s a call:
-        # one timed call, no warmup
-        reps = 3 if main_shape else 1
+        # the plain version at the larger shapes takes 0.4-1.9 s a call:
+        # there its time is that of the checking call above, no warmup
         row = {
             "B": b, "K": k, "valid": int(valid.sum()), "kept": int(keep.sum()),
             "ms": time_cuda(lambda: greedy_suppress_cuda(boxes, valid, 0.45), iters=20, queued=True),
-            "plain_ms": time_cuda(lambda: N.greedy_suppress_plain(boxes, valid, 0.45), iters=1,
-                                  windows=reps, warmup=reps if main_shape else 0),
+            "plain_ms": (time_cuda(lambda: N.greedy_suppress_plain(boxes, valid, 0.45), iters=1, windows=3)
+                         if main_shape else start.elapsed_time(end)),
             "bound_ms": bound, "bound_by": bound_by, "bound_ms_all_pairs": all_pairs_bound_ms(b, k),
             "max_abs_err": float((keep.float() - plain_keep.float()).abs().max()),
         }
@@ -866,7 +886,7 @@ def time_serving_and_kernel(dev, card: str, tiles, variant: str = "mt", shapes=T
         print(json.dumps({"metric": "stages_ms", "variant": variant, "dtype": serving, "img": img, "batch": b,
                           "conf": 1e-5, **stages, "card": card}), flush=True)
         if profile:
-            prof = profile_step(lambda: model(x))
+            prof = profile_step(lambda: model(x), n=2)
             prof["idle_share"] = max(0.0, 1 - prof["device_busy_ms_per_step"] / stages["forward"])
             out["forward_profile"] = prof
             print(json.dumps({"metric": "forward_profile", "variant": variant, "dtype": serving, "img": img,
@@ -1102,13 +1122,16 @@ def time_train_step(dev, card: str, batch: dict, variant: str = TRAIN_VARIANT, i
     EMA) of ``variant`` on a batch already on the card, plain and with
     --remat; img/s, training TFLOP/s (3x the forward's conv FLOPs), its
     share of the bf16 dense peak, and peak memory of each; the plain step's
-    profile (profile_step) and the card's idle share of it."""
+    profile (profile_step) and the card's idle share of it; and the step
+    under a one-rank NCCL mesh (cli.train --mesh 1 on one card), with its
+    overhead over the plain step."""
     import torch
 
     from aquaculture_tpu_torch.cli.detect import load_model
     from aquaculture_tpu_torch.config import TrainConfig
     from aquaculture_tpu_torch.models.weights import load_train_params
     from aquaculture_tpu_torch.models.yolov5 import YoloV5, yolov5_init
+    from aquaculture_tpu_torch.parallel.sharded import sharded_train_step
     from aquaculture_tpu_torch.train.trainer import init_train_state, make_train_step
 
     b, img = batch["images"].shape[:2]
@@ -1118,8 +1141,23 @@ def time_train_step(dev, card: str, batch: dict, variant: str = TRAIN_VARIANT, i
     state = init_train_state(model)
     on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     rows = {}
-    for name, kw in (("plain", {}), ("remat", {"remat": True})):
-        step = make_train_step(model, TrainConfig(img_size=img, batch_size=b, **kw), 100)
+    for name, kw in (("plain", {}), ("remat", {"remat": True}), ("mesh_1x1", {})):
+        cfg = TrainConfig(img_size=img, batch_size=b, **kw)
+        if name == "mesh_1x1":
+            # the same step under a one-rank NCCL mesh: BatchNorm's global
+            # statistics, the loss's all-reduced normalizers and metrics and
+            # the gradient all-reduce, every collective the identity
+            with one_rank_mesh(dev) as mesh:
+                step, state = sharded_train_step(model, cfg, mesh, 100, state)
+                ms = time_cuda(lambda: step(state, on_card), iters=iters, windows=windows)
+            model.train_options.data_group = None
+            rows[name] = {"ms_per_step": ms, "img_per_s": b / ms * 1e3,
+                          "overhead_ms": ms - rows["plain"]["ms_per_step"],
+                          "overhead_share": ms / rows["plain"]["ms_per_step"] - 1}
+            print(json.dumps({"metric": "train_step", "variant": variant, "img": img, "batch": b,
+                              "dtype": "bfloat16", "option": name, **rows[name], "card": card}), flush=True)
+            continue
+        step = make_train_step(model, cfg, 100)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ms = time_cuda(lambda: step(state, on_card), iters=iters, windows=windows)
@@ -1128,7 +1166,7 @@ def time_train_step(dev, card: str, batch: dict, variant: str = TRAIN_VARIANT, i
                       "share_of_bf16_dense_peak": rate / BF16_FLOP_PER_S,
                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
         if name == "plain":
-            prof = profile_step(lambda: step(state, on_card))
+            prof = profile_step(lambda: step(state, on_card), n=2)
             rows[name]["profile"] = {**prof, "idle_share": max(0.0, 1 - prof["device_busy_ms_per_step"] / ms)}
         print(json.dumps({"metric": "train_step", "variant": variant, "img": img, "batch": b,
                           "dtype": "bfloat16", "option": name, **rows[name], "card": card}), flush=True)
@@ -1169,7 +1207,7 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 
         cfg = TrainConfig(img_size=TRAIN_IMG, batch_size=TRAIN_BATCH)
         batch = next(iter(DetectionDataset(os.path.join(d, "world", "images"), None, cfg, seed=1).epoch(0)))
-    steps = time_train_step(dev, card, batch, iters=3, windows=2)
+    steps = time_train_step(dev, card, batch, iters=2, windows=2)
     # the host sets the pace when cli.train's last epoch runs below 90% of
     # the step alone on a batch already on the card
     e2e = drive["epochs"][-1]["img_per_s"]
@@ -1357,6 +1395,263 @@ def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
     return {"weights": "tests/data/demo_ckpt_n160", "img": 160, "world_images": 12, "configs": list(configs),
             "on_card": tables["cuda"], "on_cpu": tables["cpu"], "f32_card_vs_cpu_max_diff": f32_diff,
             "f32_tol": ACC_F32_TOL, "bounds": bounds}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: multi-process serving (aq-pod) and the one-rank training mesh
+# ---------------------------------------------------------------------------
+
+POD_RANKS = 2
+POD_BATCH = 8   # 8 tiles per rank: each rank's batch is one of the 1-rank run's
+POD_CONF = 1e-5  # random weights: rows on every tile
+# each rank runs cli.pod's main in its own interpreter and reports what its
+# process counted: the suppression kernel's launches and its stats. With a
+# go file it first waits, imported, until the file exists (a restarted
+# run's processes start beside the first run's and begin when told).
+POD_RANK_CODE = """
+import json, os, sys, time
+from aquaculture_tpu_torch.cli import pod
+from aquaculture_tpu_torch.ops import nms_cuda
+go, t0 = sys.argv[1], time.time()
+while go != "-" and not os.path.exists(go):
+    if time.time() - t0 > 300:
+        sys.exit("no go file")
+    time.sleep(0.02)
+t1 = time.time()
+nms_cuda.launches = 0
+det, stats = pod.main(sys.argv[2:])
+print("POD_RANK " + json.dumps({"launches": nms_cuda.launches, "tiles": stats.tiles, "batches": stats.batches,
+                                 "rows": len(det), "main_s": time.time() - t1}), flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_pod_ranks(d: str, root: str, boxes_csv: str, out: str, ckpt: str, go: str = "-",
+                    tag: str = "run") -> list:
+    """POD_RANKS processes of cli.pod (mt at 640 on cuda:0, store source,
+    batch POD_BATCH, checkpoints every POD_BATCH tiles) over a tcp
+    rendezvous on this machine, started once ``go`` exists ("-": at once);
+    returns the Popen handles."""
+    port = _free_port()
+    procs = []
+    for rank in range(POD_RANKS):
+        argv = ["--source", f"store:{root}::tiles/", "--download-bboxes", boxes_csv, "--out", out,
+                "--variant", "mt", "--conf", str(POD_CONF), "--batch", str(POD_BATCH),
+                "--checkpoint-dir", ckpt, "--checkpoint-every", str(POD_BATCH),
+                "--coordinator", f"tcp://127.0.0.1:{port}", "--num-processes", str(POD_RANKS),
+                "--process-id", str(rank)]
+        path = os.path.join(d, f"pod_{tag}_rank{rank}.log")
+        log = open(path, "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", POD_RANK_CODE, go, *argv], stdout=log,
+                                       stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__))),
+                      log, path))
+    return procs
+
+
+def stop_pod_ranks(procs: list) -> None:
+    for p, log, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def wait_pod_ranks(procs: list, what: str) -> list:
+    """Wait for every rank (120 s at most; a rank left running is killed)
+    and return each rank's report."""
+    reports = []
+    try:
+        for rank, (p, log, path) in enumerate(procs):
+            rc = p.wait(timeout=120)
+            log.close()
+            text = open(path).read()
+            if rc != 0:
+                fail(f"{what}: pod rank {rank} exited {rc}: {text[-2000:]}")
+            line = next((ln for ln in text.splitlines() if ln.startswith("POD_RANK ")), None)
+            if line is None:
+                fail(f"{what}: pod rank {rank} printed no report: {text[-2000:]}")
+            reports.append(json.loads(line[len("POD_RANK "):]))
+    finally:
+        stop_pod_ranks(procs)
+    return reports
+
+
+def pod_rows_equal(path: str, ref: str, what: str) -> dict:
+    """The GeoJSON at ``path`` against the 1-rank run's at ``ref``, row for
+    row: the same images, classes and integer boxes, confidences within
+    1e-6."""
+    from aquaculture_tpu_torch import frame as gf
+
+    got, want = gf.read_file(path), gf.read_file(ref)
+    px = ["xmin", "ymin", "xmax", "ymax"]
+    if len(got) != len(want) or not len(want):
+        fail(f"{what}: {len(got)} rows against the 1-rank run's {len(want)}")
+    if got["image"].tolist() != want["image"].tolist() or got["type"].tolist() != want["type"].tolist():
+        fail(f"{what}: images or classes differ from the 1-rank run's, row for row")
+    if not np.array_equal(got[px].to_numpy(np.int64), want[px].to_numpy(np.int64)):
+        fail(f"{what}: integer boxes differ from the 1-rank run's")
+    conf_err = float(np.abs(got["det_conf"].to_numpy(np.float64) - want["det_conf"].to_numpy(np.float64)).max())
+    if not conf_err <= 1e-6:
+        fail(f"{what}: confidences {conf_err} from the 1-rank run's")
+    with open(path, "rb") as f1, open(ref, "rb") as f2:
+        same_bytes = f1.read() == f2.read()
+    return {"rows": len(got), "conf_max_abs_err": conf_err, "same_bytes": same_bytes}
+
+
+def check_nccl_step_f32(dev, mesh, variant: str = "n", img: int = 160, b: int = 4) -> dict:
+    """One f32 train step of ``variant`` at img px, TF32 off, under a
+    one-rank NCCL sharded_train_step against the plain card step on the same
+    init and batch: losses within 1e-5, every leaf of params, EMA and
+    momentum within TRAIN_LEAF_TOL of its magnitude, each tree within
+    TRAIN_TREE_TOL."""
+    import torch
+
+    from aquaculture_tpu_torch.config import TrainConfig
+    from aquaculture_tpu_torch.models.weights import flatten_tree, load_train_params
+    from aquaculture_tpu_torch.models.yolov5 import YoloV5, yolov5_init
+    from aquaculture_tpu_torch.parallel.mesh import shard_batch
+    from aquaculture_tpu_torch.parallel.sharded import full_state_tree, sharded_train_step
+    from aquaculture_tpu_torch.train.trainer import init_train_state, make_train_step
+
+    _, params = yolov5_init(variant, 2, seed=11)
+    batch = _train_batch(np.random.default_rng(12), b, img)
+    cfg = TrainConfig(img_size=img, batch_size=b, compute_dtype="float32")
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for key in ("plain", "nccl"):
+            model = load_train_params(YoloV5(variant, 2, trainable=True), params)
+            model.to(device=dev, memory_format=torch.channels_last)
+            state = init_train_state(model)
+            if key == "plain":
+                step = make_train_step(model, cfg, 1)
+            else:
+                step, state = sharded_train_step(model, cfg, mesh, 1, state)
+            m = step(state, shard_batch(batch, mesh, dev))
+            runs[key] = ({k: float(v) for k, v in m.items()}, full_state_tree(state))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (want_m, want), (got_m, got) = runs["plain"], runs["nccl"]
+    for k in want_m:
+        if not abs(got_m[k] - want_m[k]) <= 1e-5 * abs(want_m[k]) + 1e-9:
+            fail(f"one-rank NCCL f32 step vs plain: loss {k} {got_m[k]} vs {want_m[k]}")
+    report = {"loss_nccl": got_m, "loss_plain": want_m}
+    for part in ("params", "ema", "opt_momentum"):
+        w, g = flatten_tree(want[part]), flatten_tree(got[part])
+        worst = max((float(np.abs(g[k].astype(np.float64) - w[k]).max()) / (float(np.abs(w[k]).max()) or 1.0), k)
+                    for k in w)
+        tree = _rel_l2(g, w, w)
+        if worst[0] > TRAIN_LEAF_TOL or not tree <= TRAIN_TREE_TOL[part]:
+            fail(f"one-rank NCCL f32 step vs plain: {part} worst leaf {worst}, tree relative L2 {tree}")
+        report[part] = {"worst_leaf_share": worst[0], "worst_leaf": worst[1], "tree_rel_l2": tree}
+    return {"variant": variant, "img": img, "batch": b, "leaf_tol": TRAIN_LEAF_TOL, "tree_tol": TRAIN_TREE_TOL,
+            **report}
+
+
+@contextlib.contextmanager
+def one_rank_mesh(dev):
+    """A one-rank NCCL world on ``dev`` and its 1x1 (data, model) mesh: every
+    collective of the mesh step runs, as the identity."""
+    import torch.distributed as dist
+
+    from aquaculture_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1, rank=0, device_id=dev)
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_pod_phase(d: str, tile_dir: str, n_tiles: int) -> dict:
+    """The pod phase's inputs (the main path's tiles as a local store under
+    ``tiles/``, one download box per 4 tiles) and the processes of both its
+    runs, started now: they import and wait for their go files, so their
+    start-up overlaps checks that time nothing (card vs CPU, accuracy).
+    Every process is killed at exit if it is still running."""
+    root = os.path.dirname(tile_dir)  # the store's keys: tiles/<name>
+    boxes_csv = os.path.join(d, "pod_boxes.csv")
+    write_boxes_csv(boxes_csv, [(1200.0 * i, 0.0, 1200.0 * (i + 1), 1200.0) for i in range(n_tiles // 4)])
+    pod = {"d": d, "root": root, "boxes_csv": boxes_csv, "n_tiles": n_tiles, "out": os.path.join(d, "pod.geojson"),
+           "ckpt": os.path.join(d, "pod_ckpt"), "go": [os.path.join(d, "pod_go_run"), os.path.join(d, "pod_go_resume")]}
+    pod["procs"] = [start_pod_ranks(d, root, boxes_csv, pod["out"], pod["ckpt"], go=go, tag=tag)
+                    for go, tag in zip(pod["go"], ("run", "resume"))]
+    atexit.register(stop_pod_ranks, pod["procs"][0] + pod["procs"][1])
+    return pod
+
+
+def run_pod_phase(dev, card: str, pod: dict) -> dict:
+    """The pod phase, on start_pod_phase's processes: cli.pod on POD_RANKS
+    processes sharing cuda:0 (gloo) over the main path's tiles streamed
+    from a local store, against the in-process 1-rank run_pod_pipeline;
+    suppression launches per rank == that rank's batches; rank 1's last
+    chunk manifest deleted and the run repeated by the second set of
+    processes (the same output, rank 1 serving exactly that chunk); and on a
+    one-rank NCCL mesh the f32 step against the plain card step. The
+    1-rank reference and the f32 step run in this process while the first
+    run serves (checks, not timings). The full-width step with and without
+    the mesh is timed in the train phase (time_train_step), beside the
+    plain step it is compared with."""
+    import torch
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.data.store import LocalBlobStore
+    from aquaculture_tpu_torch.parallel.pod import run_pod_pipeline
+
+    t_phase = time.perf_counter()
+    d, n_tiles, out, ckpt = pod["d"], pod["n_tiles"], pod["out"], pod["ckpt"]
+    (procs, restart), (go_run, go_resume) = pod["procs"], pod["go"]
+    open(go_run, "w").close()
+    try:
+        store = LocalBlobStore(pod["root"])
+        keys = store.list("tiles/")
+        if len(keys) != n_tiles:
+            fail(f"pod: the store lists {len(keys)} tiles, expected {n_tiles}")
+        ref = os.path.join(d, "pod_one_rank.geojson")
+        want, one = run_pod_pipeline(keys, load_model(None, "mt", 5), load_download_bboxes(pod["boxes_csv"]),
+                                     DetectConfig(img_size=640, conf_threshold=POD_CONF), batch_size=POD_BATCH,
+                                     store=store, out_path=ref, device=dev)
+        with one_rank_mesh(dev) as mesh:
+            nccl_step = check_nccl_step_f32(dev, mesh)
+        print(json.dumps({"phase": "pod_nccl_step_f32", "tf32": False, **nccl_step}), flush=True)
+        ranks = wait_pod_ranks(procs, "cli.pod")
+        per_rank = n_tiles // POD_RANKS
+        for rank, r in enumerate(ranks):
+            if r["tiles"] != per_rank or r["launches"] != r["batches"] or r["batches"] != -(-per_rank // POD_BATCH):
+                fail(f"cli.pod rank {rank}: {r} (expected {per_rank} tiles, launches == batches)")
+        rows = pod_rows_equal(out, ref, "cli.pod")
+        # a lost chunk: rank 1's last manifest deleted, the run repeated
+        chunks = sorted(f for f in os.listdir(ckpt) if f.startswith(f"pod_host{POD_RANKS - 1}_"))
+        lost = np.load(os.path.join(ckpt, chunks[-1]))["done_paths"].tolist()
+        os.remove(os.path.join(ckpt, chunks[-1]))
+        os.remove(out)
+        open(go_resume, "w").close()
+        resumed = wait_pod_ranks(restart, "cli.pod resume")
+        if [r["tiles"] for r in resumed] != [0] * (POD_RANKS - 1) + [len(lost)]:
+            fail(f"cli.pod resume: tiles per rank {[r['tiles'] for r in resumed]}, expected only rank "
+                 f"{POD_RANKS - 1}'s lost chunk of {len(lost)}")
+        if any(r["launches"] != r["batches"] for r in resumed):
+            fail(f"cli.pod resume: launches != batches: {resumed}")
+        rows_resumed = pod_rows_equal(out, ref, "cli.pod resume")
+    finally:
+        stop_pod_ranks(procs + restart)
+    torch.cuda.empty_cache()
+    return {"ranks": POD_RANKS, "tiles": n_tiles, "batch": POD_BATCH, "one_rank": {"tiles": one.tiles,
+            "batches": one.batches, "rows": len(want)}, "per_rank": ranks, "rows_equal": rows,
+            "resume": {"lost_chunk_tiles": len(lost), "per_rank": resumed, "rows_equal": rows_resumed},
+            "launches": sum(r["launches"] for r in ranks), "launches_resume": sum(r["launches"] for r in resumed),
+            "nccl_step_f32_worst_leaf": max(nccl_step[p]["worst_leaf_share"] for p in ("params", "ema", "opt_momentum")),
+            "seconds": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -1778,12 +2073,8 @@ def main() -> int:
     int8_pipeline = drive_pipeline_full_width(d1, inputs, options=("--int8",))
     print(json.dumps({"phase": "int8_pipeline", **int8_pipeline, "card": card}), flush=True)
     mark("pipeline")
-    # 8. aq-cluster and aq-evaluate on the evaluation world
-    d8 = os.path.join(d, "evaluation")
-    os.makedirs(d8)
-    print(json.dumps({"phase": "cluster_evaluate", **run_cluster_evaluate_phase(dev, d8), "card": card}),
-          flush=True)
-    mark("cluster_evaluate")
+    # 9. aq-pod: its processes start here and import while the checks below run
+    pod_run = start_pod_phase(d, tile_dir, n_tiles=16)
     print(json.dumps({"phase": "f32_card_vs_cpu_n160", "tf32": False, **check_f32_vs_cpu(dev)}), flush=True)
     print(json.dumps({"phase": "f32_card_vs_cpu_n6_256", "tf32": False, **check_f32_vs_cpu(dev, "n6", 256)}),
           flush=True)
@@ -1794,10 +2085,19 @@ def main() -> int:
     accuracy = run_accuracy_phase(dev, card, *world)
     print(json.dumps({"phase": "accuracy", **accuracy, "card": card}), flush=True)
     mark("accuracy")
+    pod = run_pod_phase(dev, card, pod_run)
+    print(json.dumps({"phase": "pod", **pod, "card": card}), flush=True)
+    mark("pod")
+    # 8. aq-cluster and aq-evaluate on the evaluation world
+    d8 = os.path.join(d, "evaluation")
+    os.makedirs(d8)
+    print(json.dumps({"phase": "cluster_evaluate", **run_cluster_evaluate_phase(dev, d8), "card": card}),
+          flush=True)
+    mark("cluster_evaluate")
 
     # 5. times (the int8 model calibrated on the main path's first 8 tiles)
     tiles = serving_tiles(dev)
-    times = time_serving_and_kernel(dev, card, tiles, profile=True)
+    times = time_serving_and_kernel(dev, card, tiles, iters=3, profile=True)
     times_p6 = time_serving_and_kernel(dev, card, tiles, "m6", shapes=((128, 1024),), iters=1)
     times_int8 = time_serving_and_kernel(dev, card, tiles, shapes=((128, 1024),), iters=2,
                                          int8_paths=paths[:8], profile=True)
@@ -1829,6 +2129,8 @@ def main() -> int:
         "launches_int8_detect": int8_detect["launches"]["nms_suppress"],
         "launches_int8_pipeline": int8_pipeline["launches"]["nms_suppress"],
         "launches_accuracy": accuracy["on_card"]["launches"],
+        "launches_pod": pod["launches"],
+        "launches_pod_resume": pod["launches_resume"],
         "max_abs_err": max(k["max_abs_err"], k6["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -284,15 +284,76 @@ def test_cluster_and_evaluate_load_no_jax():
 
 
 def test_train_cli_refuses_mesh_and_needs_a_gpu_unless_asked(tmp_path, monkeypatch):
+    """--mesh 4 without a world of 4 processes (no torchrun environment)
+    is refused before anything is read or written."""
     from aquaculture_tpu_torch.cli import train as cli_train
 
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="needs 4 processes"):
         cli_train.main(["--images", str(tmp_path), "--out", str(tmp_path / "o"), "--device", "cpu",
                         "--mesh", "4"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli_train.main(["--images", str(tmp_path), "--out", str(tmp_path / "o")])
     assert not os.path.exists(tmp_path / "o")
+
+
+def test_multi_process_loads_no_jax():
+    """The store, the pod runner and cli.pod (one process, store source),
+    and a one-rank 1x1 mesh's train step and sharded serving, in a fresh
+    interpreter, load no JAX module."""
+    code = textwrap.dedent("""
+        import io, os, sys, tempfile
+        import numpy as np, torch
+        import torch.distributed as dist
+        from PIL import Image
+        from aquaculture_tpu_torch.cli import pod as cli_pod
+        from aquaculture_tpu_torch.config import DetectConfig, TrainConfig
+        from aquaculture_tpu_torch.data.store import LocalBlobStore
+        from aquaculture_tpu_torch.models.weights import load_jax_params, load_train_params
+        from aquaculture_tpu_torch.models.yolov5 import YoloV5, yolov5_init
+        from aquaculture_tpu_torch.parallel.mesh import make_mesh, shard_batch
+        from aquaculture_tpu_torch.parallel.sharded import full_state_tree, sharded_infer_fn, sharded_train_step
+        from aquaculture_tpu_torch.train.trainer import init_train_state
+        d = tempfile.mkdtemp()
+        store = LocalBlobStore(os.path.join(d, "root"))
+        for i in range(2):
+            buf = io.BytesIO()
+            Image.fromarray(np.random.default_rng(i).integers(0, 255, (256, 256, 3), dtype=np.uint8)).save(
+                buf, format="PNG")
+            store.put(f"tiles/ORTHOIMAGERY.ORTHOPHOTOS2014_{i}_0_0.png", buf.getvalue())
+        with open(os.path.join(d, "b.csv"), "w") as f:
+            f.write("geometry\\n" + "".join(f'"POLYGON (({x} 0, {x + 300} 0, {x + 300} 300, {x} 300, {x} 0))"\\n'
+                                            for x in (0, 300)))
+        det, stats = cli_pod.main(["--source", f"store:{os.path.join(d, 'root')}::tiles/", "--download-bboxes",
+                                   os.path.join(d, "b.csv"), "--out", os.path.join(d, "o.geojson"), "--variant",
+                                   "n", "--img", "64", "--conf", "1e-6", "--batch", "2", "--device", "cpu"])
+        assert stats.tiles == 2 and os.path.exists(os.path.join(d, "o.geojson")), stats
+        dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
+        mesh = make_mesh(1, 1)
+        model = load_train_params(YoloV5("n", 2, trainable=True), yolov5_init("n", 2)[1])
+        step, state = sharded_train_step(model, TrainConfig(img_size=64, batch_size=2), mesh, 1,
+                                         init_train_state(model))
+        batch = {"images": np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32),
+                 "labels": np.asarray([[[0, 20, 20, 10, 10]], [[1, 30, 30, 12, 8]]], np.float32),
+                 "label_mask": np.ones((2, 1), bool)}
+        m = step(state, shard_batch(batch, mesh))
+        assert torch.isfinite(m["total"]) and int(full_state_tree(state)["step"]) == 1, m
+        infer = sharded_infer_fn(load_jax_params(*yolov5_init("n", 2)), mesh,
+                                 DetectConfig(img_size=64, conf_threshold=1e-6), tile=128, device="cpu")
+        det, valid = infer(torch.zeros((2, 128, 128, 3), dtype=torch.uint8))
+        assert det.shape[0] == 2, det.shape
+        dist.destroy_process_group()
+        import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
 
 
 def test_port_reaches_nothing_in_native():

@@ -16,11 +16,18 @@ Tolerances, stated per test:
 - bf16 (the default compute dtype): one block on the same bf16 input to
   within one bf16 spacing on all but a few percent of the outputs, the
   running variance to 1e-6; one training forward and loss of n at 256 px
-  within bf16's own distance from f32 (each bound stated in its test).
+  within bf16's own distance from f32 (each bound stated in its test);
+- multi-process steps (spawned gloo ranks, each on its rows of the global
+  batch: 2x1, 1x1 and 2x2 meshes, an elastic restart, cli.train --mesh 2):
+  the bars of the whole train steps above, against the JAX step or the
+  single-process run.
 """
 
 import dataclasses
 import json
+import os
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +53,11 @@ from aquaculture_tpu_torch.models.yolov5 import HeadConv, YoloV5, yolov5_init
 from aquaculture_tpu_torch.train import ema, loss, optimizer
 from aquaculture_tpu_torch.train.trainer import (
     init_train_state, load_state_tree, make_train_step, state_tree)
+from aquaculture_tpu_torch.parallel.mesh import batch_sharding, make_mesh, param_shardings, shard_batch
+from aquaculture_tpu_torch.parallel.sharded import sharded_train_step
 from aquaculture_tpu_torch.utils import checkpoint
+
+import torch_dist_workers as workers
 
 LEAF_RTOL = 3e-3
 
@@ -640,3 +651,220 @@ def test_p6_two_steps_match_jax(p6_steps):
     assert p6_steps["state"].step == p6_steps["state"].opt_step == 2
     for part, want in (("params", jstate.params), ("ema", jstate.ema), ("opt_momentum", jstate.opt.momentum)):
         _assert_leaves_close(want, got[part])
+
+
+# ---------------------------------------------------------------------------
+# multi-process training: the data axis and the model axis on gloo ranks
+# ---------------------------------------------------------------------------
+
+MESH_CFG = dict(img_size=64, batch_size=2, compute_dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(two_steps, tmp_path_factory):
+    """two_steps' init and batches under sharded_train_step in spawned gloo
+    worlds, each rank on its rows of the global batch of 2:
+    - 2x1: two data ranks of one image each, two steps (written to a
+      checkpoint: what a run that crashes after step 2 leaves), then two
+      more steps (the uninterrupted 4-step run);
+    - resumed: two fresh data ranks restart from that checkpoint and take
+      steps 3 and 4;
+    - 2x2: two data ranks x two model ranks (channel-sharded blocks), two
+      steps."""
+    d = tmp_path_factory.mktemp("mesh")
+    batches = [{"images": two_steps["images"][i], "labels": two_steps["labels"], "label_mask": two_steps["mask"]}
+               for i in range(2)]
+    params = jax.tree_util.tree_map(np.asarray, two_steps["params"])
+
+    def run(name, world, n_model, phases, resume=None):
+        job, out = str(d / f"{name}.job"), str(d / f"{name}.out")
+        workers.dump({"params": params, "batches": batches, "cfg": MESH_CFG, "resume": resume,
+                       "phases": phases}, job)
+        workers.spawn(workers.train_steps, world, str(d / f"{name}.rdzv"), n_model, job, out)
+        return workers.read(out)
+
+    ckpt = str(d / "after_step2")
+    runs = {}
+    runs["2x1"], runs["uninterrupted"] = run("2x1", 2, 1, [{"steps": [0, 1], "save": ckpt}, {"steps": [0, 1]}])
+    (runs["resumed"],) = run("resumed", 2, 1, [{"steps": [0, 1]}], resume=ckpt)
+    (runs["2x2"],) = run("2x2", 4, 2, [{"steps": [0, 1]}])
+    return runs
+
+
+@pytest.fixture(scope="module")
+def one_rank(two_steps):
+    """The same two steps under sharded_train_step on a one-rank 1x1 mesh of
+    this process (every collective the identity)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0)
+    try:
+        model = load_train_params(YoloV5("n", 2, trainable=True), two_steps["params"])
+        step, state = sharded_train_step(model, TrainConfig(**MESH_CFG), make_mesh(1, 1), 1, init_train_state(model))
+        assert model.train_options.data_group is not None
+        losses = []
+        for i in range(2):
+            m = step(state, shard_batch({"images": two_steps["images"][i], "labels": two_steps["labels"],
+                                         "label_mask": two_steps["mask"]}, None))
+            losses.append({k: float(v) for k, v in m.items()})
+        return {"losses": losses, "state": state_tree(state)}
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_run(mesh_runs, one_rank, run):
+    return one_rank if run == "1x1" else mesh_runs[run]
+
+
+@pytest.mark.parametrize("run", ["2x1", "1x1", "2x2"])
+def test_mesh_losses_match_jax(mesh_runs, one_rank, two_steps, run):
+    """The global batch's losses on every mesh, rel 1e-5: the metrics are
+    all-reduced sums of each rank's share of the global loss."""
+    got = _mesh_run(mesh_runs, one_rank, run)["losses"]
+    assert len(got) == 2
+    for want, g in zip(two_steps["jax_losses"], got):
+        for k in ("box", "obj", "cls", "total"):
+            assert g[k] == pytest.approx(want[k], rel=1e-5), (run, k)
+
+
+@pytest.mark.parametrize("run", ["2x1", "1x1", "2x2"])
+@pytest.mark.parametrize("part,jax_part", [
+    ("params", lambda s: s.params),
+    ("ema", lambda s: s.ema),
+    ("opt_momentum", lambda s: s.opt.momentum),
+])
+def test_mesh_state_matches_jax(mesh_runs, one_rank, two_steps, run, part, jax_part):
+    """Every leaf after two steps on every mesh, within LEAF_RTOL of the JAX
+    step over the global batch. Two data ranks hold one image each, so
+    BatchNorm over a rank's own image (or a loss normalized per rank)
+    would miss by far; the 2x2 state is the gathered, unsharded tree."""
+    got = _mesh_run(mesh_runs, one_rank, run)["state"]
+    _assert_leaves_close(jax_part(two_steps["jax_state"]), got[part])
+    assert int(got["step"]) == int(got["opt_step"]) == 2
+
+
+def test_one_rank_mesh_equals_the_plain_step(one_rank, two_steps):
+    """A one-rank mesh against the plain port step of two_steps, at the
+    bars against the JAX step: losses rel 1e-5, every leaf within
+    LEAF_RTOL (the collectives are identities; BatchNorm takes its
+    statistics by sums instead of var_mean, a reassociation)."""
+    for want, got in zip(two_steps["losses"], one_rank["losses"]):
+        for k in ("box", "obj", "cls", "total"):
+            assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    plain = state_tree(two_steps["state"])
+    for part in ("params", "ema", "opt_momentum"):
+        _assert_leaves_close(plain[part], one_rank["state"][part])
+
+
+@pytest.mark.parametrize("part", ["params", "ema", "opt_momentum"])
+def test_elastic_resume_equals_the_uninterrupted_run(mesh_runs, part):
+    """Two ranks restarted from the step-2 checkpoint end steps 3-4 on the
+    uninterrupted run's state (LEAF_RTOL; the same arithmetic on the same
+    values) with its losses (rel 1e-5)."""
+    full, resumed = mesh_runs["uninterrupted"], mesh_runs["resumed"]
+    assert [m["total"] for m in resumed["losses"]] == pytest.approx([m["total"] for m in full["losses"]], rel=1e-5)
+    want = flatten_tree(full["state"][part])
+    got = flatten_tree(resumed["state"][part])
+    assert set(got) == set(want)
+    for k, w in want.items():
+        scale = float(np.abs(w).max())
+        assert float(np.abs(got[k] - w).max()) <= LEAF_RTOL * scale + 1e-9, k
+    assert int(resumed["state"]["step"]) == int(full["state"]["step"]) == 4
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_param_shardings_follow_the_jax_rule(n_model):
+    """The model axis splits a TrainConvBlock's weight and BN vectors on the
+    output channels where they divide n_model (the JAX rule on HWIO O and
+    1-D vectors); the detect head stays replicated; M = 1 splits nothing."""
+    from jax.sharding import PartitionSpec
+
+    from aquaculture_tpu.parallel.mesh import _spec_for_param as jax_spec
+
+    model = YoloV5("n", 2, trainable=True)
+    got = param_shardings(model, n_model)
+    assert set(got) == set(train_state(model))
+    blocks = {n for n, m in model.named_modules() if isinstance(m, layers.TrainConvBlock)}
+    for name, t in train_state(model).items():
+        block = name.rsplit(".", 2)[0] if name.endswith((".bn.scale", ".bn.bias", ".bn.mean", ".bn.var")) \
+            else name.rsplit(".", 1)[0]
+        if block not in blocks:
+            assert got[name] is None, name
+            continue
+        shape = tuple(t.shape) if t.dim() == 1 else tuple(t.permute(2, 3, 1, 0).shape)  # HWIO
+        want = jax_spec(None, shape, n_model)
+        assert (got[name] == 0) == (want != PartitionSpec()), name
+    assert sum(v == 0 for v in got.values()) > 0
+    assert all(v is None for v in param_shardings(model, 1).values())
+
+
+def test_batch_sharding_and_mesh_arguments():
+    assert batch_sharding(None, 6) == slice(0, 6)
+    with pytest.raises(ValueError, match="does not divide"):
+        batch_sharding(types.SimpleNamespace(shape=(4, 1), get_local_rank=lambda a: 0), 6)
+    fake = types.SimpleNamespace(shape=(3, 2), get_local_rank=lambda axis: {"data": 2, "model": 1}[axis])
+    assert batch_sharding(fake, 6) == slice(4, 6)
+    from aquaculture_tpu_torch.cli.train import parse_mesh
+
+    assert parse_mesh("8") == (8, 1) and parse_mesh("4x2") == (4, 2)
+    for bad in ("0", "2x2x2", "x2"):
+        with pytest.raises(ValueError):
+            parse_mesh(bad)
+
+
+@pytest.fixture(scope="module")
+def yolo_world(tmp_path_factory):
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples"))
+    from end_to_end_demo import render_world
+
+    out = tmp_path_factory.mktemp("yolo_world")
+    img_dir, _ = render_world(str(out), n_images=4, seed=1)
+    return img_dir
+
+
+def test_dataset_builds_a_ranks_slots(yolo_world):
+    """A data rank's rows of each global batch are the rows a single process
+    builds there (per-slot seeding)."""
+    from aquaculture_tpu_torch.train.dataset import DetectionDataset
+
+    ds = DetectionDataset(yolo_world, None, TrainConfig(img_size=64, batch_size=4, feed_threads=1), seed=3)
+    full = next(iter(ds.epoch(1)))
+    part = next(iter(ds.epoch(1, slots=[2, 3])))
+    for k in ("images", "labels", "label_mask"):
+        assert part[k].shape[0] == 2
+        np.testing.assert_array_equal(part[k], full[k][2:4], err_msg=k)
+
+
+def test_cli_train_mesh_2_equals_one_process(yolo_world, tmp_path, monkeypatch):
+    """cli.train --mesh 2 on two spawned gloo ranks (f32, as
+    tests/test_torch_train_cli.py compares the CLIs) for two epochs of one
+    step (global batch 4, two images per rank), dying when epoch 2 starts
+    and rerun with --resume, against one process training the two epochs:
+    the same state/ and last/ within LEAF_RTOL, the same epoch-2 total loss
+    (rel 1e-5) and components (rel 1e-4: the objectness term, 7e-4 of 0.17,
+    read 1.6e-5 relative after the step, BatchNorm over 2x2 maps of 4
+    images amplifying the data ranks' reassociated statistics)."""
+    from aquaculture_tpu_torch.cli import train as cli_train
+
+    args = ["--images", yolo_world, "--variant", "n", "--num-classes", "2", "--img", "64", "--batch", "4",
+            "--epochs", "2", "--no-augment", "--seed", "0", "--device", "cpu"]
+    mesh = str(tmp_path / "mesh")
+    runs = [{"argv": args + ["--out", mesh, "--mesh", "2"], "crash_at_epoch": 1},
+            {"argv": args + ["--out", mesh, "--mesh", "2", "--resume"]}]
+    workers.spawn(workers.cli_train, 2, str(tmp_path / "rdzv"), runs, str(tmp_path / "out.pkl"), True)
+    crashed, resumed = workers.read(str(tmp_path / "out.pkl"))
+    assert crashed is None and resumed["mesh"] == [2, 1] and resumed["step"] == 2
+    assert [e["epoch"] for e in resumed["epochs"]] == [2]
+    base = cli_train.TrainConfig
+    monkeypatch.setattr(cli_train, "TrainConfig",
+                        lambda **kw: dataclasses.replace(base(**kw), compute_dtype="float32"))
+    single = cli_train.main(args + ["--out", str(tmp_path / "one")])
+    assert single["mesh"] is None and single["step"] == 2
+    got, want = resumed["epochs"][0], single["epochs"][1]
+    assert got["total"] == pytest.approx(want["total"], rel=1e-5)
+    for k in ("box", "obj", "cls"):
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    for sub in ("state", "last"):
+        _assert_leaves_close(checkpoint.load_params(str(tmp_path / "one" / sub)),
+                             checkpoint.load_params(os.path.join(mesh, sub)))
+    assert checkpoint.load_metadata(os.path.join(mesh, "state"))["epoch"] == 2
