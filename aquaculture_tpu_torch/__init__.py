@@ -5,7 +5,10 @@ filter -> GeoJSON), the aq-train slice (YOLO-format data -> augmentation
 -> YOLOv5 training with grouped SGD and EMA -> checkpoints), and their
 multi-process forms over torch.distributed (aq-pod: corpus shards, chunk
 manifests and one gathered GeoJSON, from files or an object store;
-cli.train --mesh: data- and model-parallel training), among others.
+cli.train --mesh: data- and model-parallel training), and the tonnage
+path (aq-facilities -> aq-tonnage: the polygon overlay engine, facilities
+per imagery pass, and the Monte-Carlo tonnage bootstrap on the GPU),
+among others.
 
 Imports torch, numpy, pandas, PIL and (in the augmentation) OpenCV only;
 nothing of JAX or of aquaculture_tpu.

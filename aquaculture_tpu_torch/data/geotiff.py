@@ -1,12 +1,119 @@
-"""Image decode: ``read_image`` and ``read_image_bytes`` of
-aquaculture_tpu/data/geotiff.py; the georeferenced GeoTIFF reader comes
-with the geocoding slice."""
+"""GeoTIFF read/write without GDAL, and plain image decode: a copy of
+aquaculture_tpu/data/geotiff.py.
+
+Georeferencing is parsed directly from the TIFF tags (ModelPixelScale
+33550, ModelTiepoint 33922, GeoKeyDirectory 34735) with PIL doing the
+raster decode (the reference shells into GDAL, src/load_data/
+tile_tifs.py:29-47). Only the pipeline's cases are covered: north-up
+rasters (no rotation terms), single image per file, EPSG-coded CRS. The
+tonnage path reads bathymetry through ``read_geotiff``.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import io
+from typing import Optional, Tuple
 
 import numpy as np
+
+TAG_MODEL_PIXEL_SCALE = 33550
+TAG_MODEL_TIEPOINT = 33922
+TAG_GEO_KEY_DIRECTORY = 34735
+KEY_PROJECTED_CRS = 3072
+KEY_GEOGRAPHIC_CRS = 2048
+
+
+@dataclasses.dataclass
+class GeoTiff:
+    """A decoded north-up GeoTIFF: pixel array + affine georeference."""
+
+    array: np.ndarray          # (H, W, C) or (H, W)
+    origin_x: float            # CRS x of the outer corner of pixel (0, 0)
+    origin_y: float            # CRS y of the outer corner of pixel (0, 0)
+    pixel_w: float             # CRS units per pixel in x (> 0)
+    pixel_h: float             # CRS units per pixel in y (> 0; rows go south)
+    epsg: Optional[int] = None
+
+    @property
+    def bounds(self) -> Tuple[float, float, float, float]:
+        h, w = self.array.shape[:2]
+        return (
+            self.origin_x,
+            self.origin_y - h * self.pixel_h,
+            self.origin_x + w * self.pixel_w,
+            self.origin_y,
+        )
+
+    def pixel_box_to_crs(self, x0: float, y0: float, x1: float, y1: float):
+        """Pixel-space box (x right, y down) -> CRS (minx, miny, maxx, maxy)."""
+        return (
+            self.origin_x + x0 * self.pixel_w,
+            self.origin_y - y1 * self.pixel_h,
+            self.origin_x + x1 * self.pixel_w,
+            self.origin_y - y0 * self.pixel_h,
+        )
+
+
+def _parse_epsg(geokeys: Tuple[int, ...]) -> Optional[int]:
+    if len(geokeys) < 4:
+        return None
+    n = geokeys[3]
+    epsg = None
+    for i in range(n):
+        kid, loc, _cnt, val = geokeys[4 + 4 * i : 8 + 4 * i]
+        if loc == 0 and kid in (KEY_PROJECTED_CRS, KEY_GEOGRAPHIC_CRS):
+            if kid == KEY_PROJECTED_CRS:
+                return int(val)  # projected key wins
+            epsg = int(val)
+    return epsg
+
+
+def read_geotiff(path: str) -> GeoTiff:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        tags = dict(im.tag_v2) if hasattr(im, "tag_v2") else {}
+        arr = np.asarray(im)
+
+    scale = tags.get(TAG_MODEL_PIXEL_SCALE)
+    tie = tags.get(TAG_MODEL_TIEPOINT)
+    if scale is None or tie is None:
+        raise ValueError(f"{path}: missing GeoTIFF georeference tags")
+    sx, sy = float(scale[0]), float(scale[1])
+    # tiepoint: (i, j, k, x, y, z) — raster point (i,j) maps to CRS (x,y)
+    i, j, _, x, y, _ = (float(v) for v in tie[:6])
+    origin_x = x - i * sx
+    origin_y = y + j * sy
+    epsg = _parse_epsg(tuple(int(v) for v in tags.get(TAG_GEO_KEY_DIRECTORY, ())))
+    return GeoTiff(array=arr, origin_x=origin_x, origin_y=origin_y, pixel_w=sx, pixel_h=sy, epsg=epsg)
+
+
+def write_geotiff(
+    path: str,
+    arr: np.ndarray,
+    bounds: Tuple[float, float, float, float],
+    epsg: int = 3857,
+) -> None:
+    """Write a north-up GeoTIFF (uncompressed) with georeference tags."""
+    from PIL import Image
+    from PIL.TiffImagePlugin import ImageFileDirectory_v2
+
+    h, w = arr.shape[:2]
+    minx, miny, maxx, maxy = bounds
+    sx, sy = (maxx - minx) / w, (maxy - miny) / h
+
+    ifd = ImageFileDirectory_v2()
+    ifd[TAG_MODEL_PIXEL_SCALE] = (sx, sy, 0.0)
+    ifd.tagtype[TAG_MODEL_PIXEL_SCALE] = 12  # DOUBLE
+    ifd[TAG_MODEL_TIEPOINT] = (0.0, 0.0, 0.0, minx, maxy, 0.0)
+    ifd.tagtype[TAG_MODEL_TIEPOINT] = 12
+    is_projected = epsg not in (4326, 4258)
+    key_id = KEY_PROJECTED_CRS if is_projected else KEY_GEOGRAPHIC_CRS
+    ifd[TAG_GEO_KEY_DIRECTORY] = (1, 1, 0, 2, 1024, 0, 1, 1 if is_projected else 2, key_id, 0, 1, epsg)
+    ifd.tagtype[TAG_GEO_KEY_DIRECTORY] = 3  # SHORT
+
+    Image.fromarray(arr).save(path, format="TIFF", tiffinfo=ifd)
 
 
 def read_image(path: str) -> np.ndarray:

@@ -1,6 +1,5 @@
 """Evaluation dataset assembly (a copy of aquaculture_tpu/eval/datasets.py;
-host). A ``land`` frame raises through ``data.labels.mark_land_images``,
-which needs the overlay engine of a later slice.
+host).
 
 Port of load_datasets_for_model_evaluation (reference:
 src/get_kfold_cluster_performance.py:31-120): wire labels, detections,

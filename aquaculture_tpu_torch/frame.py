@@ -1,12 +1,10 @@
 """GeoFrame: a minimal geo-dataframe (geopandas replacement).
 
 A ``pandas.DataFrame`` subclass carrying a ``geometry`` object column of
-``aquaculture_tpu_torch.geo.polygon`` geometries and an integer EPSG ``crs``.
-A copy of aquaculture_tpu/frame.py as far as the aq-pipeline path reaches
-it (reference: geopandas calls in src/process_yolo/): ``to_crs``,
-``bounds_array``, ``sjoin`` (intersects), GeoJSON read/write, and WKT
-column parsing. ``overlay``, ``buffer``, ``dissolve`` and the exact ``within``
-predicate need the boolean engine and come with a later slice of the port.
+``aquaculture_tpu_torch.geo.polygon`` geometries and an integer EPSG ``crs``,
+a copy of aquaculture_tpu/frame.py. Implements exactly the surface the pipeline uses (reference: geopandas calls
+throughout src/): ``to_crs``, ``area``, ``centroid``, ``sjoin`` (intersects /
+within), ``dissolve``, GeoJSON read/write, and WKT column parsing.
 
 Spatial joins are vectorized: a bounds-overlap prefilter via searchsorted on
 sorted x-intervals, then the exact ``intersects`` predicate on candidates.
@@ -14,7 +12,7 @@ sorted x-intervals, then the exact ``intersects`` predicate on candidates.
 
 from __future__ import annotations
 
-from typing import List
+from typing import Iterable, List
 
 import numpy as np
 import pandas as pd
@@ -42,11 +40,52 @@ class GeoFrame(pd.DataFrame):
 
     # -- geometry accessors ---------------------------------------------------
 
+    @property
+    def geometry(self) -> pd.Series:
+        return self["geometry"]
+
+    @property
+    def area(self) -> pd.Series:
+        return self["geometry"].apply(lambda g: g.area if g is not None else 0.0)
+
+    @property
+    def centroid(self) -> pd.Series:
+        # None-guarded like area/bounds/buffer: partially-populated frames
+        # are anticipated throughout
+        return self["geometry"].apply(lambda g: g.centroid if g is not None else None)
+
+    @property
+    def bounds(self) -> pd.DataFrame:
+        b = np.array(
+            [g.bounds if g is not None else (np.nan,) * 4 for g in self["geometry"]],
+            dtype=np.float64,
+        ).reshape(-1, 4)
+        return pd.DataFrame(b, columns=["minx", "miny", "maxx", "maxy"], index=self.index)
+
     def bounds_array(self) -> np.ndarray:
         return np.array(
             [g.bounds if g is not None else (np.nan,) * 4 for g in self["geometry"]],
             dtype=np.float64,
         ).reshape(-1, 4)
+
+    @property
+    def total_bounds(self) -> np.ndarray:
+        """(xmin, ymin, xmax, ymax) over all rows (gpd total_bounds;
+        reference: FacilitiesMaps.py:47,204,245). Matches geopandas on the
+        edge cases: an empty or all-missing-geometry frame returns a NaN
+        array (no exception, no all-NaN-slice warning)."""
+        b = self.bounds_array()
+        if len(b) == 0 or np.all(np.isnan(b)):
+            return np.full(4, np.nan)
+        with np.errstate(invalid="ignore"):
+            return np.array(
+                [
+                    np.nanmin(b[:, 0]),
+                    np.nanmin(b[:, 1]),
+                    np.nanmax(b[:, 2]),
+                    np.nanmax(b[:, 3]),
+                ]
+            )
 
     # -- CRS ------------------------------------------------------------------
 
@@ -82,14 +121,12 @@ class GeoFrame(pd.DataFrame):
         lsuffix: str = "left",
         rsuffix: str = "right",
     ) -> "GeoFrame":
-        """Spatial join matching geopandas.sjoin semantics for the
-        'intersects' predicate (the reference's land filter,
-        geocode_results.py:200-218)."""
+        """Spatial join matching geopandas.sjoin semantics for the predicates
+        used in the reference ('intersects', 'within')."""
         if how not in ("inner", "left"):
             raise ValueError(f"how must be 'inner' or 'left', not {how!r}")
-        if predicate != "intersects":
-            raise ValueError(f"predicate {predicate!r}: only 'intersects' is in this "
-                             "slice of the port ('within' needs the boolean engine)")
+        if predicate not in ("intersects", "within"):
+            raise ValueError(f"predicate must be 'intersects' or 'within', not {predicate!r}")
         if self.crs != other.crs:
             raise ValueError(f"CRS mismatch in sjoin: {self.crs} vs {other.crs}")
 
@@ -108,12 +145,16 @@ class GeoFrame(pd.DataFrame):
         r_ok = np.asarray([g is not None and not g.is_empty for g in rg], bool)
         keep = np.zeros(len(li), dtype=bool)
         valid = l_ok[li] & r_ok[ri] if len(li) else np.zeros(0, bool)
-        # Rect x rect resolves fully vectorized (bounds overlap IS the
-        # predicate); only mixed/non-rect pairs pay the Python loop.
-        both_rect = valid & l_rect[li] & r_rect[ri]
-        keep[both_rect] = True
-        for k in np.where(valid & ~both_rect)[0]:
-            keep[k] = _poly.intersects(lg[li[k]], rg[ri[k]])
+        if predicate == "intersects":
+            # Rect x rect resolves fully vectorized (bounds overlap IS the
+            # predicate); only mixed/non-rect pairs pay the Python loop.
+            both_rect = valid & l_rect[li] & r_rect[ri]
+            keep[both_rect] = True
+            for k in np.where(valid & ~both_rect)[0]:
+                keep[k] = _poly.intersects(lg[li[k]], rg[ri[k]])
+        else:  # within: exact via the boolean engine
+            for k in np.where(valid)[0]:
+                keep[k] = _within(lg[li[k]], rg[ri[k]])
         li, ri = li[keep], ri[keep]
 
         left_idx = self.index.to_numpy()
@@ -149,6 +190,127 @@ class GeoFrame(pd.DataFrame):
         out.crs = self.crs
         return out
 
+    # -- misc geopandas surface -------------------------------------------------
+
+    def overlay(self, other: "GeoFrame", how: str = "intersection") -> "GeoFrame":
+        """geopandas.overlay equivalent on the exact boolean engine
+        (geo/boolean.py). The reference uses gpd.overlay for download-box
+        dedup (reference src/utils.py:241-273) and land-filter island
+        recovery (src/load_data/create_land_filter.py:134-137).
+
+        how: 'intersection' | 'difference' | 'union' |
+             'symmetric_difference' | 'identity'. Column collisions get
+        gpd's '_1'/'_2' suffixes; empty results are dropped; output index
+        is reset like geopandas.
+        """
+        ops = ("intersection", "difference", "union", "symmetric_difference", "identity")
+        if how not in ops:
+            raise ValueError(f"how must be one of {ops}")
+        if self.crs != other.crs:
+            raise ValueError(f"CRS mismatch in overlay: {self.crs} vs {other.crs}")
+
+        if how == "difference":
+            out = self._overlay_difference(other)
+            out.reset_index(drop=True, inplace=True)
+            out.crs = self.crs
+            return out
+
+        overlap = (set(self.columns) & set(other.columns)) - {"geometry"}
+        lren = {c: f"{c}_1" for c in overlap}
+        rren = {c: f"{c}_2" for c in overlap}
+        lcols = pd.DataFrame(self.drop(columns=["geometry"])).rename(columns=lren)
+        rcols = pd.DataFrame(other.drop(columns=["geometry"])).rename(columns=rren)
+
+        parts = []
+        if how in ("intersection", "union", "identity"):
+            li, ri = _candidate_pairs(self.bounds_array(), other.bounds_array())
+            lg, rg = list(self["geometry"]), list(other["geometry"])
+            rows_l, rows_r, geoms = [], [], []
+            for a, b in zip(li, ri):
+                ga, gb = lg[a], rg[b]
+                if ga is None or gb is None or ga.is_empty or gb.is_empty:
+                    continue
+                g = _poly.intersection(ga, gb)
+                if g.is_empty or g.area == 0.0:
+                    continue
+                rows_l.append(a)
+                rows_r.append(b)
+                geoms.append(g)
+            inter = pd.concat(
+                [
+                    lcols.iloc[rows_l].reset_index(drop=True),
+                    rcols.iloc[rows_r].reset_index(drop=True),
+                ],
+                axis=1,
+            )
+            inter["geometry"] = geoms
+            parts.append(inter)
+        if how in ("union", "identity", "symmetric_difference"):
+            donly = self._overlay_difference(other)
+            d = pd.DataFrame(donly.drop(columns=["geometry"])).rename(columns=lren)
+            d = d.reset_index(drop=True)
+            d["geometry"] = list(donly["geometry"])
+            parts.append(d)
+        if how in ("union", "symmetric_difference"):
+            ronly = other._overlay_difference(self)
+            r = pd.DataFrame(ronly.drop(columns=["geometry"])).rename(columns=rren)
+            r = r.reset_index(drop=True)
+            r["geometry"] = list(ronly["geometry"])
+            parts.append(r)
+
+        joined = pd.concat(parts, axis=0, ignore_index=True, sort=False)
+        out = GeoFrame(joined)
+        out.crs = self.crs
+        return out
+
+    def _overlay_difference(self, other: "GeoFrame") -> "GeoFrame":
+        """Rows of self with geometry minus every bbox-overlapping other
+        geometry; empty results dropped (gpd overlay 'difference')."""
+        og = list(other["geometry"])
+        # vectorized bounds prefilter (shared with sjoin) instead of the
+        # former O(N*M) Python bbox loop — near-linear at corpus scale
+        li, ri = _candidate_pairs(self.bounds_array(), other.bounds_array())
+        by_left: dict = {}
+        for i, j in zip(li, ri):
+            by_left.setdefault(int(i), []).append(int(j))
+        rows, geoms = [], []
+        for i, g in enumerate(self["geometry"]):
+            if g is None or g.is_empty:
+                continue
+            res = g
+            for j in by_left.get(i, ()):
+                if og[j] is None or og[j].is_empty:
+                    continue
+                res = _poly.difference(res, og[j])
+                if res.is_empty:
+                    break
+            if res.is_empty or res.area == 0.0:
+                continue
+            rows.append(i)
+            geoms.append(res)
+        out = self.iloc[rows].copy()
+        out["geometry"] = geoms
+        out.crs = self.crs
+        return out
+
+    def buffer(self, distance: float, quad_segs: int = 8) -> "GeoFrame":
+        """Row-wise geometry buffer (gpd GeoSeries.buffer equivalent;
+        reference: world_shorelines.buffer(2000),
+        download_french_data.py:224). Returns a new frame."""
+        out = self.copy()
+        out["geometry"] = [
+            (g.buffer(distance, quad_segs) if g is not None else None)
+            for g in self["geometry"]
+        ]
+        out.crs = self.crs
+        return out
+
+    def dissolve(self) -> "GeoFrame":
+        merged = _poly.unary_union([g for g in self["geometry"] if g is not None])
+        out = GeoFrame({"geometry": [merged]})
+        out.crs = self.crs
+        return out
+
     def to_file(self, path: str, driver: str = "GeoJSON", index: bool = False):
         recs = self.drop(columns=["geometry"]).to_dict("records")
         if index:
@@ -160,6 +322,39 @@ class GeoFrame(pd.DataFrame):
         out = super().copy(deep=deep)
         out.crs = self.crs
         return out
+
+
+def _within(a: _poly.Geometry, b: _poly.Geometry) -> bool:
+    """Exact ``within`` predicate (GEOS semantics: a \\ b == ∅).
+
+    Points use the point-in-polygon test. Polygons/multipolygons run a cheap
+    necessary vertex filter first, then confirm with the exact boolean
+    engine: a is within b iff difference(a, b) is empty. The vertex check
+    alone is a false positive for a concave container whose boundary exits
+    and re-enters between consecutive vertices of a — the difference test
+    catches that case exactly.
+    """
+    if isinstance(b, (_poly.Point, _poly.LineString, _poly.MultiLineString)):
+        # Containers without interior: only an identical point is "within"
+        # a point; nothing else matches (geopandas returns no match here
+        # rather than raising).
+        if isinstance(a, _poly.Point) and isinstance(b, _poly.Point):
+            return a.x == b.x and a.y == b.y
+        return False
+    if isinstance(a, _poly.Point):
+        return b.contains_point(a.x, a.y)
+    polys = a.geoms if isinstance(a, _poly.MultiPolygon) else [a]
+    for p in polys:
+        for v in p.exterior:
+            if not b.contains_point(float(v[0]), float(v[1])):
+                return False
+    for p in polys:
+        d = _poly.difference(p, b)
+        # relative tolerance absorbs the boolean engine's float noise on
+        # shared boundary segments at projected-CRS magnitudes
+        if not (d.is_empty or d.area <= 1e-9 * max(p.area, 1.0)):
+            return False
+    return True
 
 
 # Right-side boxes wider than _WIDE_FACTOR x the median are swept separately
@@ -353,6 +548,23 @@ def from_wkt_column(df: pd.DataFrame, column: str = "geometry", crs=None) -> Geo
     (the wanted_bboxes.csv format, reference utils.py:37-43)."""
     geoms = [_geoio.from_wkt(w) for w in df[column]]
     out = GeoFrame(df.drop(columns=[column]))
+    out["geometry"] = geoms
+    out.crs = _parse_crs(crs) if crs is not None else None
+    return out
+
+
+def from_xy(df: pd.DataFrame, x: str, y: str, crs=None) -> GeoFrame:
+    """Point GeoFrame from x/y columns (GeoSeries.from_xy equivalent)."""
+    geoms = [_poly.Point(px, py) for px, py in zip(df[x], df[y])]
+    out = GeoFrame(df.copy())
+    out["geometry"] = geoms
+    out.crs = _parse_crs(crs) if crs is not None else None
+    return out
+
+
+def points_frame(xs: Iterable[float], ys: Iterable[float], crs=None, **cols) -> GeoFrame:
+    geoms = [_poly.Point(px, py) for px, py in zip(xs, ys)]
+    out = GeoFrame(pd.DataFrame(cols) if cols else pd.DataFrame(index=range(len(geoms))))
     out["geometry"] = geoms
     out.crs = _parse_crs(crs) if crs is not None else None
     return out

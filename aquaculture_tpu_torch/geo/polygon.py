@@ -1,13 +1,16 @@
-"""Lightweight geometry types (GEOS/shapely replacement for this pipeline).
+"""Lightweight geometry types (GEOS/shapely replacement for this pipeline),
+a copy of aquaculture_tpu/geo/polygon.py.
 
-A copy of aquaculture_tpu/geo/polygon.py as far as the aq-pipeline path
-reaches it (reference: src/utils.py, src/process_yolo/): points, axis-aligned
-boxes, simple polygons, multipolygons; predicates (intersects / contains),
-measures (area, bounds, centroid) and affine/CRS vertex transforms. The overlay operations (intersection,
-difference, union, buffer) and the boolean engine under them come with a
-later slice of the port; download-box dedup runs on the exact rectilinear
-algebra of ``aquaculture_tpu_torch.geo.region`` instead. ``centroid_array``
-(the port's own) takes many centroids at once, bit for bit.
+Covers exactly the geometry surface the pipeline uses
+(reference: src/utils.py, src/utils_tonnage.py, src/cluster_facilities.py):
+points, axis-aligned boxes, simple polygons, multipolygons; predicates
+(intersects / contains), measures (area, bounds, centroid), the overlay
+operations (intersection, difference, union, symmetric difference, buffer:
+exact on rectilinear operands via ``aquaculture_tpu_torch.geo.region``,
+convex clipping, else the Martinez-Rueda sweep of ``geo.boolean``),
+Douglas-Peucker simplification, and affine/CRS vertex transforms.
+``centroid_array`` (the port's own) takes many centroids at once, bit for
+bit.
 
 Coordinates are float64 NumPy arrays. Geometries are immutable.
 """
@@ -36,12 +39,35 @@ class Geometry:
     def bounds(self):
         raise NotImplementedError
 
+    def buffer(self, distance: float, quad_segs: int = 8) -> "Geometry":
+        """Dilation/erosion via edge capsules on the boolean engine
+        (geo/buffer.py). buffer(0) is the reference's validity no-op
+        (utils_tonnage.py:1017); buffer(2000) widens shorelines before
+        coastal tiling (download_french_data.py:223-227)."""
+        if distance == 0:
+            return self
+        from aquaculture_tpu_torch.geo.buffer import buffer as _buffer
+
+        return _buffer(self, distance, quad_segs)
+
     def intersects(self, other: "Geometry") -> bool:
         return intersects(self, other)
 
+    def intersection(self, other: "Geometry") -> "Geometry":
+        return intersection(self, other)
+
+    def difference(self, other: "Geometry") -> "Geometry":
+        return difference(self, other)
+
+    def union(self, other: "Geometry") -> "Geometry":
+        return union(self, other)
+
+    def symmetric_difference(self, other: "Geometry") -> "Geometry":
+        return symmetric_difference(self, other)
+
 
 class Empty(Geometry):
-    """The empty geometry (e.g. a region clipped away by dedup)."""
+    """The empty geometry (result of empty intersections/differences)."""
 
     @property
     def is_empty(self) -> bool:
@@ -92,6 +118,10 @@ class Point(Geometry):
     def centroid(self) -> "Point":
         return self
 
+    @property
+    def xy(self):
+        return (np.array([self.x]), np.array([self.y]))
+
     def transform(self, fn) -> "Point":
         x, y = fn(np.array([self.x]), np.array([self.y]))
         return Point(float(x[0]), float(y[0]))
@@ -101,7 +131,8 @@ class Point(Geometry):
 
 
 class LineString(Geometry):
-    """A polyline (N, 2), as GeoJSON and WKT carry it; no boolean ops."""
+    """A polyline (N, 2). Used for coastline linework (shapefile IO,
+    linemerge/polygonize); no boolean ops."""
 
     __slots__ = ("coords",)
 
@@ -117,6 +148,11 @@ class LineString(Geometry):
         return 0.0
 
     @property
+    def length(self) -> float:
+        d = np.diff(self.coords, axis=0)
+        return float(np.hypot(d[:, 0], d[:, 1]).sum())
+
+    @property
     def bounds(self):
         c = self.coords
         return (c[:, 0].min(), c[:, 1].min(), c[:, 0].max(), c[:, 1].max())
@@ -125,6 +161,10 @@ class LineString(Geometry):
     def centroid(self) -> "Point":
         c = self.coords.mean(axis=0)
         return Point(float(c[0]), float(c[1]))
+
+    @property
+    def is_ring(self) -> bool:
+        return len(self.coords) >= 4 and np.allclose(self.coords[0], self.coords[-1])
 
     def transform(self, fn) -> "LineString":
         x, y = fn(self.coords[:, 0], self.coords[:, 1])
@@ -147,6 +187,10 @@ class MultiLineString(Geometry):
     @property
     def area(self) -> float:
         return 0.0
+
+    @property
+    def length(self) -> float:
+        return sum(l.length for l in self.geoms)
 
     @property
     def bounds(self):
@@ -296,6 +340,16 @@ class Polygon(Geometry):
         return Point(num_x / den + ox, num_y / den + oy)
 
     @property
+    def boundary(self) -> List["LineString"]:
+        """Boundary rings as closed LineStrings (exterior first, then
+        holes) — consumable by geo.lines.linemerge/polygonize. The
+        reference feeds polygon boundaries into its line-dissection
+        (create_land_filter.py:105,119); shapely returns a
+        (Multi)LineString, here it is a plain list."""
+        rings = [self.exterior, *self.holes]
+        return [LineString(_close_ring(r)) for r in rings]
+
+    @property
     def is_rectangle(self) -> bool:
         """True for an axis-aligned solid rectangle (4 vertices spanning the
         bounds, no holes). Enables the sjoin fast path: for two rectangles,
@@ -311,10 +365,39 @@ class Polygon(Geometry):
             self.area - (maxx - minx) * (maxy - miny)
         ) < 1e-9 * max(self.area, 1.0)
 
+    @property
+    def is_rectilinear(self) -> bool:
+        for ring in [self.exterior, *self.holes]:
+            r = _close_ring(ring)
+            d = np.diff(r, axis=0)
+            if not np.all((np.abs(d[:, 0]) < 1e-9) | (np.abs(d[:, 1]) < 1e-9)):
+                return False
+        return True
+
+    @property
+    def is_convex(self) -> bool:
+        if self.holes or self.is_empty:
+            return False
+        r = _close_ring(self.exterior)
+        d = np.diff(r, axis=0)
+        cross = d[:-1, 0] * d[1:, 1] - d[:-1, 1] * d[1:, 0]
+        wrap = d[-1, 0] * d[0, 1] - d[-1, 1] * d[0, 0]
+        cross = np.append(cross, wrap)
+        return bool(np.all(cross >= -1e-9 * np.max(np.abs(cross) + 1)))
+
     def contains_point(self, x: float, y: float) -> bool:
         if not _pip(self.exterior, x, y):
             return False
         return not any(_pip(h, x, y) for h in self.holes)
+
+    def simplify(self, tolerance: float) -> "Polygon":
+        """Douglas-Peucker ring simplification (reference utils.py:528)."""
+        ext = _simplify_ring(self.exterior, tolerance)
+        holes = [_simplify_ring(h, tolerance) for h in self.holes]
+        holes = [h for h in holes if len(h) >= 3]
+        if len(ext) < 3:
+            return Polygon()
+        return Polygon(ext, holes)
 
     def transform(self, fn) -> "Polygon":
         """Apply ``fn(x_array, y_array) -> (x, y)`` to every vertex."""
@@ -341,8 +424,8 @@ class MultiPolygon(Geometry):
 
     @property
     def area(self) -> float:
-        # Exact for disjoint members (the common case: distinct cages and
-        # the disjoint rectangles of a region).
+        # Exact for disjoint members (the common case: distinct cages);
+        # overlapping members are handled by union_area().
         return sum(p.area for p in self.geoms)
 
     @property
@@ -368,11 +451,19 @@ class MultiPolygon(Geometry):
         w = areas / areas.sum()
         return Point(float(np.dot(w, cs[:, 0])), float(np.dot(w, cs[:, 1])))
 
+    @property
+    def boundary(self) -> List["LineString"]:
+        """All member boundary rings, flattened (see Polygon.boundary)."""
+        return [ls for p in self.geoms for ls in p.boundary]
+
     def contains_point(self, x: float, y: float) -> bool:
         return any(p.contains_point(x, y) for p in self.geoms)
 
     def transform(self, fn) -> "MultiPolygon":
         return MultiPolygon([p.transform(fn) for p in self.geoms])
+
+    def simplify(self, tolerance: float) -> "MultiPolygon":
+        return MultiPolygon([p.simplify(tolerance) for p in self.geoms])
 
     @property
     def wkt(self) -> str:
@@ -540,3 +631,253 @@ def intersects(a: Geometry, b: Geometry) -> bool:
     if a.contains_point(*b.exterior[0]) or b.contains_point(*a.exterior[0]):
         return True
     return False
+
+
+# ---------------------------------------------------------------------------
+# Overlay operations
+# ---------------------------------------------------------------------------
+
+def _convex_clip(subject: np.ndarray, clip: np.ndarray) -> np.ndarray:
+    """Sutherland-Hodgman: clip a polygon by a CONVEX polygon. Exact."""
+    out = list(_close_ring(subject)[:-1])
+    cr = _close_ring(clip)
+    for i in range(len(cr) - 1):
+        if not out:
+            return np.zeros((0, 2))
+        cp1, cp2 = cr[i], cr[i + 1]
+        edge = cp2 - cp1
+
+        def inside(p):
+            return edge[0] * (p[1] - cp1[1]) - edge[1] * (p[0] - cp1[0]) >= -_EPS
+
+        def isect(p, q):
+            dp = q - p
+            denom = edge[0] * dp[1] - edge[1] * dp[0]
+            if abs(denom) < _EPS:
+                return q
+            t = (edge[0] * (cp1[1] - p[1]) - edge[1] * (cp1[0] - p[0])) / denom
+            return p + t * dp
+
+        new_out = []
+        prev = out[-1]
+        prev_in = inside(prev)
+        for cur in out:
+            cur_in = inside(cur)
+            if cur_in:
+                if not prev_in:
+                    new_out.append(isect(prev, cur))
+                new_out.append(cur)
+            elif prev_in:
+                new_out.append(isect(prev, cur))
+            prev, prev_in = cur, cur_in
+        out = new_out
+    return np.asarray(out).reshape(-1, 2)
+
+
+def _raster_boolean_area(a: Geometry, b: Geometry, op: str, n: int = 0) -> float:
+    """Approximate boolean-op area by rasterizing over the joint bounds.
+
+    Resolution adapts to the op: for 'intersection' the grid covers only
+    the bounds OVERLAP (the answer is zero outside it), so the cells
+    concentrate where they matter; n=0 auto-selects 1024 (relative area
+    error ~1e-3 of the gridded extent).
+    """
+    ab, bb = a.bounds, b.bounds
+    if op == "intersection":
+        minx, miny = max(ab[0], bb[0]), max(ab[1], bb[1])
+        maxx, maxy = min(ab[2], bb[2]), min(ab[3], bb[3])
+    else:
+        minx, miny = min(ab[0], bb[0]), min(ab[1], bb[1])
+        maxx, maxy = max(ab[2], bb[2]), max(ab[3], bb[3])
+    if not np.isfinite([minx, miny, maxx, maxy]).all() or maxx <= minx or maxy <= miny:
+        return 0.0
+    if n <= 0:
+        n = 1024
+    from aquaculture_tpu_torch.geo.rasterize import rasterize_geometry
+
+    ma = rasterize_geometry(a, (minx, miny, maxx, maxy), n, n)
+    mb = rasterize_geometry(b, (minx, miny, maxx, maxy), n, n)
+    if op == "intersection":
+        m = ma & mb
+    elif op == "difference":
+        m = ma & ~mb
+    elif op == "xor":
+        m = ma ^ mb
+    elif op == "union":
+        m = ma | mb
+    else:
+        raise ValueError(f"unknown op {op!r}")
+    cell = ((maxx - minx) / n) * ((maxy - miny) / n)
+    return float(m.sum()) * cell
+
+
+def _as_region(g: Geometry):
+    from aquaculture_tpu_torch.geo import region
+
+    return region.from_geometry(g)
+
+
+def _all_rectilinear(*gs: Geometry) -> bool:
+    for g in gs:
+        polys = g.geoms if isinstance(g, MultiPolygon) else [g]
+        for p in polys:
+            if not isinstance(p, Polygon) or not p.is_rectilinear:
+                return False
+    return True
+
+
+def intersection(a: Geometry, b: Geometry) -> Geometry:
+    """Geometry intersection — exact for all simple polygon operands.
+
+    Fast paths: rectilinear region algebra and convex clipping; general
+    (non-convex x non-convex) operands go through the Martinez-Rueda sweep
+    (geo.boolean)."""
+    if a.is_empty or b.is_empty or not intersects(a, b):
+        return EMPTY
+    if isinstance(a, Point):
+        return a if b.contains_point(a.x, a.y) else EMPTY
+    if isinstance(b, Point):
+        return b if a.contains_point(b.x, b.y) else EMPTY
+    if _all_rectilinear(a, b):
+        from aquaculture_tpu_torch.geo import region
+
+        return region.to_geometry(_as_region(a).intersection(_as_region(b)))
+    pa = [a] if isinstance(a, Polygon) else list(a.geoms)
+    pb = [b] if isinstance(b, Polygon) else list(b.geoms)
+    no_holes = not any(p.holes for p in pa) and not any(q.holes for q in pb)
+    if no_holes and (all(q.is_convex for q in pb) or all(p.is_convex for p in pa)):
+        pieces = []
+        for p in pa:
+            for q in pb:
+                if not intersects(p, q):
+                    continue
+                if q.is_convex:
+                    ring = _convex_clip(p.exterior, q.exterior)
+                else:
+                    ring = _convex_clip(q.exterior, p.exterior)
+                if len(ring) >= 3:
+                    pieces.append(Polygon(ring))
+        if not pieces:
+            return EMPTY
+        return pieces[0] if len(pieces) == 1 else MultiPolygon(pieces)
+    from aquaculture_tpu_torch.geo.boolean import boolean_op
+
+    return boolean_op(a, b, "intersection")
+
+
+def intersection_area(a: Geometry, b: Geometry) -> float:
+    """Area of a∩b — exact for all simple polygon operands.
+
+    Fast paths: rectilinear region algebra and convex clipping; the general
+    case triangulates both operands (signed soup, holes negative) and sums
+    exact triangle∩triangle clip areas (geo.triangulate) — independent of
+    the sweep-line path, so the two exact engines cross-check each other
+    in the fuzz suite."""
+    if a.is_empty or b.is_empty:
+        return 0.0
+    if _all_rectilinear(a, b) or isinstance(a, Point) or isinstance(b, Point):
+        return intersection(a, b).area
+    pa = [a] if isinstance(a, Polygon) else list(a.geoms)
+    pb = [b] if isinstance(b, Polygon) else list(b.geoms)
+    if all(q.is_convex for q in pb) or all(p.is_convex for p in pa):
+        return intersection(a, b).area
+    from aquaculture_tpu_torch.geo.triangulate import exact_intersection_area
+
+    return exact_intersection_area(a, b)
+
+
+def difference(a: Geometry, b: Geometry) -> Geometry:
+    """a \\ b — exact for all simple polygon operands.
+
+    Rectilinear operands use the Region algebra (the dedup path, reference
+    utils.py:241-273, utils_tonnage.py:686-713); general operands use the
+    Martinez-Rueda sweep (the land-filter dissection path, reference
+    create_land_filter.py:129-137)."""
+    if a.is_empty:
+        return EMPTY
+    if b.is_empty or not intersects(a, b):
+        return a
+    if _all_rectilinear(a, b):
+        from aquaculture_tpu_torch.geo import region
+
+        return region.to_geometry(_as_region(a).difference(_as_region(b)))
+    from aquaculture_tpu_torch.geo.boolean import boolean_op
+
+    return boolean_op(a, b, "difference")
+
+
+def union(a: Geometry, b: Geometry) -> Geometry:
+    """Geometric union, dissolved: overlapping operands merge into a single
+    boundary (rectilinear via Region algebra, general via Martinez-Rueda)."""
+    if a.is_empty:
+        return b
+    if b.is_empty:
+        return a
+    if _all_rectilinear(a, b):
+        from aquaculture_tpu_torch.geo import region
+
+        return region.to_geometry(_as_region(a).union(_as_region(b)))
+    from aquaculture_tpu_torch.geo.boolean import boolean_op
+
+    return boolean_op(a, b, "union")
+
+
+def symmetric_difference(a: Geometry, b: Geometry) -> Geometry:
+    """(a \\ b) ∪ (b \\ a) — shapely-compatible; exact Region algebra for
+    rectilinear operands, Martinez-Rueda xor sweep otherwise."""
+    if a.is_empty:
+        return b
+    if b.is_empty:
+        return a
+    if _all_rectilinear(a, b):
+        return union(difference(a, b), difference(b, a))
+    from aquaculture_tpu_torch.geo.boolean import boolean_op
+
+    return boolean_op(a, b, "xor")
+
+
+def union_area(geometries) -> float:
+    """Dissolved area of one geometry or an iterable of geometries
+    (overlaps counted once). See geo.boolean.union_area."""
+    from aquaculture_tpu_torch.geo.boolean import union_area as _ua
+
+    return _ua(geometries)
+
+
+def unary_union(geometries: Iterable[Geometry]) -> Geometry:
+    """Dissolved union of many geometries (reference
+    utils_tonnage.py:617,1165). Balanced union tree: O(n log n) boolean
+    ops instead of an O(n^2) left fold."""
+    from aquaculture_tpu_torch.geo.boolean import unary_union_tree
+
+    return unary_union_tree(list(geometries))
+
+
+# ---------------------------------------------------------------------------
+# Simplification
+# ---------------------------------------------------------------------------
+
+def _simplify_ring(ring: np.ndarray, tol: float) -> np.ndarray:
+    if len(ring) < 4:
+        return ring
+    pts = _close_ring(ring)
+
+    def dp(points: np.ndarray) -> np.ndarray:
+        if len(points) < 3:
+            return points
+        start, end = points[0], points[-1]
+        seg = end - start
+        seg_len = np.hypot(*seg)
+        if seg_len < _EPS:
+            d = np.hypot(points[1:-1, 0] - start[0], points[1:-1, 1] - start[1])
+        else:
+            d = np.abs(_cross2(seg[None, :], points[1:-1] - start)) / seg_len
+        imax = int(np.argmax(d)) + 1
+        if d[imax - 1] > tol:
+            left = dp(points[: imax + 1])
+            right = dp(points[imax:])
+            return np.vstack([left[:-1], right])
+        return np.vstack([start, end])
+
+    out = dp(pts)
+    return out[:-1] if np.array_equal(out[0], out[-1]) else out

@@ -73,17 +73,18 @@ def _to_tensor(v, device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
-def shard_batch(batch: dict, mesh: Optional[DeviceMesh], device="cpu") -> dict:
-    """A global host batch -> this rank's rows, as tensors on ``device``."""
+def shard_batch(batch: dict, mesh: Optional[DeviceMesh], device) -> dict:
+    """A global host batch -> this rank's rows, as tensors on ``device``
+    (no default: the caller names the card or the CPU)."""
     rows = batch_sharding(mesh, len(next(iter(batch.values()))))
     return {k: _to_tensor(v[rows], device) for k, v in batch.items()}
 
 
-def shard_local_batch(batch: dict, mesh: Optional[DeviceMesh], device="cpu") -> dict:
+def shard_local_batch(batch: dict, mesh: Optional[DeviceMesh], device) -> dict:
     """Multi-process data parallelism where each rank already holds only its
     LOCAL rows of the global batch (global = the concatenation over data
     ranks, in rank order; train/dataset.py builds a rank's slots alone):
-    the rows as tensors on ``device``."""
+    the rows as tensors on ``device`` (no default, as ``shard_batch``)."""
     return {k: _to_tensor(v, device) for k, v in batch.items()}
 
 

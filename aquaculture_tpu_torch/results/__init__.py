@@ -1,8 +1,8 @@
 """Results layer of the PyTorch port: the paper's Figure-3 precision/recall
 sweep (performance.py), the zero-label stratum's upper bound
-(upper_bound.py) and the figure styling (style.py), copies of the JAX
-package's. The maps and the tonnage report need the overlay engine and come
-with a later slice.
+(upper_bound.py), the figure styling (style.py), the Figure-6 tonnage
+report (tonnage_report.py) and the Trujillo boxes of maps.py, copies of the
+JAX package's. The map figures come with a later slice.
 """
 
 from aquaculture_tpu_torch.results.performance import (  # noqa: F401

@@ -94,7 +94,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      160 px under a one-rank NCCL sharded_train_step against the plain card
      step (TF32 off). The processes start after 4b and import while the
      card-vs-CPU and accuracy checks run; phase 6 times the m/640/b16 bf16
-     step under the one-rank mesh beside the plain step.
+     step under the one-rank mesh beside the plain step;
+ 10. after 8, ``facilities_tonnage``: the tonnage world, a cut of phase 8's
+     evaluation world (its detections and labels west of 3.25 E) with an
+     image box for each tile and survey year (two years overlap inside the
+     2000-2004 and 2005-2009 passes, half the later year's images cut by
+     whitespace), a bathymetry GeoTIFF, a factor workbook, FAO production
+     and Trujillo points; ``cli.facilities`` on the card and with --device
+     cpu (the facility frames equal), ``cli.tonnage`` twice on the card at
+     K = 10,000 (identical tables) and once with --device cpu at K = 2,000
+     (each pass's mean within 4 standard errors); then ``run_bootstrap`` on
+     the card at the paper's scale (K = 10,000 over 16,384 cage pairs, 512
+     facilities, 6 passes): its card ms (CUDA events, median of 3 after a
+     warm call), the host seconds of ``prepare_bootstrap_inputs``, the peak
+     memory, and a degenerate lattice against its closed form
+     (``scripts/tonnage_world.py`` profiles that call, and times the CLIs
+     on the whole world).
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -138,6 +153,11 @@ SHAPES = ((1, 1), (3, 128), (2, 300), (4, 33), (128, 1024), (130, 1024), (2, 409
 # (mt, conf 1e-5, pre-topk K): the main path's batch, small batches, the
 # pre-topk 8192 pool and the whole P5 pool.
 TIMED_SHAPES = ((128, 1024), (8, 1024), (1, 1024), (1, 8192), (1, 25_200))
+# IoU-matrix bytes per plain suppression call in check_kernels: the plain
+# version's temporaries take about 8 times its IoU matrix, so 5 GB keeps a
+# call near 40 GB of the card's 80 (two suites per call at K = 25,200, all
+# six below K = 14,400)
+PLAIN_IOU_BYTES = 5_200_000_000
 
 
 def fail(msg: str) -> None:
@@ -252,25 +272,31 @@ def check_shapes() -> tuple:
 
 
 def check_kernels(dev, shapes) -> list:
+    """Each suite at each shape: the kernel against the plain version on
+    the same inputs, exactly. The plain version runs K dependent steps of a
+    few launches each whatever B is, so the suites' inputs of one shape go
+    through it stacked along the batch (rows are independent), as many per
+    call as PLAIN_IOU_BYTES of IoU matrix allow; each suite's kernel call
+    stays its own."""
     import torch
 
     from aquaculture_tpu_torch.ops.nms import greedy_suppress_plain
     from aquaculture_tpu_torch.ops.nms_cuda import greedy_suppress_cuda
 
-    passed = []
-    for si, kind in enumerate(SUITES):
-        for b, k in shapes:
-            boxes_np, valid_np = suite_inputs(kind, b, k, seed=1000 * si + k + b)
-            boxes = torch.from_numpy(boxes_np).to(dev)
-            valid = torch.from_numpy(valid_np).to(dev)
-            got = greedy_suppress_cuda(boxes, valid, 0.45)
-            want = greedy_suppress_plain(boxes, valid, 0.45)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                fail(f"nms_suppress != plain on suite {kind} (B={b}, K={k}): {bad} flags differ")
-        passed.append(kind)
-    return passed
+    for b, k in shapes:
+        inputs = [suite_inputs(kind, b, k, seed=1000 * si + k + b) for si, kind in enumerate(SUITES)]
+        boxes = [torch.from_numpy(x).to(dev) for x, _ in inputs]
+        valid = [torch.from_numpy(v).to(dev) for _, v in inputs]
+        got = [greedy_suppress_cuda(x, v, 0.45) for x, v in zip(boxes, valid)]
+        group = max(1, min(len(SUITES), PLAIN_IOU_BYTES // (4 * b * k * k)))
+        for g0 in range(0, len(SUITES), group):
+            sl = slice(g0, g0 + group)
+            want = greedy_suppress_plain(torch.cat(boxes[sl]), torch.cat(valid[sl]), 0.45).split(b)
+            for kind, g, w in zip(SUITES[sl], got[sl], want):
+                if not torch.equal(g, w):
+                    fail(f"nms_suppress != plain on suite {kind} (B={b}, K={k}): {int((g != w).sum())} flags differ")
+        torch.cuda.synchronize()
+    return list(SUITES)
 
 
 # ---------------------------------------------------------------------------
@@ -1995,6 +2021,386 @@ def run_cluster_evaluate_phase(dev, d: str) -> dict:
     return out
 
 
+# The tonnage world (phase 10): the evaluation world's detections and labels
+# with an image box for each tile and survey year, the download boxes they
+# were tiled from, a bathymetry GeoTIFF, the factor workbook, FAO
+# production and Trujillo points, all from a numpy seed. EVAL_YEARS put
+# 2000 and 2003 inside the 2000-2004 pass and 2006 and 2009 inside
+# 2005-2009, so tiles imaged in both years overlap; on half of them the
+# later year's image is cut by whitespace, so that the min and max
+# selections differ.
+TONNAGE_FAO_YEARS = range(2000, 2021)
+# the world's cut: its westmost 0.25 degrees of longitude (of 4.5), so that
+# cli.facilities' host work (a dedup and a clustering per selection, exact
+# intersection areas in EPSG:3035) fits the phase twice, card and CPU
+TONNAGE_LON_MAX = 3.25
+TONNAGE_K_CLI, TONNAGE_K_CPU = 10_000, 2_000
+# the bootstrap at the paper's scale: cage pairs, facilities, passes, draws
+LATTICE_N, LATTICE_M, LATTICE_PASSES, LATTICE_K = 16_384, 512, 6, 10_000
+
+
+def _xml_text(v) -> str:
+    return str(v).replace("&", "&amp;").replace("<", "&lt;").replace(">", "&gt;")
+
+
+def write_xlsx(path: str, sheets: dict) -> None:
+    """A minimal .xlsx (zip + XML) of {sheet name: DataFrame}: a header row
+    of inline strings, then numbers as numbers and everything else as
+    inline strings, the layout ``utils.xlsx.read_xlsx`` reads."""
+    import zipfile
+
+    def col(i):
+        name = ""
+        i += 1
+        while i:
+            i, r = divmod(i - 1, 26)
+            name = chr(65 + r) + name
+        return name
+
+    def cell(ref, v):
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            return f'<c r="{ref}"><v>{v!r}</v></c>' if np.isfinite(v) else ""
+        return f'<c r="{ref}" t="inlineStr"><is><t>{_xml_text(v)}</t></is></c>'
+
+    ns = 'xmlns="http://schemas.openxmlformats.org/spreadsheetml/2006/main"'
+    rel_ns = 'xmlns:r="http://schemas.openxmlformats.org/officeDocument/2006/relationships"'
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        entries = "".join(f'<sheet name="{_xml_text(n)}" sheetId="{i + 1}" r:id="rId{i + 1}"/>'
+                          for i, n in enumerate(sheets))
+        z.writestr("xl/workbook.xml", f"<workbook {ns} {rel_ns}><sheets>{entries}</sheets></workbook>")
+        rels = "".join(f'<Relationship Id="rId{i + 1}" Type="http://schemas.openxmlformats.org/officeDocument/'
+                       f'2006/relationships/worksheet" Target="worksheets/sheet{i + 1}.xml"/>'
+                       for i in range(len(sheets)))
+        z.writestr("xl/_rels/workbook.xml.rels",
+                   f'<Relationships xmlns="http://schemas.openxmlformats.org/package/2006/relationships">'
+                   f"{rels}</Relationships>")
+        for i, df in enumerate(sheets.values()):
+            rows = [list(df.columns)] + df.values.tolist()
+            xml = "".join(f'<row r="{r + 1}">' + "".join(cell(f"{col(c)}{r + 1}", v) for c, v in enumerate(row))
+                          + "</row>" for r, row in enumerate(rows))
+            z.writestr(f"xl/worksheets/sheet{i + 1}.xml", f"<worksheet {ns}><sheetData>{xml}</sheetData></worksheet>")
+
+
+def write_factor_inputs(d: str, seed: int = 0) -> tuple:
+    """(factors.xlsx, fao.csv): the production-factor workbook in the
+    reference's layout (sheet "Production Factors": species, factor type,
+    factor and its range; stocking density in kg/m3, harvest frequency in
+    months between harvests) and FAO French-Mediterranean production in the
+    FishStat export's columns ("[YYYY]" quantities, "S" status columns),
+    2000-2020, from a numpy seed."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    factors = pd.DataFrame({
+        "Species": ["Seabass", "Seabream", "Meagre"] * 2,
+        "Factor Type": ["Stocking density"] * 3 + ["Harvest frequency"] * 3,
+        "Factor": [20.0, 15.0, 12.0, 20.0, 18.0, 24.0],
+        "Range (lower)": [5.0, 5.0, 5.0, 14.0, 12.0, 18.0],
+        "Range (upper)": [25.0, 20.0, 18.0, 24.0, 22.0, 30.0],
+        "Unit": ["kg/m3"] * 3 + ["months"] * 3,
+    })
+    species = ("European seabass", "Gilthead seabream", "Meagre", "Marine fishes nei", "Mussels nei")
+    fao = pd.DataFrame({"Country (Name)": "France", "FAO major fishing area (Name)": "Mediterranean and Black Sea",
+                        "Environment (Name)": "Marine", "ASFIS species (Name)": list(species),
+                        "Unit (Name)": "Tonnes - live weight", "Unit": "t"})
+    for i, y in enumerate(TONNAGE_FAO_YEARS):
+        fao[f"[{y}]"] = np.round(rng.uniform(200, 4000, len(species)), 1)
+        fao["S" if i == 0 else f"S.{i}"] = ""
+    paths = os.path.join(d, "factors.xlsx"), os.path.join(d, "fao.csv")
+    write_xlsx(paths[0], {"Production Factors": factors})
+    fao.to_csv(paths[1], index=False)
+    return paths
+
+
+def write_tonnage_world(d: str, seed: int = 0, world: tuple = None, lon_max: float = TONNAGE_LON_MAX) -> dict:
+    """The inputs of cli.facilities and cli.tonnage on the evaluation world
+    (``world``: write_evaluation_world's paths, written here if None), cut
+    to its detections and labels west of ``lon_max``: those with their
+    images renamed onto the download boxes that hold them (numbered in
+    order, as wanted_bboxes.csv numbers them), the labels as cage types
+    with the pixel and meter columns the error fit reads, one image box per
+    tile and year, the boxes' CSV, a bathymetry GeoTIFF over the coast, the
+    factor inputs and 12 Trujillo points at facility sites."""
+    import pandas as pd
+
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.data.filenames import TileSpec, decode_tile_name, encode_tile_name
+    from aquaculture_tpu_torch.data.geotiff import write_geotiff
+    from aquaculture_tpu_torch.geo import crs as C
+    from aquaculture_tpu_torch.geo import polygon as P
+    from aquaculture_tpu_torch.geo.polygon import centroid_array
+
+    world = world or write_evaluation_world(d, seed)
+    det, lab = gf.read_file(world[0]), gf.read_file(world[1])
+    rng = np.random.default_rng(seed + 1)
+    (x0, x1), (y0, _) = C.transform(4326, 3857, np.array([3.0, 7.5]), np.array([42.3, 43.6]))
+    west = float(C.transform(4326, 3857, np.array([lon_max]), np.array([43.0]))[0][0])
+    det, lab = (f[f.bounds_array()[:, 2] < west].reset_index(drop=True) for f in (det, lab))
+    det.crs = lab.crs = 3857
+    width = int((x1 - x0) // (6 * EVAL_TILE_M)) + 1
+    specs = {name: decode_tile_name(name) for name in set(det["image"]) | set(lab["image"])}
+    old_boxes = sorted({s.bbox_ind for s in specs.values()})
+    new_ind = {b: i for i, b in enumerate(old_boxes)}
+    renamed = {n: encode_tile_name(TileSpec(s.year, new_ind[s.bbox_ind], s.x_offset, s.y_offset))
+               for n, s in specs.items()}
+    box_m = 6 * EVAL_TILE_M
+
+    def corner(b):
+        return x0 + (b % width) * box_m, y0 + (b // width) * box_m
+
+    det["image"] = det["image"].map(renamed)
+    lab["image"] = lab["image"].map(renamed)
+    lab["type"] = lab["type"].map({"circle_farm": "circle_cage", "square_farm": "square_cage",
+                                   "rectangle_farm": "square_cage"})
+    lab3035 = lab.to_crs(3035).bounds_array()
+    for i, c in enumerate(("xmin_m", "ymin_m", "xmax_m", "ymax_m")):
+        lab[c] = lab3035[:, i]
+    lab["xmin"], lab["ymin"], lab["xmax"], lab["ymax"] = 100, 100, 160, 160
+
+    tiles = sorted({(s.bbox_ind, s.x_offset, s.y_offset, s.year) for s in map(decode_tile_name, set(det["image"]))})
+    boxes, recs = [], {"bbox_ind": [], "x_offset": [], "y_offset": [], "year": [], "image_file": []}
+    cut = rng.random(len(tiles)) < 0.5
+    for (b, xo, yo, year), c in zip(tiles, cut):
+        bx, by = corner(old_boxes[b])
+        tx, ty = bx + xo / 1024 * EVAL_TILE_M, by + yo / 1024 * EVAL_TILE_M
+        right = tx + (0.6 if c and year in (2003, 2009) else 1.0) * EVAL_TILE_M
+        boxes.append(P.box(tx, ty, right, ty + EVAL_TILE_M))
+        for k, v in zip(recs, (b, xo, yo, year, encode_tile_name(TileSpec(year, b, xo, yo)))):
+            recs[k].append(v)
+    image_boxes = gf.GeoFrame(recs, geometry=boxes, crs=3857)
+
+    paths = {"detections": os.path.join(d, "tonnage_detections.geojson"),
+             "labels": os.path.join(d, "tonnage_labels.geojson"),
+             "image_boxes": os.path.join(d, "image_boxes.geojson"),
+             "bboxes": os.path.join(d, "tonnage_bboxes.csv"),
+             "bathymetry": os.path.join(d, "bathymetry.tif"),
+             "trujillo": os.path.join(d, "trujillo.csv")}
+    det.to_file(paths["detections"])
+    lab.to_file(paths["labels"])
+    image_boxes.to_file(paths["image_boxes"])
+    write_boxes_csv(paths["bboxes"], [(*corner(b), corner(b)[0] + box_m, corner(b)[1] + box_m) for b in old_boxes])
+    # 0.05 degree cells over lon 3.0-7.5, lat 42.3-43.6, 5-65 m deep
+    depth = -(5.0 + 60.0 * rng.random((27, 91))).astype(np.float32)
+    write_geotiff(paths["bathymetry"], depth, (3.0 - 0.025, 42.3 - 0.025, 7.5 + 0.025, 43.6 + 0.025), epsg=4326)
+    sites = det[det["det_conf"] > 0.9]["geometry"]
+    xy = centroid_array(list(sites.iloc[rng.choice(len(sites), 12, replace=False)]))
+    lon, lat = C.transform(3857, 4326, xy[:, 0], xy[:, 1])
+    pd.DataFrame({"lon": lon, "lat": lat}).to_csv(paths["trujillo"], index=False)
+    paths["factors"], paths["fao"] = write_factor_inputs(d, seed)
+    paths["counts"] = {"detections": len(det), "labels": len(lab), "image_boxes": len(image_boxes),
+                       "download_boxes": len(old_boxes)}
+    return paths
+
+
+def facility_tables(fac) -> dict:
+    """An AquaFacility as plain frames (geometries as WKT, lists kept): its
+    final facilities, cages and each pass's coverage, for equality checks
+    across processes and devices."""
+    import pandas as pd
+
+    from aquaculture_tpu_torch.geo import polygon as P
+    from aquaculture_tpu_torch.geo.io import to_wkt
+
+    def plain(frame):
+        out = pd.DataFrame(frame).copy()
+        for c in out.columns:
+            if out[c].dtype == object:
+                out[c] = [to_wkt(v) if isinstance(v, P.Geometry) else v for v in out[c]]
+        return out
+
+    return {"final": plain(fac.final_facilities), "cages": plain(fac.facility_cages),
+            **{f"coverage {p}": plain(c) for p, c in fac.annual_coverage.items()}}
+
+
+def _facilities_argv(paths: dict, out: str, device: str) -> list:
+    return ["--detections", paths["detections"], "--image-boxes", paths["image_boxes"], "--out", out,
+            "--bathymetry", paths["bathymetry"], "--device", device]
+
+
+def _tonnage_argv(paths: dict, pkl: str, out: str, k: int, device: str) -> list:
+    return ["--facility", pkl, "--labels", paths["labels"], "--detections", paths["detections"],
+            "--download-bboxes", paths["bboxes"], "--prod-factors", paths["factors"], "--fao", paths["fao"],
+            "--trujillo", paths["trujillo"], "--out", out, "--K", str(k), "--device", device]
+
+
+def facilities_tonnage_cpu(paths: dict, d: str) -> tuple:
+    """Phase 10's CPU reference: cli.facilities and cli.tonnage at
+    K = TONNAGE_K_CPU with --device cpu, and their seconds."""
+    from aquaculture_tpu_torch.cli import facilities as cli_facilities
+    from aquaculture_tpu_torch.cli import tonnage as cli_tonnage
+
+    t0 = time.perf_counter()
+    fac = cli_facilities.main(_facilities_argv(paths, os.path.join(d, "facility_cpu.pkl"), "cpu"))
+    t1 = time.perf_counter()
+    est = cli_tonnage.main(_tonnage_argv(paths, os.path.join(d, "facility_cpu.pkl"), os.path.join(d, "tonnage_cpu.csv"),
+                                         TONNAGE_K_CPU, "cpu"))
+    return facility_tables(fac), est, t1 - t0, time.perf_counter() - t1
+
+
+def bootstrap_lattice(seed: int = 0, degenerate: bool = False) -> tuple:
+    """(facility frame, predictions, error table, factor table) of a seeded
+    bootstrap lattice at the paper's scale: LATTICE_M facilities over the
+    LATTICE_PASSES passes, each holding LATTICE_N / LATTICE_M cages (its
+    random list 7/8 of them, its min list 3/4, its max list all), so that
+    the lattice has LATTICE_N (facility, cage) pairs. ``degenerate``: every
+    distribution collapses (circle cages with zero area variance, zero sds,
+    one cage list, depth at the 5 m threshold), so that each pass's total
+    is a closed form with variance 0."""
+    import pandas as pd
+
+    from aquaculture_tpu_torch.tonnage.periods import PASSES
+
+    rng = np.random.default_rng(seed)
+    per = LATTICE_N // LATTICE_M
+    passes = [name for _, _, name in PASSES[:LATTICE_PASSES]]
+    ids = np.arange(LATTICE_N).reshape(LATTICE_M, per)
+    fac = pd.DataFrame({"facility_index": np.arange(LATTICE_M),
+                        "pass": [passes[i % LATTICE_PASSES] for i in range(LATTICE_M)],
+                        "cage_depth": rng.uniform(6, 40, LATTICE_M),
+                        "cage_ids": [r[: per * 7 // 8].tolist() for r in ids],
+                        "cage_ids_min": [r[: per * 3 // 4].tolist() for r in ids],
+                        "cage_ids_max": [r.tolist() for r in ids]})
+    types = rng.choice(np.array(["circle_farm", "square_farm"]), LATTICE_N, p=[0.6, 0.4])
+    preds = pd.DataFrame({"index": np.arange(LATTICE_N), "type": types, "farm_type": types,
+                          "area": rng.uniform(30, 600, LATTICE_N),
+                          "area_var": np.where(rng.random(LATTICE_N) < 0.3, 0.0, 25.0)})
+    errs = pd.DataFrame({"pass": [p for p in passes for _ in range(2)],
+                         "farm_type": ["circle_farm", "square_farm"] * LATTICE_PASSES,
+                         "model_error_mean": rng.normal(0, 20, 2 * LATTICE_PASSES),
+                         "model_error_sd": rng.uniform(5, 40, 2 * LATTICE_PASSES)})
+    pft = pd.DataFrame({"pass": passes, "s_mean": rng.uniform(10, 16, LATTICE_PASSES),
+                        "s_sd": rng.uniform(1, 4, LATTICE_PASSES), "h_mean": rng.uniform(0.5, 0.9, LATTICE_PASSES),
+                        "h_sd": rng.uniform(0.02, 0.12, LATTICE_PASSES)})
+    if degenerate:
+        fac["cage_depth"] = 5.0
+        fac["cage_ids_min"] = fac["cage_ids_max"] = fac["cage_ids"]
+        preds["type"] = preds["farm_type"] = "circle_farm"
+        preds["area_var"] = 0.0
+        errs["model_error_sd"] = 0.0
+        pft["s_sd"] = pft["h_sd"] = 0.0
+    return fac, preds, errs, pft
+
+
+def check_bootstrap_lattice(dev, card: str) -> dict:
+    """run_bootstrap on the card at K = LATTICE_K over the paper-scale
+    lattice: prepare_bootstrap_inputs' host seconds, the card time (CUDA
+    events around the whole call, median of 3 after a warm call), the peak
+    memory (torch.cuda.max_memory_allocated over the timed calls, and less
+    what was allocated before them: the bootstrap's own), and the
+    degenerate lattice against its closed form."""
+    import torch
+
+    from aquaculture_tpu_torch.tonnage.bootstrap import prepare_bootstrap_inputs, run_bootstrap
+
+    fac, preds, errs, pft = bootstrap_lattice(0)
+    t0 = time.perf_counter()
+    inputs = prepare_bootstrap_inputs(fac, preds, errs, pft, "pass")
+    prepare_s = time.perf_counter() - t0
+    if (len(inputs.cage_fac), len(inputs.cage_depth), len(inputs.periods)) != (LATTICE_N, LATTICE_M, LATTICE_PASSES):
+        fail(f"bootstrap lattice: {len(inputs.cage_fac)} pairs, {len(inputs.cage_depth)} facilities")
+    args = (inputs, 0, LATTICE_K, 5.0, 0.85)
+    first = run_bootstrap(*args, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        est = run_bootstrap(*args, device=dev)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    max_allocated = torch.cuda.max_memory_allocated()
+    peak = max_allocated - base
+    if not est.equals(first) or not np.isfinite(est.to_numpy()).all() or not (est["tonnage"] > 0).all():
+        fail(f"run_bootstrap on the card: repeats differ or non-finite/non-positive:\n{first}\n{est}")
+
+    dfac, dpreds, derrs, dpft = bootstrap_lattice(0, degenerate=True)
+    dinp = prepare_bootstrap_inputs(dfac, dpreds, derrs, dpft, "pass")
+    dest = run_bootstrap(dinp, 1, LATTICE_K, 5.0, 1.0, device=dev)
+    area = (dinp.area_orig + dinp.err_mean) * dinp.in_min
+    closed = np.bincount(dinp.fac_period, np.bincount(dinp.cage_fac, area, minlength=LATTICE_M) * 5.0
+                         * dinp.s_mean * dinp.h_mean / 1000.0)
+    rel = np.abs(dest["tonnage"].to_numpy(np.float64) - closed) / closed
+    if rel.max() > 1e-5 or (dest["tonnage_sd"].to_numpy(np.float64) > 1e-5 * closed).any():
+        fail(f"degenerate bootstrap on the card != closed form: rel {rel.max():.3g}\n{dest}\n{closed}")
+    return {"lattice": {"K": LATTICE_K, "pairs": LATTICE_N, "facilities": LATTICE_M, "passes": LATTICE_PASSES},
+            "prepare_host_s": prepare_s, "card_ms": statistics.median(times), "card_ms_runs": times,
+            "peak_bytes": int(peak), "max_memory_allocated": int(max_allocated), "base_bytes": int(base),
+            "kn_f32_bytes": 4 * LATTICE_K * LATTICE_N,
+            "tonnage": est["tonnage"].round(3).tolist(),
+            "degenerate_vs_closed_form_max_rel": float(rel.max()),
+            "degenerate_max_sd": float(dest["tonnage_sd"].max()), "card": card}
+
+
+def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
+    """Phase 10: cli.facilities then cli.tonnage on the card, on the tonnage
+    world cut from the evaluation world, then the same in-process calls
+    with --device cpu (cli.tonnage at K = TONNAGE_K_CPU). The facility
+    frames must be equal card vs CPU, each pass's tonnage mean within 4
+    standard errors of the CPU's, and a second card run with the same seed
+    identical; then the bootstrap at the paper's scale. (A worker process
+    for the CPU side would spend longer importing than the side takes.)"""
+    from aquaculture_tpu_torch.cli import facilities as cli_facilities
+    from aquaculture_tpu_torch.cli import tonnage as cli_tonnage
+    from aquaculture_tpu_torch.tonnage.periods import PASSES
+
+    t_phase, at = time.perf_counter(), {}
+
+    def stamp(name):
+        at[name] = time.perf_counter() - t_phase
+
+    paths = write_tonnage_world(d, world=world)
+    stamp("world")
+    pkl = os.path.join(d, "facility_cuda.pkl")
+    out = {}
+    t0 = time.perf_counter()
+    fac = cli_facilities.main(_facilities_argv(paths, pkl, "cuda"))
+    fac_s = time.perf_counter() - t0
+    stamp("cli_facilities_card")
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        runs.append(cli_tonnage.main(_tonnage_argv(paths, pkl, os.path.join(d, f"tonnage_cuda{i}.csv"),
+                                                   TONNAGE_K_CLI, "cuda")))
+        runs.append(time.perf_counter() - t0)
+    stamp("cli_tonnage_card_x2")
+    tables, est_cpu, fac_cpu_s, ton_cpu_s = facilities_tonnage_cpu(paths, d)
+    stamp("cpu_reference")
+    est, est2 = runs[0], runs[2]
+    mine = facility_tables(fac)
+    if list(mine) != list(tables) or not all(mine[k].equals(tables[k]) for k in tables):
+        bad = [k for k in tables if k not in mine or not mine[k].equals(tables[k])]
+        fail(f"cli.facilities on the card != --device cpu in {bad}")
+    if not est.equals(est2):
+        fail(f"cli.tonnage twice on the card with one seed gave different tables:\n{est}\n{est2}")
+    if list(est.index) != list(est_cpu.index) or len(est) != len(PASSES):
+        fail(f"cli.tonnage periods card {list(est.index)} vs CPU {list(est_cpu.index)}")
+    se = np.sqrt(est["tonnage_var"].to_numpy(np.float64) / TONNAGE_K_CLI
+                 + est_cpu["tonnage_var"].to_numpy(np.float64) / TONNAGE_K_CPU)
+    z = np.abs(est["tonnage"].to_numpy(np.float64) - est_cpu["tonnage"].to_numpy(np.float64)) / se
+    if not (z < 4).all() or not (est["tonnage"] > 0).all():
+        fail(f"cli.tonnage card (K={TONNAGE_K_CLI}) vs CPU (K={TONNAGE_K_CPU}) beyond 4 standard errors "
+             f"({z}):\n{est}\n{est_cpu}")
+    out["bootstrap_lattice"] = check_bootstrap_lattice(dev, card)
+    stamp("lattice")
+    final = fac.final_facilities
+    out.update({
+        "world": {**paths["counts"], "kept_detections": int(len(fac.preds)), "lon_max": TONNAGE_LON_MAX},
+        "cli_facilities": {"facilities": int(len(final)), "passes": sorted(set(final["pass"])),
+                           "cages": int(len(fac.facility_cages)),
+                           "min_max_lists_differ": int(sum(a != b for a, b in
+                                                           zip(final["cage_ids_min"], final["cage_ids_max"]))),
+                           "cuda_s": fac_s, "cpu_s": fac_cpu_s, "equal_card_vs_cpu": True},
+        "cli_tonnage": {"K_card": TONNAGE_K_CLI, "K_cpu": TONNAGE_K_CPU, "cuda_s": [runs[1], runs[3]],
+                        "cpu_s": ton_cpu_s, "repeat_identical": True, "max_z": float(z.max()),
+                        "tonnage": est.round(2).to_dict("index")},
+        "at_s": at,
+    })
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2094,6 +2500,15 @@ def main() -> int:
     print(json.dumps({"phase": "cluster_evaluate", **run_cluster_evaluate_phase(dev, d8), "card": card}),
           flush=True)
     mark("cluster_evaluate")
+    # 10. aq-facilities -> aq-tonnage on a cut of the evaluation world, and
+    # the bootstrap at the paper's scale
+    d10 = os.path.join(d, "tonnage")
+    os.makedirs(d10)
+    eval_world = tuple(os.path.join(d8, f) for f in ("detections.geojson", "labels.geojson", "images.csv"))
+    print(json.dumps({"phase": "facilities_tonnage", **run_facilities_tonnage_phase(dev, card, d10, eval_world),
+                      "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    mark("facilities_tonnage")
 
     # 5. times (the int8 model calibrated on the main path's first 8 tiles)
     tiles = serving_tiles(dev)

@@ -321,11 +321,26 @@ def test_assemble_evaluation_datasets_without_land_equal():
 
 
 def test_land_flag_waits_for_the_overlay_engine():
-    t_in = _dataset_inputs(tgf, tpoly)
-    with pytest.raises(ValueError, match="boolean engine"):
-        tdatasets.assemble_evaluation_datasets(*t_in)
-    with pytest.raises(ValueError, match=r"sjoin\(predicate='within'\)"):
-        tlabels.mark_land_images(t_in[2], t_in[6])
+    """The overlay engine is in: the land flag over a land of two
+    non-rectilinear polygons (one image within, one crossing the coast,
+    one at sea), and the assembly with ``land=``, equal to the JAX
+    package's."""
+    t_in, j_in = (list(_dataset_inputs(G, P)) for G, P in PACKAGES)
+    for x, (G, P) in zip((t_in, j_in), PACKAGES):
+        x[6] = G.GeoFrame({"n": [0, 1]}, geometry=[
+            P.Polygon([(150, 980), (420, 990), (400, 1230), (160, 1215)]),
+            P.Polygon([(620, 1100), (900, 1050), (700, 1300)])], crs=3857).to_crs(4326)
+    got = tlabels.mark_land_images(t_in[2], t_in[6])
+    assert got.tolist() == [False, True, False]
+    pd.testing.assert_series_equal(got, jlabels.mark_land_images(j_in[2], j_in[6]), check_exact=True)
+    got = tdatasets.assemble_evaluation_datasets(*t_in)
+    want = jdatasets.assemble_evaluation_datasets(*j_in)
+    assert list(got) == list(want)
+    for k in want:
+        if isinstance(want[k], jgf.GeoFrame):
+            assert_frames_equal(got[k], want[k])
+        else:
+            assert_plain_frames_equal(got[k], want[k])
 
 
 def test_label_loaders_equal(tmp_path, worlds):

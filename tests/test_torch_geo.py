@@ -180,8 +180,12 @@ def test_frame_to_crs_sjoin_and_io_identical(tmp_path):
         got, want = tdet.sjoin(tland, how=how), jdet.sjoin(jland, how=how)
         pd.testing.assert_frame_equal(pd.DataFrame(got.drop(columns=["geometry"])),
                                       pd.DataFrame(want.drop(columns=["geometry"])))
-    with pytest.raises(ValueError, match="within"):
-        tdet.sjoin(tland, predicate="within")
+    for how in ("inner", "left"):
+        got, want = tdet.sjoin(tland, how=how, predicate="within"), jdet.sjoin(jland, how=how, predicate="within")
+        pd.testing.assert_frame_equal(pd.DataFrame(got.drop(columns=["geometry"])),
+                                      pd.DataFrame(want.drop(columns=["geometry"])))
+    with pytest.raises(ValueError, match="predicate"):
+        tdet.sjoin(tland, predicate="touches")
     tdet.to_file(str(tmp_path / "t.geojson"))
     jdet.to_file(str(tmp_path / "j.geojson"))
     assert (tmp_path / "t.geojson").read_bytes() == (tmp_path / "j.geojson").read_bytes()

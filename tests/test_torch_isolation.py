@@ -336,7 +336,7 @@ def test_multi_process_loads_no_jax():
         batch = {"images": np.random.default_rng(0).random((2, 64, 64, 3), dtype=np.float32),
                  "labels": np.asarray([[[0, 20, 20, 10, 10]], [[1, 30, 30, 12, 8]]], np.float32),
                  "label_mask": np.ones((2, 1), bool)}
-        m = step(state, shard_batch(batch, mesh))
+        m = step(state, shard_batch(batch, mesh, "cpu"))
         assert torch.isfinite(m["total"]) and int(full_state_tree(state)["step"]) == 1, m
         infer = sharded_infer_fn(load_jax_params(*yolov5_init("n", 2)), mesh,
                                  DetectConfig(img_size=64, conf_threshold=1e-6), tile=128, device="cpu")
@@ -344,6 +344,58 @@ def test_multi_process_loads_no_jax():
         assert det.shape[0] == 2, det.shape
         dist.destroy_process_group()
         import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_jax_facility_pickle_loads_without_jax(tmp_path):
+    """A facility pickle that the JAX package wrote loads in the port (its
+    classes resolve to the port's), and one port bootstrap and one boolean
+    overlay run on it, in a fresh interpreter, without importing
+    aquaculture_tpu or jax."""
+    from aquaculture_tpu import frame as jgf
+    from aquaculture_tpu.geo import polygon as jpoly
+    from aquaculture_tpu.tonnage.facility import AquaFacility
+    from aquaculture_tpu.tonnage.periods import map_year_to_image_pass
+
+    geoms = [jpoly.box(10.0 + 12 * i, 10.0, 18.0 + 12 * i, 18.0) for i in range(6)]
+    preds = jgf.GeoFrame({"image": ["ORTHOIMAGERY.ORTHOPHOTOS2013_0_0_0.jpeg"] * 6, "year": [2013] * 6,
+                          "det_conf": [0.9] * 6, "type": ["circle_farm"] * 6, "area": [50.0] * 6,
+                          "area_var": [0.0] * 6, "min_area": [50.0] * 6, "max_area": [50.0] * 6},
+                         geometry=geoms, crs=3857)
+    boxes = jgf.GeoFrame({"bbox_ind": [0], "x_offset": [0], "y_offset": [0], "year": [2013], "image_file": ["a"]},
+                         geometry=[jpoly.box(0, 0, 1200, 1200)], crs=3857)
+    fac = AquaFacility(preds, boxes, map_year_to_image_pass, min_cluster_size=5)
+    fac.compute_min_max_cages()
+    fac.final_facilities["cage_depth"] = 12.0
+    fac.save(str(tmp_path / "jax.pkl"))
+    code = textwrap.dedent(f"""
+        import sys
+        import pandas as pd
+        from aquaculture_tpu_torch.geo import polygon as P
+        from aquaculture_tpu_torch.tonnage.bootstrap import compute_facility_tonnage_estimates
+        from aquaculture_tpu_torch.tonnage.facility import AquaFacility, load_AquaFacility
+        fac = load_AquaFacility({str(tmp_path / "jax.pkl")!r})
+        assert type(fac) is AquaFacility and len(fac.final_facilities) == 1
+        assert type(fac.final_facilities["circle_farm_geoms"].iloc[0]) is P.MultiPolygon
+        errs = pd.DataFrame({{"pass": ["2013-2015"], "farm_type": ["circle_farm"], "model_error_mean": [0.0],
+                             "model_error_sd": [5.0]}})
+        pft = pd.DataFrame({{"pass": ["2013-2015"], "Factor Stocking density": [12.0],
+                            "Standard deviation Stocking density": [1.0], "Factor Annual harvest frequency": [0.6],
+                            "Standard deviation Annual harvest frequency": [0.05]}})
+        est = compute_facility_tonnage_estimates(fac.final_facilities, pft, "pass", 5.0, fac.preds, errs, 0.8,
+                                                 K=200, device="cpu")
+        assert float(est.loc["2013-2015", "tonnage"]) > 0
+        star = P.Polygon([(0, 0), (4, 1), (2, 2), (4, 3), (0, 4)])
+        assert P.union(star, P.Polygon([(1, -1), (3, -1), (3, 5), (1, 5)])).area > star.area
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))

@@ -148,6 +148,19 @@ def test_devices_and_no_cpu_fallback(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "o.geojson")
 
 
+@pytest.mark.parametrize("fn", ["shard_batch", "shard_local_batch"])
+def test_shard_functions_have_no_cpu_default(fn):
+    """A library caller that leaves out the device gets a TypeError, not
+    CPU tensors; with the device named, the rows land there."""
+    from aquaculture_tpu_torch.parallel import mesh
+
+    batch = {"x": np.arange(8.0).reshape(4, 2)}
+    with pytest.raises(TypeError, match="device"):
+        getattr(mesh, fn)(batch, None)
+    out = getattr(mesh, fn)(batch, None, "cpu")
+    assert out["x"].device == torch.device("cpu") and out["x"].shape == (4, 2)
+
+
 # ---------------------------------------------------------------------------
 # the runner: one process against the JAX package
 # ---------------------------------------------------------------------------

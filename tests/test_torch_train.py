@@ -705,7 +705,7 @@ def one_rank(two_steps):
         losses = []
         for i in range(2):
             m = step(state, shard_batch({"images": two_steps["images"][i], "labels": two_steps["labels"],
-                                         "label_mask": two_steps["mask"]}, None))
+                                         "label_mask": two_steps["mask"]}, None, "cpu"))
             losses.append({k: float(v) for k, v in m.items()})
         return {"losses": losses, "state": state_tree(state)}
     finally:

@@ -69,7 +69,7 @@ def train_steps(rank: int, world: int, rdzv: str, n_model: int, job: str, out: s
     for phase in spec["phases"]:
         losses = []
         for i in phase["steps"]:
-            m = step(state, shard_batch(spec["batches"][i], mesh))
+            m = step(state, shard_batch(spec["batches"][i], mesh, "cpu"))
             losses.append({k: float(v) for k, v in m.items()})
         tree = full_state_tree(state)
         if rank == 0 and phase.get("save"):
