@@ -8,11 +8,15 @@ Emits one ``<image-stem>.txt`` per image with detections, rows
 
     python -m aquaculture_tpu_torch.cli.detect --source DIR --out LABELS/ \\
         [--weights CKPT_DIR | X.pt] --variant mt \\
-        [--augment] [--multi-label] [--decode-scale] [--int8]
+        [--augment] [--multi-label] [--decode-scale] [--int8] \\
+        [--aot PROGRAM] [--profile LOGDIR]
 
 ``--variant m6`` (the P6 family) serves at 1280 px unless --img says
 otherwise. ``--int8`` serves the int8 PTQ model, calibrated on the first
-source images (``quantize_for_serving``).
+source images (``quantize_for_serving``). ``--aot`` serves the exported
+program of ``cli.aot export`` (models/aot.py) with the checkpoint's
+weights; ``--profile`` writes a trace of the serving loop
+(utils/profiler.py).
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ import os
 
 import torch
 
-from aquaculture_tpu_torch.config import IM_HEIGHT, IM_WIDTH, DetectConfig, resolve_device
+from aquaculture_tpu_torch.config import IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import encode_tile_name
 from aquaculture_tpu_torch.models.weights import load_jax_params, load_pretrained
 from aquaculture_tpu_torch.models.yolov5 import VARIANTS, YoloV5, yolov5_init
 from aquaculture_tpu_torch.pipeline import detect_files
+from aquaculture_tpu_torch.utils.profiler import annotate, maybe_trace
 
 
 def quantize_for_serving(model: YoloV5, sample_paths, img_size: int = 640, skip=None,
@@ -146,6 +151,12 @@ def main(argv=None):
     ap.add_argument("--decode-scale", action="store_true",
                     help="decode-at-scale: the host resizes tiles to img px "
                          "before the copy to the device (requires 8*img %% tile == 0)")
+    ap.add_argument("--profile", default=None, metavar="LOGDIR",
+                    help="write a torch.profiler trace (Chrome-trace JSON: host spans and, "
+                         "on the GPU, its kernels) of the serving loop into LOGDIR")
+    ap.add_argument("--aot", default=None, metavar="PROGRAM",
+                    help="serve from an AOT artifact (cli.aot export); variant, img, conf, "
+                         "iou and batch come from the artifact and the matching flags are ignored")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -163,18 +174,60 @@ def main(argv=None):
     else:
         paths = sorted(glob.glob(args.source)) or [args.source]
 
+    if args.aot:
+        # The artifact IS the serving program: its constants (thresholds,
+        # shapes, variant) override the matching flags.
+        from aquaculture_tpu_torch.models import aot
+
+        if args.decode_scale:
+            # the artifact is a fixed-shape program over full (batch, tile,
+            # tile, 3) tiles with the resize traced in
+            raise SystemExit(
+                "--decode-scale cannot be combined with --aot: the AOT "
+                "artifact expects full-resolution tiles and resizes on "
+                "device. Drop one of the flags."
+            )
+        if args.pre_topk:
+            raise SystemExit(
+                "--pre-topk cannot be combined with --aot: the candidate "
+                "pool is traced into the artifact. Re-export with the "
+                "desired pool, or drop --aot."
+            )
+        meta = aot.read_meta(args.aot)
+        if meta["device"] != device.type:
+            raise SystemExit(
+                f"{args.aot} was exported for --device {meta['device']}, not {device.type}: "
+                f"pass --device {meta['device']} or re-export it with --device {device.type}"
+            )
+        if meta.get("quantized") and not args.int8:
+            raise SystemExit(
+                f"{args.aot} is an int8 artifact: pass --int8 so the "
+                f"checkpoint is quantized to the structure it expects"
+            )
+        args.variant = meta.get("variant") or args.variant
+        args.num_classes = meta.get("num_classes") or args.num_classes
+        args.batch = meta["batch_size"]
+        args.img = meta["img_size"]
     args.img = default_img_size(args.img, args.variant)
     model = load_model(args.weights, args.variant, args.num_classes)
     if args.int8:
         model = quantize_for_serving(model, paths, args.img, device=device)
-    cfg_kw = dict(img_size=args.img, conf_threshold=args.conf, iou_threshold=args.iou,
-                  multi_label=args.multi_label, augment=args.augment)
-    if args.pre_topk:
-        cfg_kw["pre_nms_topk"] = args.pre_topk
-    cfg = DetectConfig(**cfg_kw)
-    boxes, conf, cls, specs, stats = detect_files(
-        paths, model, cfg, args.batch, tile=IM_WIDTH, device=device, decode_scale=args.decode_scale,
-    )
+    infer_fn, tile = None, IM_WIDTH
+    if args.aot:
+        infer_fn, meta = aot.serving_fn(args.aot, model, device=device)
+        # thresholds, pool and TTA are traced into the program
+        cfg, tile = DetectConfig(img_size=args.img, dtype=meta["dtype"]), meta["tile"]
+    else:
+        cfg_kw = dict(img_size=args.img, conf_threshold=args.conf, iou_threshold=args.iou,
+                      multi_label=args.multi_label, augment=args.augment)
+        if args.pre_topk:
+            cfg_kw["pre_nms_topk"] = args.pre_topk
+        cfg = DetectConfig(**cfg_kw)
+    with maybe_trace(args.profile), annotate("detect_files"):
+        boxes, conf, cls, specs, stats = detect_files(
+            paths, model, cfg, args.batch, tile=tile, infer_fn=infer_fn, device=device,
+            decode_scale=args.decode_scale,
+        )
 
     # rows are normalized to the TILE the boxes live in (reference contract:
     # geocode_results.py:89-99)
@@ -185,10 +238,10 @@ def main(argv=None):
     for spec, rows in per_image.items():
         lines = []
         for k, b, c in rows:
-            cx = (b[0] + b[2]) / 2 / IM_WIDTH
-            cy = (b[1] + b[3]) / 2 / IM_HEIGHT
-            w = (b[2] - b[0]) / IM_WIDTH
-            h = (b[3] - b[1]) / IM_HEIGHT
+            cx = (b[0] + b[2]) / 2 / tile
+            cy = (b[1] + b[3]) / 2 / tile
+            w = (b[2] - b[0]) / tile
+            h = (b[3] - b[1]) / tile
             lines.append(f"{int(k)} {cx:.6f} {cy:.6f} {w:.6f} {h:.6f} {c:.6f}")
         name = encode_tile_name(spec, extension="txt")
         with open(os.path.join(args.out, name), "w") as f:

@@ -10,7 +10,8 @@ program, as ``aquaculture_tpu.cli.pipeline`` does: detection on the GPU
     python -m aquaculture_tpu_torch.cli.pipeline --source DIR \\
         --download-bboxes wanted_bboxes.csv --out detections.geojson \\
         [--weights CKPT_DIR | X.pt] [--land LAND.geojson] \\
-        [--overlap PX | --decode-scale] [--decode-threads N] [--int8]
+        [--overlap PX | --decode-scale] [--decode-threads N] [--int8] \\
+        [--profile LOGDIR]
 
 ``--int8`` serves the int8 PTQ model; as in the JAX package's CLI, it
 calibrates at 640 px whatever ``--img`` says.
@@ -30,6 +31,7 @@ from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
 from aquaculture_tpu_torch.config import DetectConfig, resolve_device
 from aquaculture_tpu_torch.models.yolov5 import VARIANTS
 from aquaculture_tpu_torch.pipeline import run_pipeline
+from aquaculture_tpu_torch.utils.profiler import annotate, maybe_trace
 
 
 def main(argv=None):
@@ -61,6 +63,9 @@ def main(argv=None):
                          "(bounds host RAM to one raster in flight)")
     ap.add_argument("--decode-scale", action="store_true",
                     help="decode-at-scale: the host resizes tiles to img px (see cli.detect)")
+    ap.add_argument("--profile", default=None, metavar="LOGDIR",
+                    help="write a torch.profiler trace (Chrome-trace JSON: host spans and, "
+                         "on the GPU, its kernels) of the pipeline into LOGDIR")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -90,10 +95,11 @@ def main(argv=None):
     dl = load_download_bboxes(args.download_bboxes)
     land = gf.read_file(args.land) if args.land else None
 
-    det, stats = run_pipeline(
-        paths, model, dl, cfg, args.batch, land=land, dedup=not args.no_dedup, device=device,
-        overlap=args.overlap, decode_threads=args.decode_threads, decode_scale=args.decode_scale,
-    )
+    with maybe_trace(args.profile), annotate("run_pipeline"):
+        det, stats = run_pipeline(
+            paths, model, dl, cfg, args.batch, land=land, dedup=not args.no_dedup, device=device,
+            overlap=args.overlap, decode_threads=args.decode_threads, decode_scale=args.decode_scale,
+        )
     t0 = time.perf_counter()
     det.to_file(args.out)
     stats.stage_seconds["write"] = time.perf_counter() - t0

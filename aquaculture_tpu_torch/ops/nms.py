@@ -12,7 +12,9 @@ decoded rows (``batched_nms``, ``nms``) or straight from the raw head maps
 Suppression follows the tensors' device: CUDA tensors go through the
 hand-written kernel in ops/nms_cuda.py (which launches or raises), CPU
 tensors through ``greedy_suppress_plain``. Nothing chooses by catching an
-error.
+error. Both sit behind one registered operator,
+``torch.ops.aquaculture_tpu_torch.nms_suppress``, whose dispatch by device
+also holds inside a program exported with ``torch.export``.
 """
 
 from __future__ import annotations
@@ -56,16 +58,46 @@ def greedy_suppress_plain(
     return keep
 
 
-def greedy_suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """Suppression by device: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if boxes.is_cuda:
-        from aquaculture_tpu_torch.ops import nms_cuda
+def _suppress_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """The hand-written kernel (ops/nms_cuda.py), which builds at first use
+    or raises, and counts its launches."""
+    from aquaculture_tpu_torch.ops import nms_cuda
 
-        return nms_cuda.greedy_suppress_cuda(boxes.contiguous(), valid.contiguous(), iou_thresh)
-    if boxes.device.type != "cpu":
-        raise ValueError(f"no suppression for tensors on {boxes.device}")
+    return nms_cuda.greedy_suppress_cuda(boxes.contiguous(), valid.contiguous(), iou_thresh)
+
+
+def _suppress_cpu(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
     return greedy_suppress_plain(boxes, valid, iou_thresh)
+
+
+# The suppression as a registered operator, so that torch.export records it
+# as one node of the serving program and the exported program dispatches it
+# by device when it runs (models/aot.py): the CUDA key to the kernel, the
+# CPU key to the plain version, a fake kernel for tracing; any other device
+# has no kernel and the dispatcher raises. Registered through
+# torch.library.Library, not torch.library.custom_op: custom_op wraps each
+# kernel in torch._disable_dynamo, whose first call imports torch._dynamo:
+# 1.9 s on a CPU host and about 10 s on the H100's host (PERF.md) added to
+# the first batch of every serving process.
+_LIB = torch.library.Library("aquaculture_tpu_torch", "DEF")
+_LIB.define("nms_suppress(Tensor boxes, Tensor valid, float iou_thresh) -> Tensor")
+_LIB.impl("nms_suppress", _suppress_cuda, "CUDA")
+_LIB.impl("nms_suppress", _suppress_cpu, "CPU")
+
+
+@torch.library.register_fake("aquaculture_tpu_torch::nms_suppress", lib=_LIB)
+def _suppress_fake(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    return torch.empty_like(valid)
+
+
+nms_suppress = torch.ops.aquaculture_tpu_torch.nms_suppress
+
+
+def greedy_suppress(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """Suppression by device, through the registered ``nms_suppress``
+    operator: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    return nms_suppress(boxes, valid, float(iou_thresh))
 
 
 def _select_topk(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

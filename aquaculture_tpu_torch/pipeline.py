@@ -82,27 +82,39 @@ def preprocess(images_u8: torch.Tensor, img_size: int, dtype: torch.dtype) -> to
     return x.to(dtype).permute(0, 2, 3, 1).contiguous()  # NHWC = channels_last NCHW
 
 
-def make_infer_fn(model: YoloV5, cfg: DetectConfig, tile: int = IM_WIDTH, device="cuda"):
-    """Build the (uint8 NHWC tile batch) -> (dets, valid) function.
-
-    Moves ``model`` (in place) to ``device``, the compute dtype and
-    channels_last; an int8 model (models/quantize.py) keeps its int8
-    weights and its float32 scales and biases. The returned function takes a (B, tile, tile, 3) uint8
-    tensor on the host (pinned for an asynchronous copy) or on the device
-    and returns (B, max_det, 6) rows [x0, y0, x1, y1, conf, cls] in tile
-    pixels plus the (B, max_det) validity mask, both on the device."""
+def place_model(model: YoloV5, dtype: str, device) -> torch.device:
+    """Move ``model`` (in place) to ``device``, channels_last and the
+    compute dtype named ``dtype`` (``DetectConfig.dtype``), in eval mode;
+    an int8 model (models/quantize.py) keeps its int8 weights and its
+    float32 scales and biases. The one placement of the live path and of
+    the AOT artifact (models/aot.py). Returns the device."""
     dev = resolve_device(device)
-    dtype = DTYPES[cfg.dtype]
-    gain = torch.full((), cfg.img_size / tile, device=dev)  # a device divisor, as in preprocess
-    to_compute_dtype(model.to(device=dev, memory_format=torch.channels_last), dtype).eval()
+    to_compute_dtype(model.to(device=dev, memory_format=torch.channels_last), DTYPES[dtype]).eval()
+    return dev
 
-    @torch.inference_mode()
-    def infer(images_u8: torch.Tensor):
-        x = preprocess(images_u8.to(dev, non_blocking=True), cfg.img_size, dtype)
+
+class ServingProgram(torch.nn.Module):
+    """The serving program: (B, tile, tile, 3) uint8 tiles on the model's
+    device -> (B, max_det, 6) rows [x0, y0, x1, y1, conf, cls] in tile
+    pixels and the (B, max_det) validity mask. Preprocess, the forward or
+    the test-time-augmented forward, batched NMS, then the tile-pixel gain.
+
+    The live path (``make_infer_fn``) calls it with the model's own
+    weights; models/aot.py traces it with ``torch.export``, the weights
+    given as inputs through ``torch.func.functional_call``. Place the model
+    first (``place_model``)."""
+
+    def __init__(self, model: YoloV5, cfg: DetectConfig, tile: int = IM_WIDTH):
+        super().__init__()
+        self.model, self.cfg, self.tile = model, cfg, tile
+
+    def forward(self, images_u8: torch.Tensor):
+        cfg = self.cfg
+        x = preprocess(images_u8, cfg.img_size, DTYPES[cfg.dtype])
         if cfg.augment:
-            preds = tta_predict(model, x, scales=cfg.tta_scales, flips=cfg.tta_flips)
+            preds = tta_predict(self.model, x, scales=cfg.tta_scales, flips=cfg.tta_flips)
         else:
-            preds = model(x)
+            preds = self.model(x)
         det, valid = batched_nms(
             preds,
             conf_thresh=cfg.conf_threshold,
@@ -113,8 +125,26 @@ def make_infer_fn(model: YoloV5, cfg: DetectConfig, tile: int = IM_WIDTH, device
             backend=cfg.nms_backend,
             multi_label=cfg.multi_label,
         )
-        # 640-space -> tile pixel space (square tiles: pure gain)
+        # 640-space -> tile pixel space (square tiles: pure gain, divided by
+        # a device tensor as in preprocess)
+        gain = torch.full((), cfg.img_size / self.tile, device=images_u8.device)
         return torch.cat([det[..., :4] / gain, det[..., 4:]], dim=-1), valid
+
+
+def make_infer_fn(model: YoloV5, cfg: DetectConfig, tile: int = IM_WIDTH, device="cuda"):
+    """Build the (uint8 NHWC tile batch) -> (dets, valid) function.
+
+    Places ``model`` (in place: ``place_model``) and serves it through
+    ``ServingProgram``. The returned function takes a (B, tile, tile, 3)
+    uint8 tensor on the host (pinned for an asynchronous copy) or on the
+    device and returns (B, max_det, 6) rows [x0, y0, x1, y1, conf, cls] in
+    tile pixels plus the (B, max_det) validity mask, both on the device."""
+    dev = place_model(model, cfg.dtype, device)
+    program = ServingProgram(model, cfg, tile)
+
+    @torch.inference_mode()
+    def infer(images_u8: torch.Tensor):
+        return program(images_u8.to(dev, non_blocking=True))
 
     return infer
 

@@ -32,6 +32,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      batched_nms through the kernel against the plain path on one batch of
      each new path's own candidates (P6 at 1280, multi-label, TTA, TTA with
      multi-label); the card's f32 forward of n6 at 256 against the CPU's;
+  4d. the tooling phase, after cli.detect's runs: ``cli.aot export`` of mt at
+     640 (batch 8, the main path's seed-0 weights) traced for the card, in a
+     process of its own started after phase 2 (its imports and trace
+     overlap phases 3-4);
+     ``cli.detect --aot`` over the main path's 16 tiles (label files equal
+     to the main path's, or within the golden bar with the reason printed;
+     suppression launches == batches, inside the exported program);
+     ``cli.detect --profile`` (the trace holds one nms_suppress_kernel per
+     batch and convolution kernels; its top 10 device ops and device-idle
+     share); ``cli.export`` of an f32 m checkpoint, whose ``--weights
+     x.pt`` labels equal ``--weights CKPT``'s;
   5. time the serving program (mt at 640 and m6 at 1280, bf16, batch 128)
      with CUDA events (median of 3 windows after 3 warmups); time the
      suppression kernel on each serving program's own candidates (mt: each
@@ -377,6 +388,173 @@ def check_int8_routes(what: str, int8: bool) -> dict:
     if calls["plain"] or (calls["int_mm"] > 0) != int8:
         fail(f"{what}: int8 convs through _int_mm {calls['int_mm']}, through the plain route {calls['plain']}")
     return calls
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the serving tooling (cli.aot, cli.detect --aot and --profile,
+# cli.export)
+# ---------------------------------------------------------------------------
+
+def _label_rows(label_dir: str) -> dict:
+    """{file name: (N, 6) rows class cx cy w h conf} of a label directory."""
+    return {n: np.loadtxt(os.path.join(label_dir, n), ndmin=2) for n in sorted(os.listdir(label_dir))}
+
+
+def labels_agree(got_dir: str, want_dir: str, what: str) -> dict:
+    """Label files byte-equal, or else every row within the golden bar of
+    tests/test_golden_pipeline.py against the row at its place (box IoU
+    >= 0.99, confidence within 1e-3, same class), with the reason printed:
+    another cuDNN algorithm rounds the bf16 forward otherwise."""
+    names = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        fail(f"{what}: label files {sorted(os.listdir(got_dir))[:3]}... differ from {names[:3]}...")
+    equal = all(open(os.path.join(got_dir, n), "rb").read() == open(os.path.join(want_dir, n), "rb").read()
+                for n in names)
+    if equal:
+        return {"files": len(names), "equal": True}
+    worst_iou, worst_dconf = 1.0, 0.0
+    got_rows = _label_rows(got_dir)
+    for n, want in _label_rows(want_dir).items():
+        got = got_rows[n]
+        if got.shape != want.shape or not (got[:, 0] == want[:, 0]).all():
+            fail(f"{what}: {n} has other rows or classes than the live path's")
+        boxes = [np.concatenate([r[:, 1:3] - r[:, 3:5] / 2, r[:, 1:3] + r[:, 3:5] / 2], 1) for r in (got, want)]
+        lt, rb = np.maximum(boxes[0][:, :2], boxes[1][:, :2]), np.minimum(boxes[0][:, 2:], boxes[1][:, 2:])
+        inter = np.prod(np.clip(rb - lt, 0, None), 1)
+        areas = [np.prod(b[:, 2:] - b[:, :2], 1) for b in boxes]
+        iou = inter / np.maximum(areas[0] + areas[1] - inter, 1e-12)
+        worst_iou, worst_dconf = min(worst_iou, float(iou.min())), max(worst_dconf, float(np.abs(got[:, 5] - want[:, 5]).max()))
+    if worst_iou < 0.99 or worst_dconf > 1e-3:
+        fail(f"{what}: rows beyond the golden bar (worst IoU {worst_iou}, conf {worst_dconf})")
+    print(f"{what}: label files not byte-equal to the live path's, within the golden bar "
+          f"(worst IoU {worst_iou:.6f}, conf {worst_dconf:.2e}): another cuDNN algorithm", flush=True)
+    return {"files": len(names), "equal": False, "worst_iou": worst_iou, "worst_dconf": worst_dconf}
+
+
+def read_trace(logdir: str) -> dict:
+    """The device side of a torch.profiler Chrome trace (utils/profiler.py):
+    kernels, copies and sets by name with their summed ms, the top 10, and
+    the device-idle share of the span from the first device event's start
+    to the last one's end (busy = the union of the event intervals)."""
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        fail(f"--profile wrote {files} into {logdir}, expected one trace")
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        fail("the --profile trace holds no device event")
+    by_name = {}
+    for e in dev:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    busy, cur0, cur1 = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur1:
+            busy, cur0 = busy + cur1 - cur0, a
+        cur1 = max(cur1, b)
+    busy += cur1 - cur0
+    window = spans[-1][1] - spans[0][0]
+    kernels = [e["name"] for e in dev if e["cat"] == "kernel"]
+    kinds = {}
+    for name in kernels:
+        kind = next((k for k, keys in KERNEL_KINDS if any(x in name.lower() for x in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return {"file": files[0], "device_events": len(dev), "kernels": len(kernels),
+            "nms_suppress_kernel_events": sum("nms_suppress_kernel" in n for n in kernels),
+            "kernels_by_kind": kinds, "window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / window,
+            "top10_ms": [[n[:80], t] for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+AOT_EXPORT_CODE = """
+import json, sys, time
+t0 = time.perf_counter()
+from aquaculture_tpu_torch.cli import aot
+t1 = time.perf_counter()
+meta = aot.main(sys.argv[1:])
+print("AOT_EXPORT " + json.dumps({"import_s": t1 - t0, "export_s": time.perf_counter() - t1,
+                                  "device": meta["device"], "torch": meta["torch_version"]}), flush=True)
+"""
+
+
+def start_aot_export(d: str, batch: int) -> dict:
+    """``cli.aot export`` of mt at 640 (batch ``batch``, conf 1e-5, the main
+    path's seed-0 weights) on the card, in a process of its own started now:
+    its imports and its trace overlap the kernel and detect phases, which
+    time nothing. Killed at exit if still running."""
+    prog = os.path.join(d, "serving_mt.aqt")
+    log_path = os.path.join(d, "aot_export.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-c", AOT_EXPORT_CODE, "export", "--variant", "mt", "--batch",
+                             str(batch), "--conf", "1e-5", "--out", prog], stdout=log, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    job = {"proc": proc, "log": log, "log_path": log_path, "prog": prog, "t0": time.perf_counter()}
+    atexit.register(stop_processes, [(proc, log, log_path)])
+    return job
+
+
+def wait_aot_export(job: dict) -> dict:
+    try:
+        rc = job["proc"].wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("cli.aot export did not finish in 300 s")
+    job["log"].close()
+    text = open(job["log_path"]).read()
+    line = next((ln for ln in text.splitlines() if ln.startswith("AOT_EXPORT ")), None)
+    if rc != 0 or line is None:
+        fail(f"cli.aot export exited {rc}:\n{text[-3000:]}")
+    out = json.loads(line[len("AOT_EXPORT "):])
+    if out["device"] != "cuda":
+        fail(f"cli.aot export traced for {out['device']}, not cuda")
+    out.update(bytes=os.path.getsize(job["prog"]), wall_s=time.perf_counter() - job["t0"])
+    return out
+
+
+def run_tooling_phase(d: str, tile_dir: str, main_labels: str, n_tiles: int, batch: int, export: dict) -> dict:
+    """The serving tooling on the main path's tiles: the artifact of
+    start_aot_export (mt at 640, batch ``batch``, exported on the card);
+    cli.detect --aot (labels equal to the main path's, one suppression
+    launch per batch inside the exported program); cli.detect --profile
+    (a trace with one nms_suppress_kernel per batch and the convolutions;
+    its top 10 device ops and idle share); cli.export of an f32 m checkpoint
+    (--weights x.pt rows equal to --weights CKPT)."""
+    from aquaculture_tpu_torch.cli import export as cli_export
+    from aquaculture_tpu_torch.models.yolov5 import yolov5_init
+    from aquaculture_tpu_torch.utils.checkpoint import save_params
+
+    out = {"aot_export": export}
+    prog = os.path.join(d, "serving_mt.aqt")
+    aot_labels = os.path.join(d, "aot_labels")
+    out["aot_detect"] = run_main_path(tile_dir, aot_labels, n_tiles, batch, options=("--aot", prog))
+    out["aot_detect"]["labels_vs_main_path"] = labels_agree(aot_labels, main_labels, "cli.detect --aot")
+
+    logdir = os.path.join(d, "profile")
+    prof_labels = os.path.join(d, "profiled_labels")
+    out["profiled_detect"] = run_main_path(tile_dir, prof_labels, n_tiles, batch, options=("--profile", logdir))
+    out["profiled_detect"]["labels_vs_main_path"] = labels_agree(prof_labels, main_labels, "cli.detect --profile")
+    trace = read_trace(logdir)
+    n_batches = -(-n_tiles // batch)
+    if trace["nms_suppress_kernel_events"] != n_batches:
+        fail(f"the --profile trace holds {trace['nms_suppress_kernel_events']} nms_suppress_kernel events, "
+             f"expected {n_batches}")
+    if not trace["kernels_by_kind"].get("convolution"):
+        fail(f"the --profile trace holds no convolution kernel: {trace['kernels_by_kind']}")
+    out["profiled_detect"]["trace"] = trace
+
+    ckpt, pt = os.path.join(d, "m_f32"), os.path.join(d, "m_f32.pt")
+    save_params(ckpt, yolov5_init("m", 5, seed=0)[1], {"variant": "m", "num_classes": 5})
+    t0 = time.perf_counter()
+    cli_export.main(["--ckpt", ckpt, "--out", pt])
+    out["export_pt"] = {"seconds": time.perf_counter() - t0, "bytes": os.path.getsize(pt)}
+    from_ckpt, from_pt = os.path.join(d, "m_ckpt_labels"), os.path.join(d, "m_pt_labels")
+    out["export_pt"]["detect_ckpt"] = run_main_path(tile_dir, from_ckpt, n_tiles, batch, ("--weights", ckpt), "m")
+    out["export_pt"]["detect_pt"] = run_main_path(tile_dir, from_pt, n_tiles, batch, ("--weights", pt), "m")
+    eq = labels_agree(from_pt, from_ckpt, "cli.detect --weights x.pt vs --weights CKPT")
+    if not eq["equal"]:
+        fail("--weights x.pt rows differ from --weights CKPT rows on one card (same f32 weights, same program)")
+    out["export_pt"]["labels_equal"] = True
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1481,7 +1659,7 @@ def start_pod_ranks(d: str, root: str, boxes_csv: str, out: str, ckpt: str, go: 
     return procs
 
 
-def stop_pod_ranks(procs: list) -> None:
+def stop_processes(procs: list) -> None:
     for p, log, _ in procs:
         if p.poll() is None:
             p.kill()
@@ -1505,7 +1683,7 @@ def wait_pod_ranks(procs: list, what: str) -> list:
                 fail(f"{what}: pod rank {rank} printed no report: {text[-2000:]}")
             reports.append(json.loads(line[len("POD_RANK "):]))
     finally:
-        stop_pod_ranks(procs)
+        stop_processes(procs)
     return reports
 
 
@@ -1610,7 +1788,7 @@ def start_pod_phase(d: str, tile_dir: str, n_tiles: int) -> dict:
            "ckpt": os.path.join(d, "pod_ckpt"), "go": [os.path.join(d, "pod_go_run"), os.path.join(d, "pod_go_resume")]}
     pod["procs"] = [start_pod_ranks(d, root, boxes_csv, pod["out"], pod["ckpt"], go=go, tag=tag)
                     for go, tag in zip(pod["go"], ("run", "resume"))]
-    atexit.register(stop_pod_ranks, pod["procs"][0] + pod["procs"][1])
+    atexit.register(stop_processes, pod["procs"][0] + pod["procs"][1])
     return pod
 
 
@@ -1670,7 +1848,7 @@ def run_pod_phase(dev, card: str, pod: dict) -> dict:
             fail(f"cli.pod resume: launches != batches: {resumed}")
         rows_resumed = pod_rows_equal(out, ref, "cli.pod resume")
     finally:
-        stop_pod_ranks(procs + restart)
+        stop_processes(procs + restart)
     torch.cuda.empty_cache()
     return {"ranks": POD_RANKS, "tiles": n_tiles, "batch": POD_BATCH, "one_rank": {"tiles": one.tiles,
             "batches": one.batches, "rows": len(want)}, "per_rank": ranks, "rows_equal": rows,
@@ -2433,6 +2611,13 @@ def main() -> int:
     nms_cuda.build()
     print(f"build: nms_suppress {time.perf_counter() - t0:.2f} s ({nms_cuda.library_path()})", flush=True)
 
+    # the artifact of phase 4d, exported by a process of its own meanwhile
+    root = tempfile.TemporaryDirectory()
+    d = root.name
+    d4 = os.path.join(d, "tooling")
+    os.makedirs(d4)
+    aot_export = start_aot_export(d4, batch=8)
+
     # 3. kernels vs plain
     t0 = time.perf_counter()
     shapes = check_shapes()
@@ -2442,8 +2627,6 @@ def main() -> int:
     print(json.dumps({"phase": "int8_conv", **check_int8_conv(dev)}), flush=True)
 
     # 4. the main path; the tiles serve every later phase that needs files
-    root = tempfile.TemporaryDirectory()
-    d = root.name
     tile_dir, label_dir = os.path.join(d, "tiles"), os.path.join(d, "labels")
     os.makedirs(tile_dir)
     paths = write_tiles(tile_dir, 16)
@@ -2461,6 +2644,10 @@ def main() -> int:
     print(json.dumps({"phase": "int8_detect", **int8_detect}), flush=True)
     print(json.dumps({"phase": "nms_kernel_vs_plain_batch", **check_nms_paths(paths, dev)}), flush=True)
     mark("detect")
+    # 4d. the serving tooling on the main path's tiles
+    tooling = run_tooling_phase(d4, tile_dir, label_dir, n_tiles=16, batch=8, export=wait_aot_export(aot_export))
+    print(json.dumps({"phase": "tooling", **tooling, "card": card}), flush=True)
+    mark("tooling")
     # 4b/4c. aq-pipeline at full width, the trained fixture on its world (the
     # accuracy phase's), P6, overlap, --int8
     from examples.end_to_end_demo import render_world
@@ -2546,6 +2733,8 @@ def main() -> int:
         "launches_accuracy": accuracy["on_card"]["launches"],
         "launches_pod": pod["launches"],
         "launches_pod_resume": pod["launches_resume"],
+        "launches_aot_detect": tooling["aot_detect"]["launches"]["nms_suppress"],
+        "launches_profiled_detect": tooling["profiled_detect"]["launches"]["nms_suppress"],
         "max_abs_err": max(k["max_abs_err"], k6["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

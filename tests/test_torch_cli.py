@@ -165,5 +165,16 @@ def test_cli_new_flags_parse(argv, img, flags, tiles, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--profile=trace", "--aot=x.aqx"])
 def test_cli_rejects_flags_of_later_slices(flag, tiles, tmp_path):
+    """Both flags were a later slice's until the serving tooling came
+    (tests/test_torch_profiler.py and test_torch_aot.py drive them); what
+    is still refused is a flag without its value and, for --aot, a file
+    that is not the port's artifact, before any model is built."""
+    name, value = flag.split("=")
+    base = ["--source", tiles, "--out", str(tmp_path / "out"), "--device", "cpu"]
     with pytest.raises(SystemExit):
-        torch_cli.main(["--source", tiles, "--out", str(tmp_path), "--device", "cpu", flag])
+        torch_cli.main(base + [name])
+    if name == "--aot":
+        (tmp_path / value).write_bytes(b"nope")
+        with pytest.raises(ValueError, match="not an aquaculture_tpu_torch AOT artifact"):
+            torch_cli.main(base + [f"--aot={tmp_path / value}"])
+    assert not os.path.exists(tmp_path / "out")

@@ -23,7 +23,8 @@ PORT = ROOT / "aquaculture_tpu_torch"
 
 def _port_sources():
     scripts = [ROOT / "scripts" / n
-               for n in ("nms_suppress_ab.py", "serving_ab.py", "train_step_ab.py", "int_mm_probe.py")]
+               for n in ("nms_suppress_ab.py", "serving_ab.py", "train_step_ab.py", "int_mm_probe.py",
+                         "torch_aot_coldstart.py")]
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
 
 
@@ -396,6 +397,51 @@ def test_jax_facility_pickle_loads_without_jax(tmp_path):
         assert float(est.loc["2013-2015", "tonnage"]) > 0
         star = P.Polygon([(0, 0), (4, 1), (2, 2), (4, 3), (0, 4)])
         assert P.union(star, P.Polygon([(1, -1), (3, -1), (3, 5), (1, 5)])).area > star.area
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_tooling_loads_no_jax():
+    """models.aot (export, save, load, serve one batch), models.export and
+    cli.export (a .pt written and read back), cli.aot describe and
+    utils.profiler (one trace), in a fresh interpreter, load no JAX
+    module."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import numpy as np, torch
+        from aquaculture_tpu_torch.cli import aot as cli_aot, export as cli_export
+        from aquaculture_tpu_torch.config import DetectConfig
+        from aquaculture_tpu_torch.models import aot
+        from aquaculture_tpu_torch.models.export import export_full_model_pt
+        from aquaculture_tpu_torch.models.weights import load_jax_params, read_pt_state_dict
+        from aquaculture_tpu_torch.models.yolov5 import YoloV5, yolov5_init
+        from aquaculture_tpu_torch.utils.checkpoint import save_params
+        from aquaculture_tpu_torch.utils.profiler import annotate, maybe_trace
+        d = tempfile.mkdtemp()
+        model, params = yolov5_init("n", 2)
+        save_params(os.path.join(d, "ck"), params, {"variant": "n", "num_classes": 2})
+        cli_export.main(["--ckpt", os.path.join(d, "ck"), "--out", os.path.join(d, "x.pt")])
+        assert len(read_pt_state_dict(os.path.join(d, "x.pt"))) == 349
+        export_full_model_pt(YoloV5("n", 2), params, os.path.join(d, "full.pt"))
+        m = load_jax_params(model, params)
+        blob, meta = aot.export_serving(m, DetectConfig(img_size=64, conf_threshold=1e-6), batch_size=1,
+                                        tile=128, device="cpu")
+        path = os.path.join(d, "s.aqt")
+        aot.save_aot(path, blob, meta)
+        cli_aot.main(["describe", "--program", path])
+        fn, _ = aot.serving_fn(path, m, device="cpu")
+        with maybe_trace(os.path.join(d, "tr")), annotate("serve"):
+            det, valid = fn(torch.zeros((1, 128, 128, 3), dtype=torch.uint8))
+        assert det.shape == (1, 300, 6) and len(os.listdir(os.path.join(d, "tr"))) == 1
+        import shutil; shutil.rmtree(d)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
