@@ -13,3 +13,11 @@ among others.
 Imports torch, numpy, pandas, PIL and (in the augmentation) OpenCV only;
 nothing of JAX or of aquaculture_tpu.
 """
+
+from aquaculture_tpu_torch._exports import lazy_exports
+
+__version__ = "0.1.0"
+
+lazy_exports(globals(), {
+    "config": ("CRS_AREA", "CRS_LATLON", "CRS_MAPPING", "IM_HEIGHT", "IM_WIDTH", "LARGE_TIF_SIZE"),
+})

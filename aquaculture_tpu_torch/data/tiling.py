@@ -1,6 +1,6 @@
 """Array-level tile slicing of large downloaded images.
 
-A copy of ``split_image`` from aquaculture_tpu/data/tiling.py (reference
+A copy of aquaculture_tpu/data/tiling.py (reference
 src/load_data/tile_tifs.py:33-47: a 6144 px image yields a 6x6 grid of
 1024 px tiles named by pixel offset).
 """
@@ -11,7 +11,15 @@ from typing import List, Tuple
 
 import numpy as np
 
-from aquaculture_tpu_torch.config import IM_WIDTH
+from aquaculture_tpu_torch.config import IM_WIDTH, LARGE_TIF_SIZE
+from aquaculture_tpu_torch.data.filenames import TileSpec
+
+
+def tile_offsets(large: int = LARGE_TIF_SIZE, tile: int = IM_WIDTH) -> List[Tuple[int, int]]:
+    """(x_offset, y_offset) grid in the reference's iteration order
+    (x-major then y; tile_tifs.py:33-37 loops i in x, j in y)."""
+    steps = large // tile
+    return [(i * tile, j * tile) for i in range(steps) for j in range(steps)]
 
 
 def split_image(
@@ -53,3 +61,14 @@ def split_image(
     tiles = np.ascontiguousarray(view.transpose(2, 0, 1, 3, 4)).reshape(nx * ny, tile, tile, c)
     offsets = [(i * tile, j * tile) for i in range(nx) for j in range(ny)]
     return tiles, offsets
+
+
+def tile_specs_for_image(
+    year: int, bbox_ind: int, large: int = LARGE_TIF_SIZE, tile: int = IM_WIDTH
+) -> List[TileSpec]:
+    """The TileSpec of each tile of one downloaded image, in tile_offsets'
+    order."""
+    return [
+        TileSpec(year=year, bbox_ind=bbox_ind, x_offset=x, y_offset=y)
+        for x, y in tile_offsets(large, tile)
+    ]

@@ -1,7 +1,11 @@
 """Exact boolean overlay for arbitrary simple polygons (GEOS overlay
-replacement), a copy of aquaculture_tpu/geo/boolean.py with its Python
-sweep only (the JAX package can also run the sweep from a C++ library;
-that library is not part of the port).
+replacement), a copy of aquaculture_tpu/geo/boolean.py. Each lattice sweep
+runs on one of two engines of the same algorithm: "c++" (the default;
+csrc/booleanop.cc through geo/native_boolean.py, built at first use) or
+"python" (this module's sweep). ``set_sweep_engine`` or
+``using_sweep_engine`` chooses; with neither, ``AQUAGEO_NO_NATIVE=1`` (the
+JAX package's switch) selects "python". Nothing falls back from one engine
+to the other: a library that does not build raises.
 
 Implements the Martinez–Rueda–Feito sweep-line boolean algorithm
 (F. Martinez et al., "A simple algorithm for Boolean operations on
@@ -28,7 +32,9 @@ suite cross-checks against the signed-triangle-soup areas
 
 from __future__ import annotations
 
+import contextlib
 import heapq
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,6 +53,39 @@ _OPS = {
     "difference": DIFFERENCE,
     "xor": XOR,
 }
+
+# Sweep engines: the C++ library (geo/native_boolean.py) or this module's
+# Python sweep. None = not set: "c++" unless AQUAGEO_NO_NATIVE is set.
+SWEEP_ENGINES = ("c++", "python")
+_sweep_engine: Optional[str] = None
+
+
+def sweep_engine() -> str:
+    """The engine that lattice sweeps run on now."""
+    if _sweep_engine is not None:
+        return _sweep_engine
+    return "python" if os.environ.get("AQUAGEO_NO_NATIVE") else "c++"
+
+
+def set_sweep_engine(engine: Optional[str]) -> Optional[str]:
+    """Set the process's sweep engine ("c++" or "python"; None returns to
+    the default) and return the previous setting."""
+    global _sweep_engine
+    if engine is not None and engine not in SWEEP_ENGINES:
+        raise ValueError(f"unknown sweep engine {engine!r}; one of {SWEEP_ENGINES}")
+    previous, _sweep_engine = _sweep_engine, engine
+    return previous
+
+
+@contextlib.contextmanager
+def using_sweep_engine(engine: str):
+    """Run the body's sweeps on ``engine``, then restore the setting."""
+    previous = set_sweep_engine(engine)
+    try:
+        yield
+    finally:
+        set_sweep_engine(previous)
+
 
 # Edge annotation for overlapping collinear segments
 _NORMAL = 0
@@ -1012,12 +1051,29 @@ def _members_touch(g: _poly.Geometry) -> bool:
 
 
 def _lattice_sweep(subj_rings, clip_rings, operation, s_maxx, minmaxx):
-    """Run one sweep on lattice-integral rings (the Python sweep; the JAX
-    package runs a C++ build of the same algorithm when it has one).
+    """Run one sweep on lattice-integral rings, on ``sweep_engine()``.
 
     Returns the contour list (points stay ON the lattice — crossing
     splits round back onto it), so the output can feed another sweep on
     the same lattice with exact point identity."""
+    if sweep_engine() == "c++":
+        from aquaculture_tpu_torch.geo import native_boolean
+
+        contours = []
+        for pts, hole_of in native_boolean.sweep_native(subj_rings, clip_rings, operation, s_maxx, minmaxx):
+            c = _Contour()
+            c.points = [(float(x), float(y)) for x, y in pts]
+            c.hole_of = hole_of if hole_of >= 0 else None
+            contours.append(c)
+        for cid, c in enumerate(contours):
+            # bounds check is defense-in-depth: the C++ engine guards the
+            # degenerate lower_cid=-1 case itself (booleanop.cc
+            # initialize_contour), but a stray parent id must never crash
+            if c.hole_of is not None and 0 <= c.hole_of < len(contours):
+                contours[c.hole_of].hole_ids.append(cid)
+            else:
+                c.hole_of = None
+        return contours
     queue = _fill_queue(subj_rings, clip_rings)
     sorted_events = _subdivide(queue, operation, s_maxx, minmaxx)
     return _connect_edges(sorted_events)
@@ -1291,6 +1347,8 @@ def boolean_op(subject: _poly.Geometry, clipping: _poly.Geometry, op: str,
     s_maxx_t = (sb[2] - cx) * f + 1.0
     minmaxx_t = (min(sb[2], cb[2]) - cx) * f + 1.0
 
+    # the sweep runs on sweep_engine(): the C++ library (the GEOS-equivalent
+    # component; same algorithm on the same lattice) or the Python sweep
     contours = _lattice_sweep(subj_rings, clip_rings, operation, s_maxx_t, minmaxx_t)
     inv = 1.0 / f
     for c in contours:

@@ -2,8 +2,9 @@
 models.export, models.quantize and models.weights hold the serving
 artifact, the ``.pt`` writers, int8 PTQ and the weight bridges)."""
 
-from aquaculture_tpu_torch.models.yolov5 import (  # noqa: F401
-    VARIANTS,
-    YoloV5,
-    yolov5_init,
-)
+from aquaculture_tpu_torch._exports import lazy_exports
+
+lazy_exports(globals(), {
+    "plan": ("ServingPlan", "TrainingPlan", "recommend_serving", "recommend_training"),
+    "yolov5": ("VARIANTS", "YoloV5", "yolov5_init"),
+})

@@ -14,6 +14,7 @@ from aquaculture_tpu_torch.parallel.mesh import (  # noqa: F401
     make_mesh,
     param_shardings,
     put_global,
+    replicated,
     shard_batch,
     shard_local_batch,
 )

@@ -68,6 +68,16 @@ def batch_sharding(mesh: Optional[DeviceMesh], batch_size: int) -> slice:
     return slice(r * per, (r + 1) * per)
 
 
+def replicated(mesh: Optional[DeviceMesh] = None) -> slice:
+    """The rows of a tensor that every rank holds whole: ``slice(None)``,
+    the whole batch on every rank. Counterpart of the JAX package's
+    ``replicated`` (``NamedSharding(mesh, P())``): in the port's layout a
+    sharding is the slice of the leading axis a rank keeps, beside
+    ``batch_sharding``'s contiguous block, and a replicated tensor keeps
+    all of it on every rank of any mesh."""
+    return slice(None)
+
+
 def _to_tensor(v, device) -> torch.Tensor:
     t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
     return t.to(device, non_blocking=True)

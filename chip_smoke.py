@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. card, torch and nvcc versions;
-  2. build the CUDA kernel(s) from csrc/ with nvcc for sm_90a;
+  2. build the CUDA kernel(s) from csrc/ with nvcc for sm_90a, and the C++
+     overlay sweep (csrc/booleanop.cc) with g++;
   3. hold each kernel against its plain PyTorch version on the card, keep
      masks exactly equal (tolerance 0), over several input suites;
   4. drive the port's main path, ``aquaculture_tpu_torch.cli.detect.main``
@@ -34,8 +35,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      multi-label); the card's f32 forward of n6 at 256 against the CPU's;
   4d. the tooling phase, after cli.detect's runs: ``cli.aot export`` of mt at
      640 (batch 8, the main path's seed-0 weights) traced for the card, in a
-     process of its own started after phase 2 (its imports and trace
-     overlap phases 3-4);
+     process of its own started before phase 2 (its imports and trace
+     overlap phases 2-4);
      ``cli.detect --aot`` over the main path's 16 tiles (label files equal
      to the main path's, or within the golden bar with the reason printed;
      suppression launches == batches, inside the exported program);
@@ -120,7 +121,14 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      warm call), the host seconds of ``prepare_bootstrap_inputs``, the peak
      memory, and a degenerate lattice against its closed form
      (``scripts/tonnage_world.py`` profiles that call, and times the CLIs
-     on the whole world).
+     on the whole world). The CLIs run on the default overlay sweep engine,
+     the C++ one (its sweep counter > 0); one more card cli.facilities on
+     the Python engine (no C++ sweep) must give equal facility frames;
+ 11. after 5, ``plan``: ``cli.plan --json`` in-process for the default,
+     --latency-sensitive, --boundary-accuracy and --train, then one batch
+     of the default recommendation served through make_infer_fn with the
+     counters zeroed around it (one suppression launch), and the kernel's
+     mask on that batch's own candidates equal to the plain version's.
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -130,6 +138,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import atexit
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -1103,6 +1112,67 @@ def time_serving_and_kernel(dev, card: str, tiles, variant: str = "mt", shapes=T
     out["conv_flops_per_tile"] = flops
     out["kernel"] = kernel_rows[0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the serving plan (cli.plan)
+# ---------------------------------------------------------------------------
+
+PLAN_CASES = (("default", ()), ("latency_sensitive", ("--latency-sensitive",)),
+              ("boundary_accuracy", ("--boundary-accuracy",)), ("train", ("--train",)))
+
+
+def run_plan_phase(dev, card: str, tiles) -> dict:
+    """cli.plan --json in-process for PLAN_CASES, then one batch of the
+    default recommendation served on the card through make_infer_fn with the
+    launch counter zeroed around it (one launch), and the suppression on
+    that batch's own candidates held exactly against the plain version.
+    ``tiles`` (phase 5's serving batch) is reused when the recommended batch
+    has its size."""
+    import io
+
+    import torch
+
+    from aquaculture_tpu_torch.cli import plan as cli_plan
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.ops import nms_cuda
+    from aquaculture_tpu_torch.pipeline import make_infer_fn, preprocess
+
+    plans = {}
+    for name, argv in PLAN_CASES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_plan.main([*argv, "--json"])
+        plans[name] = json.loads(buf.getvalue())
+        print(json.dumps({"phase": "plan", "case": name, **{k: v for k, v in plans[name].items() if k != "notes"},
+                          "notes": len(plans[name]["notes"])}), flush=True)
+    rec = plans["default"]
+    if rec["int8"] or rec["tta"] or rec["overlap_px"]:
+        fail(f"the default plan {rec} asks for a serving path this phase does not drive")
+    b, img = rec["batch"], rec["img_size"]
+    reused = tiles.shape[0] == b
+    if not reused:
+        tiles = serving_tiles(dev, b)
+    model = load_model(None, rec["variant"], 5)
+    infer = make_infer_fn(model, DetectConfig(img_size=img, conf_threshold=1e-5), tile=1024, device=dev)
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    det, valid = infer(tiles)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = nms_cuda.launches
+    if launches != 1:
+        fail(f"one batch of the plan's recommendation launched nms_suppress {launches} times, expected 1")
+    if tuple(det.shape) != (b, 300, 6) or not torch.isfinite(det).all() or not valid.any():
+        fail(f"the plan's batch: rows {tuple(det.shape)}, finite {bool(torch.isfinite(det).all())}")
+    with torch.inference_mode():
+        preds = model(preprocess(tiles, img, torch.bfloat16))
+    check = nms_kernel_vs_plain(preds, what=f"the plan's {rec['variant']} b{b}")
+    return {"plans": {k: {f: v for f, v in p.items() if f != "notes"} for k, p in plans.items()},
+            "served": {"variant": rec["variant"], "batch": b, "img": img, "dtype": "bfloat16",
+                       "reused_serving_tiles": bool(reused), "first_batch_s": seconds, "launches": launches,
+                       "rows": int(valid.sum()), **check}}
 
 
 # ---------------------------------------------------------------------------
@@ -2522,8 +2592,11 @@ def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
     for the CPU side would spend longer importing than the side takes.)"""
     from aquaculture_tpu_torch.cli import facilities as cli_facilities
     from aquaculture_tpu_torch.cli import tonnage as cli_tonnage
+    from aquaculture_tpu_torch.geo import boolean, native_boolean
     from aquaculture_tpu_torch.tonnage.periods import PASSES
 
+    if boolean.sweep_engine() != "c++":
+        fail(f"the overlay's default sweep engine is {boolean.sweep_engine()!r}, not 'c++' (AQUAGEO_NO_NATIVE set?)")
     t_phase, at = time.perf_counter(), {}
 
     def stamp(name):
@@ -2533,10 +2606,26 @@ def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
     stamp("world")
     pkl = os.path.join(d, "facility_cuda.pkl")
     out = {}
+    native_boolean.sweeps = 0
     t0 = time.perf_counter()
     fac = cli_facilities.main(_facilities_argv(paths, pkl, "cuda"))
     fac_s = time.perf_counter() - t0
+    cxx_sweeps = native_boolean.sweeps
     stamp("cli_facilities_card")
+    # the same run on the Python sweep: equal facility frames
+    native_boolean.sweeps = 0
+    t0 = time.perf_counter()
+    with boolean.using_sweep_engine("python"):
+        fac_py = cli_facilities.main(_facilities_argv(paths, os.path.join(d, "facility_python.pkl"), "cuda"))
+    fac_py_s = time.perf_counter() - t0
+    if cxx_sweeps == 0 or native_boolean.sweeps != 0:
+        fail(f"cli.facilities ran {cxx_sweeps} C++ sweeps by default and {native_boolean.sweeps} on the "
+             "Python engine (expected > 0 and 0)")
+    mine, python = facility_tables(fac), facility_tables(fac_py)
+    if list(mine) != list(python) or not all(mine[k].equals(python[k]) for k in python):
+        fail(f"cli.facilities on the c++ and python sweep engines differ in "
+             f"{[k for k in python if k not in mine or not mine[k].equals(python[k])]}")
+    stamp("cli_facilities_python_engine")
     runs = []
     for i in range(2):
         t0 = time.perf_counter()
@@ -2547,7 +2636,6 @@ def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
     tables, est_cpu, fac_cpu_s, ton_cpu_s = facilities_tonnage_cpu(paths, d)
     stamp("cpu_reference")
     est, est2 = runs[0], runs[2]
-    mine = facility_tables(fac)
     if list(mine) != list(tables) or not all(mine[k].equals(tables[k]) for k in tables):
         bad = [k for k in tables if k not in mine or not mine[k].equals(tables[k])]
         fail(f"cli.facilities on the card != --device cpu in {bad}")
@@ -2570,7 +2658,9 @@ def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
                            "cages": int(len(fac.facility_cages)),
                            "min_max_lists_differ": int(sum(a != b for a, b in
                                                            zip(final["cage_ids_min"], final["cage_ids_max"]))),
-                           "cuda_s": fac_s, "cpu_s": fac_cpu_s, "equal_card_vs_cpu": True},
+                           "cuda_s": fac_s, "cpu_s": fac_cpu_s, "equal_card_vs_cpu": True,
+                           "sweep_engine": "c++", "cxx_sweeps": cxx_sweeps, "python_engine_s": fac_py_s,
+                           "equal_cxx_vs_python": True},
         "cli_tonnage": {"K_card": TONNAGE_K_CLI, "K_cpu": TONNAGE_K_CPU, "cuda_s": [runs[1], runs[3]],
                         "cpu_s": ton_cpu_s, "repeat_identical": True, "max_z": float(z.max()),
                         "tonnage": est.round(2).to_dict("index")},
@@ -2584,6 +2674,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    from aquaculture_tpu_torch.geo import native_boolean
     from aquaculture_tpu_torch.ops import nms_cuda
 
     dev = torch.device("cuda", 0)
@@ -2606,17 +2697,20 @@ def main() -> int:
           flush=True)
     print(json.dumps({"probe": probe()}), flush=True)
 
-    # 2. build
-    t0 = time.perf_counter()
-    nms_cuda.build()
-    print(f"build: nms_suppress {time.perf_counter() - t0:.2f} s ({nms_cuda.library_path()})", flush=True)
-
     # the artifact of phase 4d, exported by a process of its own meanwhile
     root = tempfile.TemporaryDirectory()
     d = root.name
     d4 = os.path.join(d, "tooling")
     os.makedirs(d4)
     aot_export = start_aot_export(d4, batch=8)
+
+    # 2. build the kernel (nvcc) and the overlay sweep (g++) at once
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        sweep_build = pool.submit(lambda: (native_boolean.build(), time.perf_counter() - t0)[1])
+        nms_cuda.build()
+        print(f"build: nms_suppress {time.perf_counter() - t0:.2f} s ({nms_cuda.library_path()})", flush=True)
+        print(f"build: booleanop {sweep_build.result():.2f} s ({native_boolean.library_path()})", flush=True)
 
     # 3. kernels vs plain
     t0 = time.perf_counter()
@@ -2644,7 +2738,11 @@ def main() -> int:
     print(json.dumps({"phase": "int8_detect", **int8_detect}), flush=True)
     print(json.dumps({"phase": "nms_kernel_vs_plain_batch", **check_nms_paths(paths, dev)}), flush=True)
     mark("detect")
-    # 4d. the serving tooling on the main path's tiles
+    # 4d. the serving tooling on the main path's tiles. Its --aot detect's
+    # first load imports the export machinery (dynamo): import it while the
+    # export process finishes, not after
+    import torch._dynamo  # noqa: F401
+
     tooling = run_tooling_phase(d4, tile_dir, label_dir, n_tiles=16, batch=8, export=wait_aot_export(aot_export))
     print(json.dumps({"phase": "tooling", **tooling, "card": card}), flush=True)
     mark("tooling")
@@ -2707,9 +2805,13 @@ def main() -> int:
                       **{c: times_int8[c]["tiles_per_s"] / times[c]["tiles_per_s"] for c in ("conf_0.25", "conf_1e-05")},
                       "card": card}), flush=True)
     k, k6 = times["kernel"], times_p6["kernel"]
+    mark("serving_times")
+    # 11. the serving plan: its recommendations, one batch of the default served
+    plan = run_plan_phase(dev, card, tiles)
+    print(json.dumps({"phase": "plan_served", **plan["served"], "card": card}), flush=True)
     del tiles
     torch.cuda.empty_cache()
-    mark("serving_times")
+    mark("plan")
 
     # 6. training: f32 card vs CPU, cli.train at full width, its checkpoint
     # served over the main path's tiles, step and feed times
@@ -2735,6 +2837,7 @@ def main() -> int:
         "launches_pod_resume": pod["launches_resume"],
         "launches_aot_detect": tooling["aot_detect"]["launches"]["nms_suppress"],
         "launches_profiled_detect": tooling["profiled_detect"]["launches"]["nms_suppress"],
+        "launches_plan": plan["served"]["launches"],
         "max_abs_err": max(k["max_abs_err"], k6["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -24,7 +24,7 @@ PORT = ROOT / "aquaculture_tpu_torch"
 def _port_sources():
     scripts = [ROOT / "scripts" / n
                for n in ("nms_suppress_ab.py", "serving_ab.py", "train_step_ab.py", "int_mm_probe.py",
-                         "torch_aot_coldstart.py")]
+                         "torch_aot_coldstart.py", "plan_sweep.py")]
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
 
 
@@ -442,6 +442,50 @@ def test_tooling_loads_no_jax():
             det, valid = fn(torch.zeros((1, 128, 128, 3), dtype=torch.uint8))
         assert det.shape == (1, 300, 6) and len(os.listdir(os.path.join(d, "tr"))) == 1
         import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_plan_surface_and_cxx_sweep_load_no_jax():
+    """models.plan and cli.plan (a plan and its JSON), the package surface
+    (every re-export of geo, data, post, eval, ops, train, models and the
+    root), geo.boxes, data.blank, and the C++ sweep (built from
+    csrc/booleanop.cc, one overlay on each engine), in a fresh
+    interpreter, load no JAX module."""
+    code = textwrap.dedent("""
+        import contextlib, io, json, sys
+        import numpy as np
+        import aquaculture_tpu_torch as root
+        from aquaculture_tpu_torch import data, eval, geo, models, ops, post, train
+        from aquaculture_tpu_torch.cli import plan as cli_plan
+        from aquaculture_tpu_torch.data import blank
+        from aquaculture_tpu_torch.geo import boolean, boxes, native_boolean, polygon as P
+        from aquaculture_tpu_torch.models.plan import recommend_serving, recommend_training
+        assert recommend_serving().variant == "mt" and recommend_training().batch == 128
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_plan.main(["--train", "--json"])
+        assert json.loads(out.getvalue())["compute_dtype"] == "bfloat16"
+        for pkg in (root, data, eval, geo, models, ops, post, train):
+            for name in pkg.__all__:
+                getattr(pkg, name)
+        assert boxes.box_iou(np.array([[0, 0, 2, 2.0]]), np.array([[1, 1, 3, 3.0]]))[0, 0] > 0
+        assert blank.is_blank(np.zeros((8, 8, 3), np.uint8))
+        native_boolean.build()
+        a, b = P.Polygon(np.array([(0, 0), (4, 0), (2, 3)], float)), P.box(1, 1, 5, 5)
+        got = {}
+        for engine in boolean.SWEEP_ENGINES:
+            with boolean.using_sweep_engine(engine):
+                got[engine] = boolean.boolean_op(a, b, "union").area
+        assert got["c++"] == got["python"] > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))
                      or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
