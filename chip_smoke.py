@@ -90,7 +90,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      equal facility files; on fold 0's train split the card's grid sweep
      equal to the plain per-combination loop on a 12-combination sub-grid
      (NaN in place); ``cli.evaluate`` on the card with the full 6,560-
-     combination grid over 5 folds (the sweep's seconds per fold, the
+     combination grid over EVAL_FOLDS = 3 folds (the sweep's seconds per fold, the
      match matrix's host seconds, the fold rows, the held-out table, which
      must equal test_set_performance with --device cpu). The CPU references
      run in worker processes beside the card's side;
@@ -128,7 +128,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      --latency-sensitive, --boundary-accuracy and --train, then one batch
      of the default recommendation served through make_infer_fn with the
      counters zeroed around it (one suppression launch), and the kernel's
-     mask on that batch's own candidates equal to the plain version's.
+     mask on that batch's own candidates equal to the plain version's;
+ 12. after 10, ``acquire_to_map``, from the WMS download to the facility
+     map: (a) ``cli.acquire wms`` through the port's HttpWmsTransport
+     against a WMS GetMap server on 127.0.0.1 (a thread of this process)
+     over a coast polygon that tiles into 3 download boxes of 1200 m (one
+     answered all white: 2 downloaded, 1 blank; a second run fetches
+     nothing), ``bathymetry`` on two .asc grids (the GeoTIFF equal to
+     merge_asc_grids'), ``landfilter`` on .shp linework (>= 1 primary
+     face); (b) the reference's tiling step (each stored 6144 px TIFF into
+     36 JPEG tiles named by the filename codec), then
+     ``load_final_image_boxes`` in a worker process (spawned before phase
+     10, so that it has imported by then) while (c) runs: 72 tiles -> 71
+     boxes, the banded tile's box shrunk; (c) ``cli.pipeline`` on mt at 640 over those tiles
+     (batch 32) with (a)'s download boxes and land, the counters zeroed
+     around it: 3 launches, rows inside their download boxes and none on
+     land, each launch's keep mask equal to the plain version's on the
+     same candidates; (d) cli.figures' computations on phase 10's outputs:
+     ``clustered_detections`` on the card equal to the CPU's, the P/R
+     sweep over 100 thresholds, Figure 4's classification, the Trujillo
+     tags, unique locations, the HTML map with one point per facility (the
+     plots only where matplotlib imports).
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -1499,8 +1519,10 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def probe() -> dict:
-    """What the card's machine offers later perf work: triton, CUTLASS's
-    headers (a fused int8 conv), matplotlib (figures). Gates nothing."""
+    """What the card's machine offers later work: triton, CUTLASS's
+    headers (a fused int8 conv), matplotlib (figures), libjpeg's and
+    libtiff's headers and libraries (the parked native tile loader).
+    Gates nothing."""
     out = {}
     try:
         import triton
@@ -1517,6 +1539,15 @@ def probe() -> dict:
         out["matplotlib"] = matplotlib.__version__
     except ImportError as e:
         out["matplotlib"] = f"absent: {e}"
+    # what the parked native tile loader needs (native/Makefile links -ljpeg -ltiff)
+    out["headers"] = {h: [r for r in ("/usr/include", "/usr/local/include") if os.path.exists(os.path.join(r, h))]
+                      for h in ("jpeglib.h", "tiffio.h")}
+    try:
+        libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError) as e:
+        libs = [f"ldconfig failed: {e}"]
+    out["libraries"] = {lib: sorted({ln.split()[0] for ln in libs if ln.strip().startswith(lib + ".so")})
+                        for lib in ("libjpeg", "libtiff")}
     return out
 
 
@@ -1943,6 +1974,10 @@ EVAL_TILE_M = 200.0  # EPSG:3857 meters of one 1024 px tile (6 per 1200 m downlo
 # (eps, min size) of the DBSCAN checks: the study's operating point, the
 # grid's smallest eps with every kept point a core, its largest eps
 DBSCAN_CHECKS = ((50.0, 5), (10.0, 1), (150.0, 10))
+# cli.evaluate's folds (the reference uses 5): the full grid is swept on
+# every fold, and each fold adds ~1.5 s of host work (the subsets, the
+# match matrix), so 3 folds keep the script within its 180 s
+EVAL_FOLDS = 3
 # the sub-grid on which the card's sweep is held against the plain loop
 EVAL_SUB_GRID = dict(confidence_thresholds=(0.6, 0.785, 1.005), distance_thresholds=(10.0, 50.0),
                      minimum_cluster_sizes=(1, 5))
@@ -2174,7 +2209,7 @@ def check_sub_grid(got, card_s: float, train: tuple, plain) -> dict:
 
 def drive_evaluate(d: str, paths: tuple) -> tuple:
     """cli.evaluate on the card with the full GridConfig() (6,560
-    combinations, 5 folds, seed 1): the fold rows, the held-out table, and
+    combinations, EVAL_FOLDS folds, seed 1): the fold rows, the held-out table, and
     per fold the sweep's seconds (CUDA-synchronized) and the match matrix's
     host seconds."""
     import torch
@@ -2200,15 +2235,15 @@ def drive_evaluate(d: str, paths: tuple) -> tuple:
     kfold._sweep, kfold._match_matrix = timed(real_sweep, sweep_s, True), timed(real_match, match_s, False)
     try:
         res, test, seconds = cli_evaluate.main(["--detections", paths[0], "--labels", paths[1], "--images", paths[2],
-                                                "--out", os.path.join(d, "folds.csv")])
+                                                "--out", os.path.join(d, "folds.csv"), "--folds", str(EVAL_FOLDS)])
     finally:
         kfold._sweep, kfold._match_matrix = real_sweep, real_match
-    if len(res) != 10 or len(sweep_s) != 5 or len(match_s) != 5:
-        fail(f"cli.evaluate: {len(res)} fold rows and {len(sweep_s)} sweeps for 5 folds")
+    if len(res) != 2 * EVAL_FOLDS or len(sweep_s) != EVAL_FOLDS or len(match_s) != EVAL_FOLDS:
+        fail(f"cli.evaluate: {len(res)} fold rows and {len(sweep_s)} sweeps for {EVAL_FOLDS} folds")
     num = res[[c for c in res.columns if c != "metric"]].to_numpy(np.float64)
     if not np.isfinite(num).all() or test.shape != (2, 2) or not np.isfinite(test.to_numpy()).all():
         fail(f"cli.evaluate: non-finite fold rows or held-out table:\n{res}\n{test}")
-    return test, {"grid": "GridConfig() 82 x 8 x 10 = 6,560, 5 folds, seed 1", "sweep_s_per_fold": sweep_s,
+    return test, {"grid": f"GridConfig() 82 x 8 x 10 = 6,560, {EVAL_FOLDS} folds, seed 1", "sweep_s_per_fold": sweep_s,
                   "match_matrix_host_s_per_fold": match_s, "cli_host_s": seconds,
                   "fold_rows": res.to_dict("records"), "held_out": test.to_dict("index")}
 
@@ -2669,6 +2704,532 @@ def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. acquire_to_map: from the WMS download through the detector to the map
+# ---------------------------------------------------------------------------
+
+ACQ_ORIGIN = (560_000.0, 5_330_000.0)  # EPSG:3857 south-west corner, the Var coast
+ACQ_YEAR = 2014
+ACQ_BOX_M = 1200.0
+ACQ_WHITE_BOX = 1          # the server answers all white for this box: the probe calls it blank
+ACQ_WHITE_TILE = (2048, 1024)  # box 0's all-white 1024 px tile (x, y offsets)
+ACQ_BAND_TILE = (4096, 3072)   # box 0's tile with a white full-height band
+ACQ_BAND_COL = 704         # the band: columns 704-1023, whole 16 px JPEG blocks
+ACQ_BATCH = 32
+ACQ_TILES = 72             # 2 downloads x 36 tiles
+ACQ_ASC = """ncols 6
+nrows 4
+{corner} {x0}
+{ycorner} 42.9
+cellsize 0.05
+NODATA_value -9999
+-12 -14 -9999 -20 -25 -30
+-10 -13 -15 -18 -22 -28
+-8 -9999 -12 -15 -19 -24
+-5 -7 -9 -12 -16 -21
+"""
+
+
+class WmsLoopback:
+    """A WMS GetMap endpoint on 127.0.0.1, served by a thread of this
+    process: ``respond(layer, bbox, size)`` makes each answer's bytes.
+    Every request is recorded as (layer, bbox, size); a request whose
+    parameter set is not HttpWmsTransport's is refused with 400."""
+
+    PARAMS = {"SERVICE", "VERSION", "REQUEST", "LAYERS", "STYLES", "SRS", "BBOX", "WIDTH", "HEIGHT",
+              "FORMAT", "TRANSPARENT", "EXCEPTIONS"}
+
+    def __init__(self, respond):
+        import http.server
+        import threading
+        import urllib.parse
+
+        self.requests = []
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                q = {k: v[0] for k, v in urllib.parse.parse_qs(urllib.parse.urlparse(self.path).query).items()}
+                if set(q) != WmsLoopback.PARAMS or q["REQUEST"] != "GetMap":
+                    self.send_error(400, f"not a GetMap request: {sorted(q)}")
+                    return
+                bbox = tuple(float(v) for v in q["BBOX"].split(","))
+                size = int(q["WIDTH"])
+                outer.requests.append((q["LAYERS"], bbox, size))
+                body = respond(q["LAYERS"], bbox, size)
+                self.send_response(200)
+                self.send_header("Content-Type", "image/tiff")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/wms"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+
+@contextlib.contextmanager
+def loopback_only():
+    """urllib sends nothing through a proxy while this holds: the WMS
+    requests of the acquisition phase stay on 127.0.0.1."""
+    keys = ("no_proxy", "NO_PROXY")
+    old = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ[k] = "127.0.0.1,localhost"
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tiff_bytes(img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="TIFF")
+    return buf.getvalue()
+
+
+def sea_image(seed: int, px: int = 6144, white_tile=None, band_tile=None):
+    """A ``px`` square RGB sea texture, each 1024 px tile a shifted copy of
+    one seeded noise tile; ``white_tile`` (x, y) is painted white, and
+    ``band_tile`` gets a white band over its columns ACQ_BAND_COL-1023."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 96, (1024, 1024, 3), dtype=np.uint8) + np.array([20, 60, 90], np.uint8)
+    img = np.empty((px, px, 3), np.uint8)
+    for k, (y, x) in enumerate((y, x) for y in range(0, px, 1024) for x in range(0, px, 1024)):
+        img[y:y + 1024, x:x + 1024] = base + np.uint8(k % 7)
+    if white_tile is not None:
+        x, y = white_tile
+        img[y:y + 1024, x:x + 1024] = 255
+    if band_tile is not None:
+        x, y = band_tile
+        img[y:y + 1024, x + ACQ_BAND_COL:x + 1024] = 255
+    return img
+
+
+def write_acquire_world(d: str) -> dict:
+    """The acquisition inputs: the coast polygon (EPSG:3857 GeoJSON) that
+    tile_shapefile cuts into 3 download boxes of 1200 m, the coastline
+    loops (mainland, one island), country and EEZ as .shp in lon/lat
+    (geo/shapefile.py), and two EMODnet-style .asc grids, one
+    corner- and one center-registered."""
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.geo import crs as C
+    from aquaculture_tpu_torch.geo import polygon as P
+    from aquaculture_tpu_torch.geo.shapefile import write_shapefile
+
+    x0, y0 = ACQ_ORIGIN
+    rng = np.random.default_rng(12)
+    # the coast strip: bounds (x0, y0, x0 + 3599, y0 + 1199), so 3 x 1 boxes
+    xs = np.linspace(x0, x0 + 3 * ACQ_BOX_M - 1, 25)
+    top = y0 + rng.uniform(800, 1150, len(xs))
+    top[5] = y0 + ACQ_BOX_M - 1
+    coast = P.Polygon(np.concatenate([np.stack([xs, top], 1), [[xs[-1], y0], [x0, y0]]], 0))
+    paths = {k: os.path.join(d, f) for k, f in (("coast", "coast.geojson"), ("coastline", "coastline.shp"),
+                                                  ("country", "country.shp"), ("eez", "eez.shp"))}
+    gf.GeoFrame({"name": ["coast"]}, geometry=[coast], crs=3857).to_file(paths["coast"])
+
+    def lonlat(ring):
+        ring = np.asarray(ring, np.float64)
+        return P.Polygon(np.stack(C.transform(3857, 4326, ring[:, 0], ring[:, 1]), 1))
+
+    # mainland: a jagged shore through the boxes, land to the north
+    sx = np.linspace(x0 - 600, x0 + 4200, 33)
+    sy = y0 + 950 + rng.uniform(-100, 100, len(sx))
+    mainland = np.concatenate([np.stack([sx, sy], 1), [[sx[-1], y0 + 3000], [sx[0], y0 + 3000]]], 0)
+    island = [(x0 + 1500, y0 + 300), (x0 + 1700, y0 + 300), (x0 + 1700, y0 + 450), (x0 + 1500, y0 + 450)]
+    country = [(x0 - 1000, y0 - 500), (x0 + 5000, y0 - 500), (x0 + 5000, y0 + 3500), (x0 - 1000, y0 + 3500)]
+    eez = [(x0 - 1000, y0 - 500), (x0 + 5000, y0 - 500), (x0 + 5000, y0 + 200), (x0 - 1000, y0 + 200)]
+    for key, rings in (("coastline", [mainland, island]), ("country", [country]), ("eez", [eez])):
+        write_shapefile(paths[key], gf.GeoFrame({"name": [f"{key}{i}" for i in range(len(rings))]},
+                                                geometry=[lonlat(r) for r in rings], crs=4326))
+    for name, corner, x in (("F4_2022", "xllcorner", 4.9), ("F5_2022", "xllcenter", 5.225)):
+        paths[name] = os.path.join(d, f"{name}.asc")
+        with open(paths[name], "w") as f:
+            f.write(ACQ_ASC.format(corner=corner, x0=x, ycorner=corner.replace("x", "y", 1)))
+    return paths
+
+
+def _box_of(bbox) -> int:
+    return int(round((bbox[0] - ACQ_ORIGIN[0]) / ACQ_BOX_M))
+
+
+def acquire_images(d: str, world: dict) -> dict:
+    """Part (a): cli.acquire wms against the loopback WMS (the port's
+    HttpWmsTransport, unpatched), run twice; bathymetry on the two .asc
+    grids; landfilter on the .shp linework. Returns what the later parts
+    read and the checks' numbers."""
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.acquire.bathymetry import merge_asc_grids, read_asc
+    from aquaculture_tpu_torch.acquire.wms import FULL_SIZE, PROBE_SIZE, layer_name
+    from aquaculture_tpu_torch.cli import acquire as cli_acquire
+    from aquaculture_tpu_torch.data.geotiff import read_geotiff
+
+    t0 = time.perf_counter()
+
+    def answer(box, **kw):
+        img = sea_image(box, **kw)
+        return {FULL_SIZE: tiff_bytes(img), PROBE_SIZE: tiff_bytes(np.ascontiguousarray(img[::6, ::6]))}
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        made = {0: pool.submit(answer, 0, white_tile=ACQ_WHITE_TILE, band_tile=ACQ_BAND_TILE),
+                2: pool.submit(answer, 2)}
+        answers = {box: f.result() for box, f in made.items()}
+    white = {n: tiff_bytes(np.full((n, n, 3), 255, np.uint8)) for n in (FULL_SIZE, PROBE_SIZE)}
+    made_s = time.perf_counter() - t0
+
+    def respond(layer, bbox, size):
+        return answers.get(_box_of(bbox), white)[size]
+
+    store = os.path.join(d, "store")
+    prefix = "coastal_french_data/tifs"
+    boxes_csv = os.path.join(d, "wanted_bboxes.csv")
+    argv = ["wms", "--coast", world["coast"], "--years", str(ACQ_YEAR), "--store", store]
+    with loopback_only(), WmsLoopback(respond) as wms:
+        t0 = time.perf_counter()
+        cli_acquire.main([*argv, "--url", wms.url, "--bboxes-out", boxes_csv])
+        wms_s = time.perf_counter() - t0
+        first = list(wms.requests)
+        t0 = time.perf_counter()
+        cli_acquire.main([*argv, "--url", wms.url])
+        resume_s = time.perf_counter() - t0
+        second = wms.requests[len(first):]
+    layer = layer_name(ACQ_YEAR)
+    stored = sorted(os.listdir(os.path.join(store, prefix)))
+    want = [f"{layer}_{b}.tif" for b in (0, 2)]
+    full = sorted(_box_of(b) for _, b, s in first if s == FULL_SIZE)
+    probes = sorted(_box_of(b) for _, b, s in first if s == PROBE_SIZE)
+    if stored != want or full != [0, 2] or probes != [0, 1, 2] or {r[0] for r in first} != {layer}:
+        fail(f"aq-acquire wms: stored {stored}, full fetches of boxes {full}, probes {probes}; expected {want}, "
+             "2 downloaded and 1 blank of 3 boxes")
+    if [s for _, _, s in second] != [PROBE_SIZE] or _box_of(second[0][1]) != ACQ_WHITE_BOX:
+        fail(f"aq-acquire wms resumed with requests {[(_box_of(b), s) for _, b, s in second]}; expected only "
+             "the blank box's probe")
+    for b in (0, 2):
+        with open(os.path.join(store, prefix, f"{layer}_{b}.tif"), "rb") as f:
+            if f.read() != answers[b][FULL_SIZE]:
+                fail(f"aq-acquire wms stored other bytes than the server sent for box {b}")
+    # bathymetry: the merged GeoTIFF equals merge_asc_grids of the two grids
+    bathy = os.path.join(d, "bathymetry", "EMOD_2022.tif")
+    t0 = time.perf_counter()
+    cli_acquire.main(["bathymetry", "--out", bathy, "--asc", world["F4_2022"], world["F5_2022"]])
+    bathy_s = time.perf_counter() - t0
+    merged = merge_asc_grids([read_asc(world["F4_2022"]), read_asc(world["F5_2022"])])
+    got = read_geotiff(bathy)
+    if not (np.array_equal(got.array, merged.array, equal_nan=True)
+            and np.allclose(got.bounds, merged.bounds, rtol=0, atol=1e-9)):
+        fail(f"aq-acquire bathymetry: {got.array.shape} over {got.bounds} != merge_asc_grids' "
+             f"{merged.array.shape} over {merged.bounds}")
+    # the land filter from the .shp linework, country and EEZ
+    land = os.path.join(d, "land.geojson")
+    t0 = time.perf_counter()
+    cli_acquire.main(["landfilter", "--coastline", world["coastline"], "--country", world["country"],
+                      "--eez", world["eez"], "--out", land])
+    land_s = time.perf_counter() - t0
+    kinds = list(gf.read_file(land)["kind"])
+    if kinds.count("primary") < 1:
+        fail(f"aq-acquire landfilter kept no primary face ({kinds})")
+    return {"store": os.path.join(store, prefix), "boxes_csv": boxes_csv, "land": land, "stored": stored,
+            "requests": len(first), "resume_requests": len(second),
+            "bathymetry_shape": list(got.array.shape), "land_kinds": kinds,
+            "seconds": {"server_images": made_s, "wms": wms_s, "wms_resume": resume_s, "bathymetry": bathy_s,
+                        "landfilter": land_s}}
+
+
+def tile_acquired(acq: dict, tile_dir: str) -> float:
+    """Part (b), first half: the reference's tiling step (tile_tifs.py:
+    1024 px JPEG tiles named by the filename codec). Returns its seconds."""
+    from PIL import Image
+
+    from aquaculture_tpu_torch.data.filenames import encode_tile_name
+    from aquaculture_tpu_torch.data.geotiff import read_image
+    from aquaculture_tpu_torch.data.tiling import split_image, tile_specs_for_image
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        saves = []
+        for name in acq["stored"]:
+            ind = int(name[:-len(".tif")].rsplit("_", 1)[1])
+            tiles, offsets = split_image(read_image(os.path.join(acq["store"], name)))
+            specs = tile_specs_for_image(ACQ_YEAR, ind)
+            if [(s.x_offset, s.y_offset) for s in specs] != list(offsets):
+                fail(f"split_image's offsets differ from tile_specs_for_image's for {name}")
+            saves += [pool.submit(Image.fromarray(tile).save, os.path.join(tile_dir, encode_tile_name(spec)),
+                                  quality=75) for tile, spec in zip(tiles, specs)]
+        for f in saves:
+            f.result()
+    return time.perf_counter() - t0
+
+
+def _import_image_boxes() -> None:
+    import aquaculture_tpu_torch.data.imageboxes  # noqa: F401
+
+
+def start_screening_worker() -> tuple:
+    """The worker process of phase 12's image-box screening, spawned and
+    importing (about as long as phase 12's first parts take) before it is
+    needed: (executor, the import's future)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(_import_image_boxes)
+
+
+def screen_acquired_tiles(boxes_csv: str, tile_dir: str) -> dict:
+    """Part (b), second half, in a worker process beside part (c):
+    load_final_image_boxes over the tiles, without and then with its cache.
+    Returns what check_image_boxes holds."""
+    from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
+    from aquaculture_tpu_torch.data.imageboxes import LocalImageStore, load_final_image_boxes
+
+    dl = load_download_bboxes(boxes_csv)
+    store = LocalImageStore(tile_dir)
+    cache = os.path.dirname(tile_dir)
+    t0 = time.perf_counter()
+    boxes = load_final_image_boxes(dl, store, cache_dir=cache)
+    boxes_s = time.perf_counter() - t0
+    cached = load_final_image_boxes(dl, store, cache_dir=cache)
+    return {"tiles": len(store.list_images()), "boxes": len(boxes), "cached": len(cached),
+            "status": dict(zip(boxes["image_file"], boxes["image_status"])),
+            "area": dict(zip(boxes["image_file"], [float(g.area) for g in boxes["geometry"]])), "seconds": boxes_s}
+
+
+def check_image_boxes(got: dict, tiling_s: float) -> dict:
+    """72 tiles -> 71 image boxes (from the screening and from its cache),
+    the white tile dropped, the banded one the only partly blank box, its
+    area above zero and below the full box's."""
+    from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
+
+    white = encode_tile_name(TileSpec(ACQ_YEAR, 0, *ACQ_WHITE_TILE))
+    band = encode_tile_name(TileSpec(ACQ_YEAR, 0, *ACQ_BAND_TILE))
+    status = got["status"]
+    if got["tiles"] != ACQ_TILES or got["boxes"] != ACQ_TILES - 1 or got["cached"] != got["boxes"] or white in status:
+        fail(f"load_final_image_boxes: {got['tiles']} tiles -> {got['boxes']} boxes ({got['cached']} from its "
+             f"cache), white tile kept: {white in status}; expected {ACQ_TILES} -> {ACQ_TILES - 1}")
+    partly = [f for f, s in status.items() if s == "partly blank"]
+    full_area = (ACQ_BOX_M / 6) ** 2
+    band_area = got["area"].get(band, 0.0)
+    if partly != [band] or not 0 < band_area < full_area:
+        fail(f"partly blank tiles {partly} (expected [{band}]); its box's area {band_area} of {full_area}")
+    return {"tiles": got["tiles"], "image_boxes": got["boxes"], "partly_blank": partly,
+            "band_box_area_m2": band_area, "full_box_area_m2": full_area,
+            "seconds": {"tiling": tiling_s, "image_boxes": got["seconds"]}}
+
+
+@contextlib.contextmanager
+def recording_suppression(calls: list):
+    """While this holds, each call of the kernel's wrapper appends copies of
+    its inputs and its keep mask to ``calls`` (it launches as before)."""
+    from aquaculture_tpu_torch.ops import nms_cuda
+
+    real = nms_cuda.greedy_suppress_cuda
+
+    def record(boxes, valid, iou_thresh=0.45):
+        keep = real(boxes, valid, iou_thresh)
+        calls.append((boxes.clone(), valid.clone(), iou_thresh, keep.clone()))
+        return keep
+
+    nms_cuda.greedy_suppress_cuda = record
+    try:
+        yield
+    finally:
+        nms_cuda.greedy_suppress_cuda = real
+
+
+def serve_acquired(d: str, tile_dir: str, acq: dict) -> dict:
+    """Part (c): cli.pipeline on the card over the acquired tiles (mt at
+    640, random weights from seed 0, conf 1e-5, batch 32) with the
+    download boxes and land of part (a), the counters zeroed around it;
+    each launch's keep mask against the plain version's on the same
+    candidates (the ones this run gave the kernel)."""
+    import torch
+
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
+    from aquaculture_tpu_torch.cli.geocode import load_download_bboxes
+    from aquaculture_tpu_torch.data.filenames import decode_tile_name
+    from aquaculture_tpu_torch.ops import nms_cuda
+    from aquaculture_tpu_torch.ops.nms import greedy_suppress_plain
+
+    out = os.path.join(d, "acquired_detections.geojson")
+    calls = []
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    with recording_suppression(calls):
+        det, stats = cli_pipeline.main([
+            "--source", tile_dir, "--download-bboxes", acq["boxes_csv"], "--land", acq["land"], "--out", out,
+            "--variant", "mt", "--batch", str(ACQ_BATCH), "--conf", "1e-5",
+        ])
+    seconds = time.perf_counter() - t0
+    launches = nms_cuda.launches
+    n_batches = -(-ACQ_TILES // ACQ_BATCH)
+    if not launches == stats.batches == n_batches or stats.tiles != ACQ_TILES:
+        fail(f"acquired pipeline: nms_suppress launched {launches} times for {stats.batches} batches of "
+             f"{stats.tiles} tiles, expected {n_batches} batches of {ACQ_TILES}")
+    rows = stats.stage_rows
+    if not len(det) or not rows["land_filter"] < rows["areas"]:
+        fail(f"acquired pipeline: {len(det)} rows, land filter {rows}; expected rows and some on land removed")
+    dl = load_download_bboxes(acq["boxes_csv"])
+    names, row_image = np.unique(det["image"].to_numpy(str), return_inverse=True)
+    box = np.asarray([dl["geometry"].iloc[decode_tile_name(n).bbox_ind].bounds for n in names])[row_image]
+    b = det.to_crs(3857).bounds_array()
+    outside = int(((b[:, :2] < box[:, :2] - 1e-6) | (b[:, 2:] > box[:, 2:] + 1e-6)).any(axis=1).sum())
+    on_land = len(det.sjoin(gf.read_file(acq["land"]).to_crs(det.crs), how="inner"))
+    if outside or on_land:
+        fail(f"acquired pipeline: {outside} rows outside their download boxes, {on_land} on land")
+    check_geojson(out, det, n_classes=5)
+    if len(calls) != launches:
+        fail(f"acquired pipeline: {len(calls)} suppression calls recorded for {launches} launches")
+    vs_plain = []
+    for boxes, valid, thr, keep in calls:
+        if not torch.equal(greedy_suppress_plain(boxes, valid, thr), keep):
+            fail(f"acquired pipeline: the kernel's keep mask != the plain version's on {tuple(valid.shape)}")
+        vs_plain.append({"B": valid.shape[0], "K": valid.shape[1], "valid_candidates": int(valid.sum()),
+                         "kept": int(keep.sum())})
+    return {"launches": {"nms_suppress": launches}, "rows": len(det), "outside_boxes": outside, "on_land": on_land,
+            "dedup_clipped_rows": clipped_rows(det, acq["boxes_csv"]), "seconds": seconds,
+            "loader": stats.loader, "kernel_vs_plain": vs_plain, **_stage_report(stats)}
+
+
+def figures_on_tonnage(d10: str, d: str, dev) -> dict:
+    """Part (d): cli.figures' computations on phase 10's outputs (its
+    detections, labels, facility pickle and Trujillo CSV): the clustered
+    stage on the card equal to the CPU's, the P/R sweep over 100
+    thresholds for the raw and clustered stages, true_positive_facilities
+    -> classify_our_facilities, classify_facilities, unique_locations and
+    facility_map_html (one point per facility). The plots run where
+    matplotlib imports, and are skipped (and said so) where not."""
+    import pandas as pd
+
+    from aquaculture_tpu_torch import frame as gf
+    from aquaculture_tpu_torch.config import OPTIMAL_DISTANCE_THRESHOLD, OPTIMAL_MIN_CLUSTER_SIZE
+    from aquaculture_tpu_torch.eval.kfold import clustered_detections
+    from aquaculture_tpu_torch.results import maps
+    from aquaculture_tpu_torch.results.performance import plot_precision_recall_curves, stats_at_thresholds
+    from aquaculture_tpu_torch.tonnage.facility import load_AquaFacility
+    from aquaculture_tpu_torch.tonnage.periods import load_trujillo_locations, map_year_to_image_pass
+
+    at, t0 = {}, time.perf_counter()
+    dets = gf.read_file(os.path.join(d10, "tonnage_detections.geojson"))
+    labels = gf.read_file(os.path.join(d10, "tonnage_labels.geojson")).to_crs(dets.crs)
+    labels["type"] = labels["type"].replace({"circle_cage": "circle_farm", "square_cage": "square_farm"})
+    thresholds = np.linspace(0, 1, 100)
+    all_stats = stats_at_thresholds(labels, dets, thresholds)
+    at["stats_raw"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clustered = clustered_detections(dets, 0.0, OPTIMAL_DISTANCE_THRESHOLD, OPTIMAL_MIN_CLUSTER_SIZE, device=dev)
+    at["clustered_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clustered_cpu = clustered_detections(dets, 0.0, OPTIMAL_DISTANCE_THRESHOLD, OPTIMAL_MIN_CLUSTER_SIZE,
+                                         device="cpu")
+    at["clustered_cpu"] = time.perf_counter() - t0
+    if not (len(clustered) and list(clustered.index) == list(clustered_cpu.index)
+            and pd.DataFrame(clustered).drop(columns="geometry").equals(
+                pd.DataFrame(clustered_cpu).drop(columns="geometry"))):
+        fail(f"clustered_detections on the card ({len(clustered)} rows) != on the CPU ({len(clustered_cpu)})")
+    t0 = time.perf_counter()
+    cluster_stats = stats_at_thresholds(labels, clustered, thresholds)
+    at["stats_clustered"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fac = load_AquaFacility(os.path.join(d10, "facility_cuda.pkl")).final_facilities
+    tru = load_trujillo_locations(os.path.join(d10, "trujillo.csv"))
+    tp = maps.true_positive_facilities(fac, labels.to_crs(fac.crs or 3857), map_year_to_image_pass)
+    combined = maps.classify_our_facilities(tp, maps.trujillo_1km_boxes(tru, box_crs=3035), tru)
+    tagged = maps.classify_facilities(fac, maps.trujillo_1km_boxes(tru))
+    unique = maps.unique_locations(tagged)
+    html = os.path.join(d, "facility_map.html")
+    maps.facility_map_html(tagged, html)
+    at["classify_and_html"] = time.perf_counter() - t0
+    with open(html) as f:
+        text = f.read()
+    points = json.loads(text.split("const data = ", 1)[1].split(";\n", 1)[0])
+    if len(all_stats) != len(thresholds) or len(cluster_stats) != len(thresholds):
+        fail(f"stats_at_thresholds gave {len(all_stats)} / {len(cluster_stats)} rows for {len(thresholds)}")
+    if not (len(tp) and len(combined) and len(tagged)) or not 0 < unique <= len(tagged):
+        fail(f"figures: {len(tp)} true-positive facilities, {len(combined)} classified rows, {len(tagged)} "
+             f"tagged facilities, {unique} unique locations")
+    if len(points) != len(tagged):
+        fail(f"facility_map_html holds {len(points)} points for {len(tagged)} facilities")
+    plots = {}
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        plots["skipped"] = {"calls": ["plot_precision_recall_curves", "plot_combined_map", "plot_facility_map"],
+                            "why": f"no matplotlib on this machine ({e})"}
+    else:
+        t0 = time.perf_counter()
+        plot_precision_recall_curves(all_stats, None, cluster_stats, out_path=os.path.join(d, "pr.pdf"))
+        maps.plot_combined_map(combined, out_path=os.path.join(d, "facilities.pdf"))
+        maps.plot_facility_map(tagged, trujillo=tru, out_path=os.path.join(d, "facility_map.png"))
+        plots["drawn"] = ["pr.pdf", "facilities.pdf", "facility_map.png"]
+        at["plots"] = time.perf_counter() - t0
+    return {"detections": len(dets), "labels": len(labels), "clustered": len(clustered),
+            "equal_card_vs_cpu": True, "thresholds": len(thresholds),
+            "true_positive_facilities": len(tp), "classified_rows": len(combined),
+            "types": combined["type"].value_counts().to_dict(), "facilities": len(tagged),
+            "known": int((tagged["status"] == "known").sum()), "unique_locations": unique,
+            "html_points": len(points), "plots": plots, "seconds": at}
+
+
+def run_acquire_to_map_phase(dev, card: str, d: str, d10: str, screening_worker: tuple) -> dict:
+    """Phase 12: acquisition (a), the reference's tiling step (b), serving
+    the acquired tiles on the card (c), and the figures on phase 10's
+    outputs (d), each part's seconds beside. (b)'s image-box screening is
+    host work that (c) does not read: it runs in ``screening_worker``
+    (start_screening_worker's, shut down here) while (c) serves, and is
+    checked after."""
+    world_dir, tile_dir = os.path.join(d, "inputs"), os.path.join(d, "tiles")
+    os.makedirs(world_dir)
+    os.makedirs(tile_dir)
+    t_phase = time.perf_counter()
+    pool, warm = screening_worker
+    with pool:
+        world = write_acquire_world(world_dir)
+        seconds = {"world": time.perf_counter() - t_phase}
+        t0 = time.perf_counter()
+        acquire = acquire_images(d, world)
+        seconds["acquire"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tiling_s = tile_acquired(acquire, tile_dir)
+        screening = pool.submit(screen_acquired_tiles, acquire["boxes_csv"], tile_dir)
+        seconds["tiling"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipeline = serve_acquired(d, tile_dir, acquire)
+        seconds["pipeline"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm.result()
+        tiling = check_image_boxes(screening.result(), tiling_s)
+        seconds["image_boxes_wait"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    figures = figures_on_tonnage(d10, d, dev)
+    seconds["figures"] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_phase
+    for k in ("store", "boxes_csv", "land"):
+        acquire.pop(k)
+    return {"acquire": acquire, "tiling": tiling, "pipeline": pipeline, "figures": figures,
+            "seconds_by_part": seconds, "card": card}
+
+
 def main() -> int:
     import torch
 
@@ -2789,11 +3350,19 @@ def main() -> int:
     # the bootstrap at the paper's scale
     d10 = os.path.join(d, "tonnage")
     os.makedirs(d10)
+    screening_worker = start_screening_worker()  # phase 12's; it imports while phase 10 runs
     eval_world = tuple(os.path.join(d8, f) for f in ("detections.geojson", "labels.geojson", "images.csv"))
     print(json.dumps({"phase": "facilities_tonnage", **run_facilities_tonnage_phase(dev, card, d10, eval_world),
                       "card": card}), flush=True)
     torch.cuda.empty_cache()
     mark("facilities_tonnage")
+    # 12. aq-acquire -> the reference's tiling -> aq-pipeline on the card,
+    # and the figures on phase 10's outputs
+    d12 = os.path.join(d, "acquire")
+    os.makedirs(d12)
+    acquire = run_acquire_to_map_phase(dev, card, d12, d10, screening_worker)
+    print(json.dumps({"phase": "acquire_to_map", **acquire}), flush=True)
+    mark("acquire_to_map")
 
     # 5. times (the int8 model calibrated on the main path's first 8 tiles)
     tiles = serving_tiles(dev)
@@ -2838,6 +3407,7 @@ def main() -> int:
         "launches_aot_detect": tooling["aot_detect"]["launches"]["nms_suppress"],
         "launches_profiled_detect": tooling["profiled_detect"]["launches"]["nms_suppress"],
         "launches_plan": plan["served"]["launches"],
+        "launches_acquire_pipeline": acquire["pipeline"]["launches"]["nms_suppress"],
         "max_abs_err": max(k["max_abs_err"], k6["max_abs_err"]),
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

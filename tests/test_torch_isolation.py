@@ -498,6 +498,76 @@ def test_plan_surface_and_cxx_sweep_load_no_jax():
     assert "LOADED []" in proc.stdout
 
 
+def test_acquisition_and_figures_load_no_jax():
+    """cli.acquire's four subcommands (the download injected, the WMS on
+    127.0.0.1, local .asc grids, .shp linework) and cli.figures --device
+    cpu, in a fresh interpreter, load no JAX module."""
+    code = textwrap.dedent("""
+        import io, os, sys, tempfile, zipfile
+        import numpy as np, pandas as pd
+        from PIL import Image
+        import chip_smoke
+        from aquaculture_tpu_torch import frame as gf
+        from aquaculture_tpu_torch.acquire import shapefiles
+        from aquaculture_tpu_torch.cli import acquire, figures
+        from aquaculture_tpu_torch.geo import crs as C, polygon as P
+        from aquaculture_tpu_torch.geo.shapefile import write_shapefile
+        d = tempfile.mkdtemp()
+        def fetch(url):
+            buf = io.BytesIO()
+            with zipfile.ZipFile(buf, "w") as z:
+                z.writestr("x.txt", url)
+            return buf.getvalue()
+        shapefiles._default_fetch = fetch
+        acquire.main(["shapefiles", "--out", d])
+        def tiff(layer, bbox, size):
+            buf = io.BytesIO()
+            Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(buf, format="TIFF")
+            return buf.getvalue()
+        coast = os.path.join(d, "coast.geojson")
+        gf.GeoFrame({"n": [0]}, geometry=[P.box(1, 1, 2000, 1000)], crs=3857).to_file(coast)
+        with chip_smoke.loopback_only(), chip_smoke.WmsLoopback(tiff) as wms:
+            acquire.main(["wms", "--coast", coast, "--years", "2014", "--store", d, "--url", wms.url,
+                          "--bboxes-out", os.path.join(d, "wanted_bboxes.csv")])
+        assert len(os.listdir(os.path.join(d, "coastal_french_data", "tifs"))) == 2
+        asc = os.path.join(d, "F4.asc")
+        with open(asc, "w") as f:
+            f.write("ncols 2\\nnrows 1\\nxllcorner 4\\nyllcorner 43\\ncellsize 0.5\\n-3 -4\\n")
+        acquire.main(["bathymetry", "--out", os.path.join(d, "b.tif"), "--asc", asc])
+        ring = [(5.0, 43.0), (5.2, 43.0), (5.2, 43.2), (5.0, 43.2)]
+        write_shapefile(os.path.join(d, "coastline.shp"), gf.GeoFrame({"n": [0]}, geometry=[P.Polygon(ring)], crs=4326))
+        write_shapefile(os.path.join(d, "country.shp"),
+                        gf.GeoFrame({"n": [0]}, geometry=[P.box(4.9, 42.9, 5.3, 43.3)], crs=4326))
+        acquire.main(["landfilter", "--coastline", os.path.join(d, "coastline.shp"), "--country",
+                      os.path.join(d, "country.dbf"), "--out", os.path.join(d, "land.geojson")])
+        assert list(gf.read_file(os.path.join(d, "land.geojson"))["kind"]) == ["primary"]
+        cages = [P.box(560_000 + 16 * i, 5_330_000, 560_010 + 16 * i, 5_330_010) for i in range(6)]
+        det = gf.GeoFrame({"year": [2014] * 6, "type": ["circle_farm"] * 6, "det_conf": np.linspace(0.5, 0.9, 6),
+                           "image": ["ORTHOIMAGERY.ORTHOPHOTOS2014_0_0_0.jpeg"] * 6}, geometry=cages, crs=3857)
+        det.to_file(os.path.join(d, "det.geojson"))
+        det.iloc[:4].to_file(os.path.join(d, "labels.geojson"))
+        gf.GeoFrame({"pass": ["2013-2015"]}, geometry=[P.Point(560_040, 5_330_005)], crs=3857).to_file(
+            os.path.join(d, "fac.geojson"))
+        lon, lat = C.transform(3857, 4326, np.array([560_040.0]), np.array([5_330_005.0]))
+        pd.DataFrame({"lon": lon, "lat": lat}).to_csv(os.path.join(d, "tru.csv"), index=False)
+        figures.main(["--detections", os.path.join(d, "det.geojson"), "--labels", os.path.join(d, "labels.geojson"),
+                      "--facilities", os.path.join(d, "fac.geojson"), "--trujillo", os.path.join(d, "tru.csv"),
+                      "--out-dir", os.path.join(d, "fig"), "--device", "cpu"])
+        assert sorted(os.listdir(os.path.join(d, "fig"))) == ["facility_map_2013-2015.png",
+                                                              "performance_across_confidence.pdf"]
+        import shutil; shutil.rmtree(d)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "aquaculture_tpu" or m.startswith("aquaculture_tpu."))
+        print("LOADED", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
 def test_port_reaches_nothing_in_native():
     """The port keeps its own copies: no source names a path into the JAX
     package's native/ directory or its library."""

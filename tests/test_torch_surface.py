@@ -1,7 +1,7 @@
 """The port's package surface against the JAX package's.
 
 - Every name that an ``__init__.py`` of the JAX package imports resolves in
-  the port's namesake (less ``acquire/``, still to port), in a fresh
+  the port's namesake, in a fresh
   interpreter that loads no JAX module; the host-only modules and the
   packages above them load no torch.
 - The host copies (geo.boxes, data.tiling's tile_offsets and
@@ -31,7 +31,7 @@ from aquaculture_tpu_torch.parallel import mesh as tmesh
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 # subpackages of the JAX package whose port is still queued
-QUEUED = {"acquire"}
+QUEUED = set()
 
 
 def jax_exports() -> dict:
@@ -60,7 +60,8 @@ def fresh_surface():
         host = {}
         for m in ("aquaculture_tpu_torch.geo.boxes", "aquaculture_tpu_torch.data.blank",
                   "aquaculture_tpu_torch.data.filenames", "aquaculture_tpu_torch.models.plan",
-                  "aquaculture_tpu_torch.cli.plan"):
+                  "aquaculture_tpu_torch.cli.plan", "aquaculture_tpu_torch.acquire",
+                  "aquaculture_tpu_torch.cli.acquire"):
             importlib.import_module(m)
             host[m] = sorted(x for x in ("torch", "pandas") if x in sys.modules)
         wanted = json.loads(sys.argv[1])
@@ -88,7 +89,7 @@ def fresh_surface():
 
 
 def test_every_jax_export_resolves_in_the_port(fresh_surface):
-    assert len(jax_exports()) >= 12
+    assert len(jax_exports()) >= 13 and "aquaculture_tpu_torch.acquire" in jax_exports()
     assert fresh_surface["missing"] == []
     assert fresh_surface["jax"] == []
 
