@@ -85,6 +85,17 @@ def _window_map(fn, items: Sequence, workers: int):
             yield res, item
 
 
+def resize_to_scale(arr: np.ndarray, n: int) -> np.ndarray:
+    """A raster at n/8 scale through PIL's bilinear, to libjpeg's
+    ceil(d*n/8) dims: the Python loader's decode-at-scale."""
+    from PIL import Image
+
+    sh, sw = (arr.shape[0] * n + 7) // 8, (arr.shape[1] * n + 7) // 8
+    if (sh, sw) == arr.shape[:2]:
+        return arr
+    return np.asarray(Image.fromarray(arr).resize((sw, sh), Image.BILINEAR))
+
+
 def _emit_tiles(
     arr: np.ndarray, base: TileSpec, tile: int, stride: int = 0, out_tile: int = 0
 ) -> Iterator[Tuple[np.ndarray, TileSpec]]:
@@ -102,15 +113,9 @@ def _emit_tiles(
             raise ValueError("decode-at-scale does not support overlap serving")
         if out_tile >= tile or (8 * out_tile) % tile != 0:
             raise ValueError(f"out_tile must be a proper N/8 fraction of tile; got {out_tile}/{tile}")
-        from PIL import Image
-
-        n = 8 * out_tile // tile
-        sh = (arr.shape[0] * n + 7) // 8
-        sw = (arr.shape[1] * n + 7) // 8
-        if (sh, sw) != arr.shape[:2]:
-            arr = np.asarray(Image.fromarray(arr).resize((sw, sh), Image.BILINEAR))
+        arr = resize_to_scale(arr, 8 * out_tile // tile)
         emit, stride = out_tile, 0
-        if sh <= out_tile and sw <= out_tile:
+        if arr.shape[0] <= out_tile and arr.shape[1] <= out_tile:
             yield arr, base
             return
     else:

@@ -51,14 +51,19 @@ def detections_by_image(
     batch_size: int = 8,
     decode_scale: bool = False,
     device="cuda",
+    use_native: bool = False,
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Run the serving pipeline (pipeline.detect_files) and group the
     detections by tile stem. decode_scale: the host decodes at img/tile
-    scale, so the harness bounds decode-at-scale serving too."""
+    scale, so the harness bounds decode-at-scale serving too. use_native
+    True serves through the device loader (the DCT-domain decode when
+    decode_scale is on); the default keeps the Python loader, as the JAX
+    package's harness does."""
     from aquaculture_tpu_torch.pipeline import detect_files
 
     boxes, conf, cls, specs, _ = detect_files(
         paths, model, cfg, batch_size=batch_size, decode_scale=decode_scale, device=device,
+        use_native=use_native,
     )
     per: Dict[str, List[int]] = {}
     for i, sp in enumerate(specs):
@@ -81,13 +86,16 @@ def world_map(
     tile: int = 1024,
     decode_scale: bool = False,
     device="cuda",
+    use_native: bool = False,
 ) -> Dict[str, float]:
     """mAP of one serving configuration over a rendered world.
 
     tile: the world's image size in px; YOLO labels are normalized, so the
-    ground-truth boxes scale by it."""
+    ground-truth boxes scale by it. use_native as in
+    ``detections_by_image``."""
     gts = load_world_ground_truths(lab_dir, tile=tile)
-    dets = detections_by_image(paths, model, cfg, batch_size, decode_scale=decode_scale, device=device)
+    dets = detections_by_image(paths, model, cfg, batch_size, decode_scale=decode_scale, device=device,
+                               use_native=use_native)
     # A detection stem with no ground-truth entry would vanish from the
     # evaluation (its false positives never counted): an image without a
     # labels/*.txt, or a raster larger than `tile` split into subtiles.
@@ -146,13 +154,14 @@ def serving_accuracy_table(
     batch_size: int = 8,
     tile: int = 1024,
     device="cuda",
+    use_native: bool = False,
 ) -> List[ServingConfigResult]:
     """Evaluate every serving option on one world with one checkpoint, on
     ``device``: one row per config ('bf16' is the serving default and the
     baseline of the others; 'topk512' is the candidate pool of 512 in place
     of 1024, outside the default set as in the JAX package). Each row
     serves its own copy of the float32 model, since serving casts a model
-    in place."""
+    in place. use_native as in ``detections_by_image``."""
     from aquaculture_tpu_torch.cli.detect import quantize_for_serving
     from aquaculture_tpu_torch.models.quantize import SERVING_INT8_SKIP, serving_int8_safe_skip
 
@@ -183,6 +192,6 @@ def serving_accuracy_table(
         else:
             raise ValueError(f"unknown serving config {name!r}")
         r = world_map(paths, lab_dir, m, DetectConfig(**cfg_kw), num_classes, batch_size, tile=tile,
-                      device=device)
+                      device=device, use_native=use_native)
         rows.append(ServingConfigResult(name=name, map50=r["map50"], map=r["map"]))
     return rows

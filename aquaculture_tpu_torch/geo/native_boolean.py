@@ -54,20 +54,20 @@ def find_cxx() -> str:
     return cxx
 
 
-def library_path(source: str = SOURCE) -> str:
+def library_path(source: str = SOURCE, name: str = "libaq_booleanop", flags=CXX_FLAGS) -> str:
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libaq_booleanop_{digest}.so")
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
 
 
-def compile_library(source: str = SOURCE) -> str:
-    """g++ ``source`` into the build directory once per source hash;
-    returns the shared library's path."""
-    so = library_path(source)
+def compile_library(source: str = SOURCE, name: str = "libaq_booleanop", flags=CXX_FLAGS) -> str:
+    """g++ ``source`` with ``flags`` into the build directory once per
+    source hash (the library named ``name``); returns its path."""
+    so = library_path(source, name, flags)
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-        proc = subprocess.run([find_cxx(), *CXX_FLAGS, "-o", tmp, source], capture_output=True, text=True)
+        proc = subprocess.run([find_cxx(), *flags, "-o", tmp, source], capture_output=True, text=True)
         if proc.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)

@@ -62,16 +62,16 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(source: str = _SOURCE) -> str:
+def library_path(source: str = _SOURCE, name: str = "libaq_nms_suppress") -> str:
     with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libaq_nms_suppress_{digest}.so")
+    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
 
 
-def compile_library(source: str = _SOURCE) -> str:
-    """nvcc ``source`` into the build directory once per source hash;
-    returns the shared library's path."""
-    so = library_path(source)
+def compile_library(source: str = _SOURCE, name: str = "libaq_nms_suppress") -> str:
+    """nvcc ``source`` into the build directory once per source hash (the
+    library named ``name``); returns the shared library's path."""
+    so = library_path(source, name)
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"

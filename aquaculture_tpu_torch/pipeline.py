@@ -1,11 +1,12 @@
 """Detection pipeline of the PyTorch port: image files -> geocoded detections.
 
 Counterpart of ``make_infer_fn``, ``overlap_stride``, ``detect_files`` and
-``run_pipeline`` in aquaculture_tpu/pipeline.py, on the Python file loader
-(the port has no native loader: its H100 hosts lack the libjpeg and
-libtiff development headers; ROADMAP.md) or, with ``store=``, on blobs
-streamed from an object store (data/store.py). Tiles stream through the
-prefetched loader; normalize + resize + forward (or the test-time-augmented
+``run_pipeline`` in aquaculture_tpu/pipeline.py. Local files go through the
+device loader (data/native_loader.py: the JPEG entropy decode on host
+threads, the rest of the decode in kernels on the card, the JAX package's
+native-loader choice) or the Python loader (data/loader.py, PIL); with
+``store=``, blobs stream from an object store (data/store.py). Tiles stream
+through the prefetched loader; normalize + resize + forward (or the test-time-augmented
 forward) + NMS run as one function per fixed-shape batch on the device;
 batch N+1 is dispatched before batch N is harvested, so the device-to-host copy and the
 host's post-processing overlap device work. ``run_pipeline`` adds the host
@@ -26,7 +27,8 @@ import torch.nn.functional as F
 from aquaculture_tpu_torch import frame as gf
 from aquaculture_tpu_torch.config import DTYPES, IM_WIDTH, DetectConfig, resolve_device
 from aquaculture_tpu_torch.data.filenames import TileSpec
-from aquaculture_tpu_torch.data.loader import tile_batches, tile_batches_from_store
+from aquaculture_tpu_torch.data import native_loader
+from aquaculture_tpu_torch.data.loader import prefetch, tile_batches, tile_batches_from_store
 from aquaculture_tpu_torch.models.layers import to_compute_dtype
 from aquaculture_tpu_torch.models.yolov5 import YoloV5
 from aquaculture_tpu_torch.ops.nms import batched_nms
@@ -42,6 +44,9 @@ from aquaculture_tpu_torch.post.landmask import remove_land_detections_hybrid
 # the exact sjoin is cheaper than building the mask.
 HYBRID_LAND_FILTER_ROWS = 2000
 
+# formats the device loader reads (its entropy decoder, or PIL for TIFF)
+_NATIVE_EXTS = (".jpg", ".jpeg", ".tif", ".tiff")
+
 
 @dataclasses.dataclass
 class PipelineStats:
@@ -55,9 +60,12 @@ class PipelineStats:
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     stage_rows: Dict[str, int] = dataclasses.field(default_factory=dict)
     land_filter: str = ""
-    # the tile loader that ran: the port has the Python one only, where the
-    # JAX package may run its native loader ("native")
+    # the tile loader that ran: "python" (data/loader.py) or "device"
+    # (data/native_loader.py, the JAX package's native loader); and, for
+    # the device loader, the files of each route ("device", "pil",
+    # "pil_resize", "skipped")
     loader: str = "python"
+    files: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def tiles_per_second(self) -> float:
@@ -157,6 +165,18 @@ def overlap_stride(overlap: int, tile_px: int = IM_WIDTH) -> int:
     return tile_px - overlap if overlap else 0
 
 
+def _exceeds_tile(path: str, tile: int) -> bool:
+    """A raster larger than a tile (PIL reads the header only); an
+    unreadable header counts as larger, so the Python loader decides."""
+    from PIL import Image
+
+    try:
+        with Image.open(path) as im:
+            return im.size[0] > tile or im.size[1] > tile
+    except Exception:
+        return True
+
+
 def detect_files(
     paths: Sequence[str],
     model: YoloV5,
@@ -169,6 +189,7 @@ def detect_files(
     decode_threads: int = 0,
     decode_scale: bool = False,
     store=None,
+    use_native: Optional[bool] = None,
 ):
     """Run inference over image files, or object-store blobs, on ``device``
     (CUDA unless the CPU is asked for). infer_fn: a prebuilt make_infer_fn
@@ -185,8 +206,16 @@ def detect_files(
     decode_scale: decode rasters at img_size/tile scale on the host and
     ship img_size tiles to the device, skipping its resize (8*img_size must
     divide by tile); offsets stay in source pixels. Incompatible with
-    stride. Returns (boxes_px (N,4) int64, conf (N,), cls (N,), specs,
-    stats)."""
+    stride.
+
+    use_native: the device loader (data/native_loader.py) or the Python
+    one, chosen as the JAX package chooses: None takes the device loader
+    for local files at a scale it decodes (8/8, 5/8); None or True then
+    keep it only when every path is .jpg/.jpeg/.tif/.tiff and, with
+    overlap serving, no raster is larger than a tile; False forces the
+    Python loader.
+    ``stats.loader`` names the loader that ran. Returns (boxes_px (N,4)
+    int64, conf (N,), cls (N,), specs, stats)."""
     dev = resolve_device(device)
     out_tile = 0
     if decode_scale:
@@ -198,6 +227,15 @@ def detect_files(
                 f"tile; got {cfg.img_size}/{tile}"
             )
         out_tile = cfg.img_size
+    if use_native is None:
+        use_native = (store is None and native_loader.available()
+                      and native_loader.supports_scale(out_tile, tile))
+    if use_native and not all(p.lower().endswith(_NATIVE_EXTS) for p in paths):
+        # the device loader skips what it cannot read: a PNG corpus would
+        # vanish, so it goes to the Python loader
+        use_native = False
+    if use_native and stride and stride < tile and any(_exceeds_tile(p, tile) for p in paths):
+        use_native = False  # overlapped slicing lives in the Python loader
     infer = infer_fn or make_infer_fn(model, cfg, tile, device=dev)
     stats = PipelineStats()
 
@@ -229,6 +267,11 @@ def detect_files(
     if store is not None:
         batches = tile_batches_from_store(store, paths, batch_size, tile, pin_memory=pin, stride=stride,
                                           out_tile=out_tile)
+    elif use_native:
+        stats.loader = "device"
+        batches = prefetch(native_loader.native_tile_batches(
+            paths, batch_size, tile, n_threads=decode_threads, out_tile=out_tile, device=dev,
+            counts=stats.files))
     else:
         batches = tile_batches(paths, batch_size, tile, pin_memory=pin, stride=stride,
                                decode_threads=decode_threads, out_tile=out_tile)
@@ -270,6 +313,7 @@ def run_pipeline(
     decode_threads: int = 0,
     decode_scale: bool = False,
     store=None,
+    use_native: Optional[bool] = None,
 ):
     """Files -> geocoded, area-annotated ocean detections, on ``device``
     (CUDA unless the CPU is asked for). With ``store`` set, ``paths`` are
@@ -282,7 +326,7 @@ def run_pipeline(
     the copies of a boundary object collapse by meter-space IoU), cage
     areas, then the land filter (the hybrid mask from
     HYBRID_LAND_FILTER_ROWS detections on, else the exact sjoin).
-    decode_threads and decode_scale as in ``detect_files``. Returns
+    decode_threads, decode_scale and use_native as in ``detect_files``. Returns
     (detections GeoFrame in EPSG:4326, PipelineStats with each stage's host
     seconds and rows).
     """
@@ -290,7 +334,7 @@ def run_pipeline(
     t = clock()
     boxes, conf, cls, specs, stats = detect_files(
         paths, model, cfg, batch_size, device=device, stride=overlap_stride(overlap),
-        decode_threads=decode_threads, decode_scale=decode_scale, store=store,
+        decode_threads=decode_threads, decode_scale=decode_scale, store=store, use_native=use_native,
     )
 
     def lap(stage: str, rows: int) -> None:

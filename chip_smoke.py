@@ -7,13 +7,16 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. card, torch and nvcc versions;
-  2. build the CUDA kernel(s) from csrc/ with nvcc for sm_90a, and the C++
-     overlay sweep (csrc/booleanop.cc) with g++;
+  2. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
+     source), the C++ overlay sweep (csrc/booleanop.cc) and the JPEG
+     entropy decoder (csrc/jpeg_entropy.cc) with g++, all at once;
   3. hold each kernel against its plain PyTorch version on the card, keep
      masks exactly equal (tolerance 0), over several input suites;
   4. drive the port's main path, ``aquaculture_tpu_torch.cli.detect.main``
-     on the mt model at 640 px from 1024 px JPEG tiles, with the launch
-     counters zeroed just before and read just after; compare batched_nms
+     on the mt model at 640 px from 1024 px JPEG tiles through the device
+     loader (its entropy decode on host threads, ``jpeg_idct`` and
+     ``jpeg_color`` on the card), with the launch counters of all three
+     kernels zeroed just before and read just after (each == batches); compare batched_nms
      through the kernel with the plain path on one batch; compare the
      card's f32 forward with the CPU's (TF32 off);
   4b. the pipeline phase: drive ``aquaculture_tpu_torch.cli.pipeline.main``
@@ -76,8 +79,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      through _int_mm, none through the plain route); then one int8 n tree
      at 160 px card vs CPU (the codes at each requant and the head maps) and
      ``accuracy``, ``eval.accuracy.serving_accuracy_table`` for the trained
-     fixture on its rendered 12-image world at 160 px on the card and on the
-     CPU, every row: the f32 rows agree card vs CPU, and every card row
+     fixture on its rendered 12-image world at 160 px on the card (through
+     the device loader) and on the CPU (the Python loader), every row: the
+     f32 rows agree card vs CPU, and every card row
      holds tests/test_accuracy.py's bounds against the card's bf16 row; in
      phase 5 mt int8_safe b128 serving timed beside bf16, with its stages
      and both forwards' profiles;
@@ -149,6 +153,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      sweep over 100 thresholds, Figure 4's classification, the Trujillo
      tags, unique locations, the HTML map with one point per facility (the
      plots only where matplotlib imports).
+ 13. after 5, ``feed``, the device loader: its two kernels equal to their
+     plain versions (torch.equal) on JPEGs at q75, q90 and q95 4:2:0,
+     4:4:4, 4:2:2, greyscale, 1000 x 750, restart intervals and a 2048 px
+     raster, at 8/8 and 5/8, alone and in one batch on the tile grid, and
+     the card's 8/8 images equal to PIL's decode on this host byte for
+     byte; detect_files through both loaders (full-decode rows equal, the
+     kernels once per batch); then the times, with the card's name and
+     power limit: the host entropy decode and PIL's full decode per second
+     on one thread and on every core, both kernels per batch of 128 at 8/8
+     and 5/8 beside the plain versions and the bytes bound, and file-fed
+     detect_files tiles/s (mt bf16 b128) through both loaders in turns
+     (10 batches a device-loader run, 3 a Python-loader run, whole-run and
+     steady rates) beside phase 5's tiles-on-card rate.
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -373,24 +390,28 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, optio
     ``options`` (e.g. --augment --multi-label, or --weights) after the
     defaults."""
     from aquaculture_tpu_torch.cli import detect as cli_detect
+    from aquaculture_tpu_torch.data import jpeg_cuda
     from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
 
     nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
+    jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
     t0 = time.perf_counter()
     stats = cli_detect.main([
         "--source", tile_dir, "--out", label_dir, "--variant", variant,
         "--batch", str(batch), "--conf", "1e-5", *options,
     ])
     seconds = time.perf_counter() - t0
-    launches = {"nms_suppress": nms_cuda.launches}
+    launches = {"nms_suppress": nms_cuda.launches, "jpeg_idct": jpeg_cuda.idct_launches,
+                "jpeg_color": jpeg_cuda.color_launches}
     int8_calls = check_int8_routes(f"cli.detect {list(options)}", "--int8" in options)
 
     n_batches = -(-n_tiles // batch)
-    if launches["nms_suppress"] != n_batches:
-        fail(f"nms_suppress launched {launches['nms_suppress']} times on cli.detect {list(options)}, "
-             f"expected {n_batches} (one per batch)")
-    if stats.loader != "python":
-        fail(f"cli.detect {list(options)} ran the {stats.loader!r} loader; the port has the Python one")
+    for name, n in launches.items():
+        if n != n_batches:
+            fail(f"{name} launched {n} times on cli.detect {list(options)}, expected {n_batches} (one per batch)")
+    if stats.loader != "device" or stats.files.get("device") != n_tiles:
+        fail(f"cli.detect {list(options)} on JPEG tiles ran the {stats.loader!r} loader ({stats.files}); "
+             "the device loader takes JPEG input")
     labels = sorted(os.listdir(label_dir))
     if len(labels) != n_tiles:
         fail(f"{len(labels)} label files for {n_tiles} tiles")
@@ -404,7 +425,7 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, optio
         rows += len(arr)
     return {"options": list(options), "launches": launches, "int8_conv_calls": int8_calls, "seconds": seconds,
             "label_files": len(labels), "rows": rows, "tiles": stats.tiles, "batches": stats.batches,
-            "loader": stats.loader}
+            "loader": stats.loader, "files": stats.files}
 
 
 def check_int8_routes(what: str, int8: bool) -> dict:
@@ -692,24 +713,29 @@ def drive_pipeline_full_width(d: str, inputs: tuple, variant: str = "mt", option
     seed 0, conf 1e-5, serving ``options`` (e.g. --int8) after those."""
     from aquaculture_tpu_torch.cli import pipeline as cli_pipeline
     from aquaculture_tpu_torch.cli.detect import default_img_size
+    from aquaculture_tpu_torch.data import jpeg_cuda
     from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
 
     tile_dir, boxes_csv, land = inputs
     out = os.path.join(d, f"det_{variant}{''.join(options)}.geojson")
     nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
+    jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
     t0 = time.perf_counter()
     det, stats = cli_pipeline.main([
         "--source", tile_dir, "--download-bboxes", boxes_csv, "--land", land, "--out", out,
         "--variant", variant, "--batch", str(PIPELINE_BATCH), "--conf", "1e-5", *options,
     ])
     seconds = time.perf_counter() - t0
-    launches = nms_cuda.launches
+    launches = {"nms_suppress": nms_cuda.launches, "jpeg_idct": jpeg_cuda.idct_launches,
+                "jpeg_color": jpeg_cuda.color_launches}
     int8_calls = check_int8_routes(f"pipeline {variant} {list(options)}", "--int8" in options)
 
     n_batches = -(-PIPELINE_TILES // PIPELINE_BATCH)
-    if not launches == stats.batches == n_batches or stats.tiles != PIPELINE_TILES:
-        fail(f"pipeline {variant}: nms_suppress launched {launches} times for {stats.batches} batches "
+    if set(launches.values()) != {stats.batches} or stats.batches != n_batches or stats.tiles != PIPELINE_TILES:
+        fail(f"pipeline {variant}: launches {launches} for {stats.batches} batches "
              f"of {stats.tiles} tiles, expected {n_batches} batches of {PIPELINE_TILES}")
+    if stats.loader != "device":
+        fail(f"pipeline {variant}: the {stats.loader!r} loader on JPEG tiles")
     rows = stats.stage_rows
     if not rows["dedup"] < rows["geocode"]:
         fail(f"pipeline {variant}: dedup dropped no row ({rows})")
@@ -722,7 +748,7 @@ def drive_pipeline_full_width(d: str, inputs: tuple, variant: str = "mt", option
     check_geojson(out, det, n_classes=5)
     return {"variant": variant, "options": list(options), "img": default_img_size(None, variant),
             "tiles": PIPELINE_TILES, "batch": PIPELINE_BATCH, "download_boxes": len(PIPELINE_BOXES),
-            "launches": {"nms_suppress": launches}, "int8_conv_calls": int8_calls, "dedup_clipped_rows": clipped,
+            "launches": launches, "int8_conv_calls": int8_calls, "dedup_clipped_rows": clipped,
             "seconds": seconds, "loader": stats.loader, **_stage_report(stats)}
 
 
@@ -1521,8 +1547,9 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 def probe() -> dict:
     """What the card's machine offers later work: triton, CUTLASS's
     headers (a fused int8 conv), matplotlib (figures), libjpeg's and
-    libtiff's headers and libraries (the parked native tile loader).
-    Gates nothing."""
+    libtiff's headers and libraries (what the JAX package's C++ tile
+    loader links; the port's device loader parses JPEG itself and needs
+    neither). Gates nothing."""
     out = {}
     try:
         import triton
@@ -1539,7 +1566,7 @@ def probe() -> dict:
         out["matplotlib"] = matplotlib.__version__
     except ImportError as e:
         out["matplotlib"] = f"absent: {e}"
-    # what the parked native tile loader needs (native/Makefile links -ljpeg -ltiff)
+    # what the JAX package's tile loader links (-ljpeg -ltiff); the port's needs neither
     out["headers"] = {h: [r for r in ("/usr/include", "/usr/local/include") if os.path.exists(os.path.join(r, h))]
                       for h in ("jpeglib.h", "tiffio.h")}
     try:
@@ -1652,11 +1679,13 @@ def check_int8_forward_card_vs_cpu(dev, img: int = 160) -> dict:
 def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
     """serving_accuracy_table for the trained fixture on its rendered
     12-image world (seed 0; tests/test_accuracy.py's) at 160 px, every row,
-    on the card (TF32 off, so that the f32 row is f32) and on the CPU: the
-    f32 rows agree, and every card row holds tests/test_accuracy.py's
-    bounds against the card's bf16 row."""
+    on the card (TF32 off, so that the f32 row is f32) through the device
+    loader and on the CPU through the Python loader: the f32 rows agree, and
+    every card row holds tests/test_accuracy.py's bounds against the card's
+    bf16 row."""
     import torch
 
+    from aquaculture_tpu_torch.data import jpeg_cuda
     from aquaculture_tpu_torch.eval.accuracy import SERVING_CONFIGS, serving_accuracy_table
     from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
 
@@ -1665,15 +1694,17 @@ def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
     prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     for device in ("cpu", "cuda"):
         nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
+        jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         try:
             rows = serving_accuracy_table(img_dir, lab_dir, FIXTURE, img_size=160, configs=configs,
-                                          device=device)
+                                          device=device, use_native=device == "cuda")
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
         tables[device] = {"rows": {r.name: {"map50": r.map50, "map": r.map} for r in rows},
-                          "seconds": time.perf_counter() - t0, "launches": nms_cuda.launches}
+                          "seconds": time.perf_counter() - t0, "launches": nms_cuda.launches,
+                          "jpeg_launches": [jpeg_cuda.idct_launches, jpeg_cuda.color_launches]}
         if device == "cuda":
             tables[device]["int8_conv_calls"] = check_int8_routes("accuracy table", True)
     card, cpu = tables["cuda"]["rows"], tables["cpu"]["rows"]
@@ -1681,6 +1712,9 @@ def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
     if tables["cuda"]["launches"] != 2 * len(configs) or tables["cpu"]["launches"]:
         fail(f"accuracy table: {tables['cuda']['launches']} launches on the card, "
              f"{tables['cpu']['launches']} on the CPU")
+    if tables["cuda"]["jpeg_launches"] != [2 * len(configs)] * 2 or any(tables["cpu"]["jpeg_launches"]):
+        fail(f"accuracy table: the device loader's kernels launched {tables['cuda']['jpeg_launches']} times "
+             f"on the card, {tables['cpu']['jpeg_launches']} on the CPU")
     f32_diff = max(abs(card["f32"][k] - cpu["f32"][k]) for k in ("map50", "map"))
     if f32_diff > ACC_F32_TOL:
         fail(f"accuracy table: f32 card {card['f32']} vs CPU {cpu['f32']}")
@@ -3230,11 +3264,325 @@ def run_acquire_to_map_phase(dev, card: str, d: str, d10: str, screening_worker:
             "seconds_by_part": seconds, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the feed (the device tile loader)
+# ---------------------------------------------------------------------------
+
+FEED_BATCH = 128
+FEED_DISTINCT = 32   # written tiles, reused under many tile-codec names
+FEED_PATHS = 1280    # 10 batches of 128 per timed device-loader run
+FEED_PY_PATHS = 384  # 3 batches per timed Python-loader run (4x slower)
+FEED_HOST_FILES = 16  # host decode timing: files per thread
+FEED_ROWS_TILES = 16
+# (name, (height, width), PIL save options or "gray"): the samplings,
+# qualities, partial MCUs, restart intervals and a raster of 2 x 2 tiles
+FEED_CASES = (
+    ("q75_420", (1024, 1024), dict(quality=75)),
+    ("q90_420", (1024, 1024), dict(quality=90)),
+    ("q95_420", (1024, 1024), dict(quality=95)),
+    ("q90_444", (1024, 1024), dict(quality=90, subsampling=0)),
+    ("q90_422", (1024, 1024), dict(quality=90, subsampling=1)),
+    ("gray", (1024, 1024), "gray"),
+    ("1000x750", (750, 1000), dict(quality=90)),
+    ("restart", (1024, 1024), dict(quality=90, restart_marker_blocks=7)),
+    ("raster_2048", (2048, 2048), dict(quality=90)),
+)
+
+
+def aerial_image(rng, h: int, w: int) -> np.ndarray:
+    """A seeded stand-in for an aerial tile: a smooth field (bilinear up
+    from a coarse grid), fine texture and a few bright rectangles, so that
+    it compresses as imagery does (a noise tile would not)."""
+    from PIL import Image
+
+    coarse = rng.integers(0, 255, (h // 32 + 2, w // 32 + 2, 3), dtype=np.uint8)
+    img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR)).astype(np.int16)
+    img = img + rng.integers(-10, 11, (h, w, 3), dtype=np.int16)
+    for _ in range(6):
+        x, y = rng.integers(0, w - 124), rng.integers(0, h - 124)
+        img[y:y + rng.integers(30, 120), x:x + rng.integers(30, 120)] = rng.integers(150, 255, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_feed_files(d: str) -> tuple:
+    """The exactness cases and the corpus: FEED_DISTINCT q90 4:2:0 1024 px
+    tiles, linked under FEED_PATHS tile-codec names (6 x 6 tiles a box)."""
+    from PIL import Image
+
+    from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
+
+    rng = np.random.default_rng(13)
+    cases = {}
+    for name, (h, w), kw in FEED_CASES:
+        img = aerial_image(rng, h, w)
+        p = os.path.join(d, f"case_{name}.jpg")
+        if kw == "gray":
+            Image.fromarray(img[..., 1]).save(p, quality=90)
+        else:
+            Image.fromarray(img).save(p, **kw)
+        cases[name] = p
+    distinct = [os.path.join(d, f"distinct_{i}.jpg") for i in range(FEED_DISTINCT)]
+
+    def write(i: int) -> None:
+        img = aerial_image(np.random.default_rng(1300 + i), 1024, 1024)
+        Image.fromarray(img).save(distinct[i], quality=90)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(FEED_DISTINCT)))
+    corpus = os.path.join(d, "corpus")
+    os.makedirs(corpus)
+    paths = []
+    for i in range(FEED_PATHS):
+        spec = TileSpec(year=2014, bbox_ind=i // 36, x_offset=1024 * (i % 6), y_offset=1024 * (i // 6 % 6))
+        p = os.path.join(corpus, encode_tile_name(spec, "jpg"))
+        os.symlink(distinct[i % FEED_DISTINCT], p)
+        paths.append(p)
+    return cases, distinct, paths
+
+
+def jpeg_batch(images: list, eff: int, dev):
+    """One kernel batch of entropy-decoded ``images`` on the card: the
+    coefficients, the descriptors, the layout and the slot shape (each
+    image's tile grid at ``eff``, or the whole of the one image at 0), plus
+    a zero slot."""
+    import torch
+
+    from aquaculture_tpu_torch.data import jpeg_plain as jp
+
+    offs, o = [], 0
+    for im in images:
+        offs.append(o)
+        o += im.coef.numel()
+    tiles = []
+    for i, im in enumerate(images):
+        grid = jp.tile_grid(im.out_width, im.out_height, eff) if eff else [(0, 0)]
+        tiles += [(jp.TILE_DECODED, i, x, y) for x, y in grid]
+    tiles.append((jp.TILE_ZERO, 0, 0, 0))
+    packed, lay = jp.describe_batch([im.meta for im in images], offs, tiles)
+    desc = jp.unpack_batch(torch.from_numpy(packed).to(dev), lay)
+    coef = torch.cat([im.coef for im in images]).to(dev)
+    shape = (eff, eff) if eff else (images[0].out_height, images[0].out_width)
+    return coef, desc, lay, (len(tiles), *shape, 3)
+
+
+def jpeg_kernels_vs_plain(images: list, eff: int, dev, what: str) -> dict:
+    """Both kernels on one batch against their plain versions on the same
+    card tensors, torch.equal, or the run fails."""
+    import torch
+
+    from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp
+
+    coef, (qt, comps, imgs, tiles), lay, shape = jpeg_batch(images, eff, dev)
+    planes = jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks)
+    want_planes = jp.idct_batch_plain(coef, qt, comps, lay.plane_bytes)
+    if not torch.equal(planes, want_planes):
+        fail(f"jpeg_idct != plain on {what}: {int((planes != want_planes).sum())} samples differ")
+    out = jpeg_cuda.jpeg_color(planes, comps, imgs, tiles, torch.full(shape, 7, dtype=torch.uint8, device=dev))
+    want = jp.color_batch_plain(want_planes, comps, imgs, tiles, torch.full_like(out, 7))
+    if not torch.equal(out, want):
+        fail(f"jpeg_color != plain on {what}: {int((out != want).sum())} bytes differ")
+    torch.cuda.synchronize()
+    return {"planes": lay.plane_bytes, "slots": shape[0], "out": out}
+
+
+def check_jpeg_exactness(cases: dict, dev) -> dict:
+    """Every case at 8/8 and 5/8, alone (the whole image) and all in one
+    batch on their tile grids, kernels == plain; at 8/8 the card's whole
+    image also equals PIL's decode on this host, byte for byte."""
+    from PIL import Image
+
+    from aquaculture_tpu_torch.data import native_loader
+
+    out = {}
+    for scale, eff in ((8, 1024), (5, 640)):
+        images = {name: native_loader.entropy_decode(p, scale) for name, p in cases.items()}
+        for name, im in images.items():
+            if im is None:
+                fail(f"the entropy decoder refused case {name}")
+            got = jpeg_kernels_vs_plain([im], 0, dev, f"{name} at {scale}/8")["out"][0]
+            if scale == 8:
+                pil = np.asarray(Image.open(cases[name]).convert("RGB"))
+                if got.shape != pil.shape or not np.array_equal(got.cpu().numpy(), pil):
+                    fail(f"the card's 8/8 decode of {name} != PIL's")
+        batch = jpeg_kernels_vs_plain(list(images.values()), eff, dev, f"all cases at {scale}/8 on the grid")
+        out[f"{scale}/8"] = {"cases": len(images), "slots": batch["slots"], "plane_bytes": batch["planes"],
+                             "kernels_equal_plain": True, "equal_pil": scale == 8}
+    return out
+
+
+def jpeg_bound_ms(lay, shape, coefs: int) -> tuple:
+    """(idct, color) least ms at HBM rate: the IDCT reads the int16
+    coefficients and writes the planes; the colour pass reads the planes
+    and writes the tiles (each byte once)."""
+    idct = (2 * coefs + lay.plane_bytes) / HBM_BYTES_PER_S * 1e3
+    color = (lay.plane_bytes + int(np.prod(shape))) / HBM_BYTES_PER_S * 1e3
+    return idct, color
+
+
+def time_jpeg_kernels(distinct: list, dev, card: str) -> dict:
+    """jpeg_idct and jpeg_color per batch of FEED_BATCH 1024 px tiles at
+    8/8 and 5/8 (CUDA events) beside the bytes bound; at 8/8, the main
+    path's scale, also the plain versions on the same card tensors (one
+    call each), held equal (5/8 is held equal on the exactness cases)."""
+    import torch
+
+    from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp, native_loader
+
+    out = {}
+    for scale, eff in ((8, 1024), (5, 640)):
+        base = [native_loader.entropy_decode(p, scale) for p in distinct]
+        images = [base[i % len(base)] for i in range(FEED_BATCH)]
+        coef, (qt, comps, imgs, tiles), lay, shape = jpeg_batch(images, eff, dev)
+        planes = jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks)
+        res = torch.empty(shape, dtype=torch.uint8, device=dev)
+        idct_ms = time_cuda(lambda: jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks),
+                            iters=10)
+        color_ms = time_cuda(lambda: jpeg_cuda.jpeg_color(planes, comps, imgs, tiles, res), iters=10)
+        idct_bound, color_bound = jpeg_bound_ms(lay, shape, coef.numel())
+        row = {"scale": f"{scale}/8", "batch": FEED_BATCH, "tile": eff, "coef_bytes": 2 * coef.numel(),
+               "plane_bytes": lay.plane_bytes, "out_bytes": int(np.prod(shape)),
+               "idct_ms": idct_ms, "idct_bound_ms": idct_bound, "color_ms": color_ms,
+               "color_bound_ms": color_bound, "bound_by": "bytes", "library_ms": None}
+        if scale == 8:
+            start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            start.record()
+            want_planes = jp.idct_batch_plain(coef, qt, comps, lay.plane_bytes)
+            mid.record()
+            want = jp.color_batch_plain(want_planes, comps, imgs, tiles, torch.empty_like(res))
+            end.record()
+            torch.cuda.synchronize()
+            if not (torch.equal(planes, want_planes) and torch.equal(res, want)):
+                fail(f"the jpeg kernels != plain on the timed batch at {scale}/8")
+            row.update(idct_plain_ms=start.elapsed_time(mid), color_plain_ms=mid.elapsed_time(end))
+            del want, want_planes
+        print(json.dumps({"metric": "jpeg_kernels", **row, "card": card}), flush=True)
+        out[f"{scale}/8"] = row
+        del coef, planes, res
+    return out
+
+
+def time_host_decode(paths: list, card: str) -> dict:
+    """The host half: entropy decodes and PIL's full decodes per second,
+    on one thread (FEED_HOST_FILES files) and on every core (as many per
+    thread)."""
+    from aquaculture_tpu_torch.data import native_loader
+    from aquaculture_tpu_torch.data.geotiff import read_image
+
+    cores = os.cpu_count() or 1
+    out = {"cores": cores}
+    for name, fn in (("entropy", lambda p: native_loader.entropy_decode(p, 8)), ("pil_full", read_image)):
+        for threads, n in ((1, FEED_HOST_FILES), (cores, cores * FEED_HOST_FILES)):
+            todo = [paths[i % len(paths)] for i in range(n)]
+            with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+                list(pool.map(fn, todo[:threads]))  # warm
+                t0 = time.perf_counter()
+                list(pool.map(fn, todo))
+                out[f"{name}_tiles_per_s_{threads}_threads"] = n / (time.perf_counter() - t0)
+    print(json.dumps({"metric": "host_decode", **out, "card": card}), flush=True)
+    return out
+
+
+def _rows_of(result) -> list:
+    boxes, conf, cls, specs, _ = result
+    keys = [(s.bbox_ind, s.x_offset, s.y_offset) for s in specs]
+    return sorted(zip(keys, map(tuple, boxes.tolist()), conf.tolist(), cls.tolist()))
+
+
+def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
+    """detect_files (mt, bf16) through the device loader and the Python
+    loader: full-decode rows equal on FEED_ROWS_TILES tiles (conf 1e-5,
+    batch 8), decode-at-scale rows reported; the kernels launched once per
+    batch; then file-fed tiles/s at b128, conf 0.25, the loaders in turns
+    (python, device, device, python, then 5/8 device, and python over half
+    a batch): the device loader over FEED_PATHS files, the Python loader
+    over FEED_PY_PATHS. Each timed run gives its whole-run rate (the first
+    batch's fill and the last harvest included) and its steady rate: the
+    tiles of batches 2..n over the time from batch 1's entry into the
+    serving program to batch n's."""
+    from aquaculture_tpu_torch.cli.detect import load_model
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.data import jpeg_cuda
+    from aquaculture_tpu_torch.pipeline import detect_files, make_infer_fn
+
+    model = load_model(None, "mt", 5)
+    out = {"rows": {}, "tiles_per_s": {}, "steady_tiles_per_s": {}, "batches": {}}
+    cfg = DetectConfig(img_size=640, conf_threshold=1e-5)
+    infer = make_infer_fn(model, cfg, 1024, device=dev)
+    few = paths[:FEED_ROWS_TILES]
+    for decode_scale in (False, True):
+        res = {}
+        for native in (True, False):
+            jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
+            res[native] = detect_files(few, model, cfg, 8, infer_fn=infer, device=dev, use_native=native,
+                                       decode_scale=decode_scale)
+            stats = res[native][-1]
+            want_loader = "device" if native else "python"
+            if stats.loader != want_loader or stats.tiles != len(few):
+                fail(f"detect_files(use_native={native}) ran {stats.loader!r} on {stats.tiles} tiles")
+            if native and not (jpeg_cuda.idct_launches == jpeg_cuda.color_launches == stats.batches):
+                fail(f"jpeg kernels launched {jpeg_cuda.idct_launches}/{jpeg_cuda.color_launches} times "
+                     f"for {stats.batches} batches")
+            if native and stats.files != {"device": len(few), "pil": 0, "pil_resize": 0, "skipped": 0}:
+                fail(f"device loader routes {stats.files}")
+        dev_rows, py_rows = _rows_of(res[True]), _rows_of(res[False])
+        key = "decode_scale_5/8" if decode_scale else "full"
+        if not decode_scale and dev_rows != py_rows:
+            fail(f"full-decode rows differ: device loader {len(dev_rows)}, Python loader {len(py_rows)}")
+        out["rows"][key] = {"device": len(dev_rows), "python": len(py_rows), "equal": dev_rows == py_rows}
+    cfg = DetectConfig(img_size=640, conf_threshold=0.25)
+    infer = make_infer_fn(model, cfg, 1024, device=dev)
+    detect_files(paths[:FEED_BATCH], model, cfg, FEED_BATCH, infer_fn=infer, device=dev, use_native=True)  # warm
+    # the Python loader's 5/8 (a PIL resize per tile on the consuming
+    # thread: 56-72 tiles/s) reads half a batch
+    for native, scale in ((False, False), (True, False), (True, False), (False, False), (True, True),
+                          (False, True)):
+        todo = paths if native else paths[:FEED_BATCH // 2] if scale else paths[:FEED_PY_PATHS]
+        stamps = []
+
+        def stamped(images, stamps=stamps):
+            stamps.append(time.perf_counter())
+            return infer(images)
+
+        *_, stats = detect_files(todo, model, cfg, FEED_BATCH, infer_fn=stamped, device=dev, use_native=native,
+                                 decode_scale=scale)
+        if stats.tiles != len(todo) or stats.batches != len(stamps):
+            fail(f"file-fed run: {stats.tiles} tiles in {stats.batches} batches of {len(todo)} files")
+        name = f"{stats.loader}{'_5/8' if scale else ''}"
+        out["tiles_per_s"].setdefault(name, []).append(stats.tiles_per_second)
+        if len(stamps) > 1:
+            out["steady_tiles_per_s"].setdefault(name, []).append(
+                FEED_BATCH * (len(stamps) - 1) / (stamps[-1] - stamps[0]))
+        out["batches"][name] = stats.batches
+    out["serving_tiles_on_card_per_s"] = serving_tps
+    print(json.dumps({"metric": "file_fed", "variant": "mt", "dtype": "bfloat16", "batch": FEED_BATCH,
+                      "conf": 0.25, **out, "card": card}), flush=True)
+    return out
+
+
+def run_feed_phase(dev, card: str, d: str, serving_tps: float) -> dict:
+    """Phase 13: the device loader's kernels exact on every case, the path
+    through detect_files, and its times beside the tiles-on-card rate."""
+    t0 = time.perf_counter()
+    cases, distinct, paths = write_feed_files(d)
+    seconds = {"write": time.perf_counter() - t0}
+    out = {"exactness": check_jpeg_exactness(cases, dev)}
+    seconds["exactness"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["kernels"] = time_jpeg_kernels(distinct, dev, card)
+    seconds["kernel_times"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["host_decode"] = time_host_decode(distinct, card)
+    seconds["host_decode"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["path"] = drive_feed_path(paths, dev, card, serving_tps)
+    seconds["path"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
+    from aquaculture_tpu_torch.data import jpeg_cuda, native_loader
     from aquaculture_tpu_torch.geo import native_boolean
     from aquaculture_tpu_torch.ops import nms_cuda
 
@@ -3265,13 +3613,17 @@ def main() -> int:
     os.makedirs(d4)
     aot_export = start_aot_export(d4, batch=8)
 
-    # 2. build the kernel (nvcc) and the overlay sweep (g++) at once
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    # 2. build the kernels (one nvcc per source), the overlay sweep and the
+    # entropy decoder (g++), all at once
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         t0 = time.perf_counter()
-        sweep_build = pool.submit(lambda: (native_boolean.build(), time.perf_counter() - t0)[1])
+        builds = {name: pool.submit(lambda f=f: (f(), time.perf_counter() - t0)[1])
+                  for name, f in (("booleanop", native_boolean.build), ("jpeg_entropy", native_loader.build),
+                                  ("jpeg_decode", jpeg_cuda.build))}
         nms_cuda.build()
         print(f"build: nms_suppress {time.perf_counter() - t0:.2f} s ({nms_cuda.library_path()})", flush=True)
-        print(f"build: booleanop {sweep_build.result():.2f} s ({native_boolean.library_path()})", flush=True)
+        for name, job in builds.items():
+            print(f"build: {name} {job.result():.2f} s", flush=True)
 
     # 3. kernels vs plain
     t0 = time.perf_counter()
@@ -3375,6 +3727,13 @@ def main() -> int:
                       "card": card}), flush=True)
     k, k6 = times["kernel"], times_p6["kernel"]
     mark("serving_times")
+    # 13. the feed: the device loader's kernels, path and times
+    d13 = os.path.join(d, "feed")
+    os.makedirs(d13)
+    feed = run_feed_phase(dev, card, d13, times["conf_0.25"]["tiles_per_s"])
+    print(json.dumps({"phase": "feed", **feed, "card": card}), flush=True)
+    torch.cuda.empty_cache()
+    mark("feed")
     # 11. the serving plan: its recommendations, one batch of the default served
     plan = run_plan_phase(dev, card, tiles)
     print(json.dumps({"phase": "plan_served", **plan["served"], "card": card}), flush=True)
@@ -3420,7 +3779,24 @@ def main() -> int:
         "p6_bound_ms": k6["bound_ms"],
         "p6_bound_by": k6["bound_by"],
         "suites_passed": list(suites),
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "aquaculture_tpu_torch/csrc/jpeg_decode.cu",
+        "replaces": "none, not a TPU kernel: the JAX package decodes on host threads (tileloader.cc:53, decode_jpeg)",
+        "launches": main_path["launches"][name],
+        "launches_decode_scale": options["decode_scale"]["launches"][name],
+        "launches_pipeline": pipeline["full_width"]["launches"][name],
+        "max_abs_err": 0.0,
+        "ms": feed["kernels"]["8/8"][f"{short}_ms"],
+        "plain_ms": feed["kernels"]["8/8"][f"{short}_plain_ms"],
+        "bound_ms": feed["kernels"]["8/8"][f"{short}_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ms_5/8": feed["kernels"]["5/8"][f"{short}_ms"],
+        "bound_ms_5/8": feed["kernels"]["5/8"][f"{short}_bound_ms"],
+        "exact_on": sorted(feed["exactness"]),
+    } for name, short in (("jpeg_idct", "idct"), ("jpeg_color", "color"))]}
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)

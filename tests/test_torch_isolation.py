@@ -595,3 +595,20 @@ def test_k_cap_error_names_the_p6_limit():
     with pytest.raises(ValueError, match=r"102,000-row P6 pool at 1280 px.*41\.6 GB"):
         nms_cuda.greedy_suppress_cuda(boxes.as_subclass(_Cuda), valid.as_subclass(_Cuda), 0.45)
     assert nms_cuda._lib is None
+
+
+def test_port_decodes_jpeg_without_libjpeg_or_libtiff():
+    """The device loader parses JPEG itself: no source under csrc/ includes
+    jpeglib.h or tiffio.h, and no build flag of the port links -ljpeg or
+    -ltiff (the card's machine has neither library)."""
+    from aquaculture_tpu_torch.data import native_loader
+    from aquaculture_tpu_torch.geo import native_boolean
+
+    sources = sorted((PORT / "csrc").glob("*.c*"))
+    assert {p.name for p in sources} >= {"jpeg_entropy.cc", "jpeg_decode.cu"}
+    for path in sources:
+        text = path.read_text()
+        for header in ("jpeglib.h", "tiffio.h", "jpeglib", "tiffio"):
+            assert f"<{header}" not in text and f'"{header}' not in text, f"{path.name} includes {header}"
+    flags = (*native_loader.CXX_FLAGS, *native_boolean.CXX_FLAGS, *nms_cuda.NVCC_FLAGS)
+    assert not any(f.startswith(("-ljpeg", "-ltiff")) or f in ("jpeg", "tiff") for f in flags), flags

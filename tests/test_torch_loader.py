@@ -5,12 +5,12 @@ decode-at-scale (out_tile) give the same uint8 batches, validity masks and
 TileSpecs as the JAX package's Python loader: tolerance 0, the same PIL
 decode and resize on the same files.
 
-The port has no native loader (its H100 hosts lack the libjpeg and
-libtiff development headers; ROADMAP.md). Its Python loader is held byte
-for byte against the JAX package's native loader (native/libaquatile.so)
-where the two read the same pixels: TIFF rasters, decoded in full, and decoded at
-scale, where the native loader routes by content (a TIFF named .jpg too)
-to the PIL resize the port runs.
+The port's Python loader is also held byte for byte against the JAX
+package's native loader (native/libaquatile.so) where the two read the
+same pixels: TIFF rasters, decoded in full, and decoded at scale, where
+the native loader routes by content (a TIFF named .jpg too) to the PIL
+resize the port runs. The port's own device loader (data/native_loader.py)
+is held against the JAX native loader in tests/test_torch_native_loader.py.
 """
 
 import subprocess

@@ -87,7 +87,7 @@ def test_detect_files_bf16_meets_golden_bar(tmp_path):
     jb, jc, jk, jspecs, _ = jax_detect_files([path], jmodel, jmodel.fuse(jparams),
                                              JaxDetectConfig(**kw), batch_size=1, use_native=False)
     tb, tc, tk, tspecs, stats = detect_files([path], model, DetectConfig(**kw), batch_size=1,
-                                             device="cpu")
+                                             device="cpu", use_native=False)
     assert tb.dtype == np.int64 and tk.dtype == np.int64
     assert stats.tiles == 1 and stats.batches == 1 and stats.detections == len(tb)
     assert len(tb) == len(jb)

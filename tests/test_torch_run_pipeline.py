@@ -81,7 +81,8 @@ def test_run_pipeline_bf16_meets_golden_bar(tmp_path):
     want, _ = jax_run_pipeline([path], jmodel, jmodel.fuse(jparams), jdl, JaxDetectConfig(**kw),
                                batch_size=1, use_native=False)
     launches = nms_cuda.launches
-    got, stats = run_pipeline([path], model, tdl, DetectConfig(**kw), batch_size=1, device="cpu")
+    got, stats = run_pipeline([path], model, tdl, DetectConfig(**kw), batch_size=1, device="cpu",
+                              use_native=False)
     assert nms_cuda.launches == launches  # the CPU path never touches the kernel
     assert got.crs == want.crs == 4326
     assert list(got.columns) == list(want.columns) and len(got) == len(want)
@@ -121,7 +122,7 @@ def test_run_pipeline_f32_trained_world_with_land(world):
                                batch_size=4, land=jgf.read_file(world["land"]), use_native=False)
     got, stats = run_pipeline(paths, load_model(FIXTURE, "n", 2), load_download_bboxes(world["bboxes"]),
                               DetectConfig(**kw), batch_size=4, land=tgf.read_file(world["land"]),
-                              device="cpu")
+                              device="cpu", use_native=False)
     assert stats.land_filter == "exact" and stats.batches == 2 and stats.tiles == 8
     assert stats.stage_rows["land_filter"] == len(got) < stats.stage_rows["areas"]  # land removed rows
     assert_f32_frames_match(got, want)
@@ -244,7 +245,7 @@ def test_run_pipeline_overlap_matches_jax(world, rasters):
                                     use_native=False, overlap=256)
     got, stats = run_pipeline(rasters, load_model(FIXTURE, "n", 2), load_download_bboxes(world["bboxes"]),
                               DetectConfig(**kw), batch_size=6, land=tgf.read_file(world["land"]),
-                              device="cpu", overlap=256)
+                              device="cpu", overlap=256, use_native=False)
     assert stats.tiles == jstats.tiles == 18 and stats.batches == 3  # 3 x 3 tiles per raster
     assert list(stats.stage_rows) == ["detect", "geocode", "dedup", "cross_tile", "areas", "land_filter"]
     assert stats.stage_rows["cross_tile"] < stats.stage_rows["dedup"]  # overlap copies collapsed
@@ -260,7 +261,7 @@ def test_run_pipeline_decode_scale_matches_jax(world):
                                batch_size=4, use_native=False, decode_scale=True)
     got, stats = run_pipeline(paths, load_model(FIXTURE, "n", 2), load_download_bboxes(world["bboxes"]),
                               DetectConfig(**kw), batch_size=4, device="cpu", decode_scale=True,
-                              decode_threads=1)
+                              decode_threads=1, use_native=False)
     assert stats.loader == "python" and stats.tiles == 8
     assert_f32_frames_match(got, want, least=10)
 
