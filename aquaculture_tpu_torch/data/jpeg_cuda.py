@@ -1,22 +1,21 @@
-"""Hand-written CUDA JPEG reconstruction kernels, bound with ctypes.
+"""The hand-written CUDA JPEG reconstruction kernel, bound with ctypes.
 
-``csrc/jpeg_decode.cu`` holds two kernels for ``sm_90a``:
-``jpeg_idct_kernel`` (dequantisation + libjpeg-turbo's integer IDCT at the
-component's scaled size, into per-component planes) and
-``jpeg_color_kernel`` (fancy chroma upsampling, YCbCr->RGB, the crop and
-the tile grid, into the (B, T, T, 3) uint8 batch). They are not ports of a
-TPU kernel: the JAX package decodes JPEG on host threads with libjpeg-turbo
-(its tileloader.cc). The host keeps the entropy decode
+``csrc/jpeg_decode.cu`` holds one kernel for ``sm_90a``,
+``jpeg_decode_kernel``: dequantisation + libjpeg-turbo's integer IDCT at
+each component's scaled size, fancy chroma upsampling, YCbCr->RGB, the crop
+and the tile grid, fused, into the (B, TH, TW, 3) uint8 batch, with the
+component planes kept in shared memory (never in device memory). It is not
+a port of a TPU kernel: the JAX package decodes JPEG on host threads with
+libjpeg-turbo (its tileloader.cc). The host keeps the entropy decode
 (csrc/jpeg_entropy.cc, data/native_loader.py).
 
-Each wrapper takes the descriptors of ``data.jpeg_plain.describe_batch``.
-On CUDA tensors it launches its kernel on the current stream or raises; on
-CPU tensors it runs the plain version (``idct_batch_plain``,
-``color_batch_plain``), which the CPU tests use and ``chip_smoke.py`` holds
-the kernels against. The library builds at first use with ``nvcc`` into
-``csrc/build/``, named by a hash of the source and flags, as
-``ops/nms_cuda.py`` builds its own; a failed build raises with nvcc's
-output.
+``jpeg_decode`` takes the descriptors of ``data.jpeg_plain.describe_batch``.
+On CUDA tensors it launches the kernel on the current stream or raises; on
+CPU tensors it runs the plain version (``decode_batch_plain``), which the
+CPU tests use and ``chip_smoke.py`` holds the kernel against. The library
+builds at first use with ``nvcc`` into ``csrc/build/``, named by a hash of
+the source and flags, as ``ops/nms_cuda.py`` builds its own; a failed build
+raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -28,35 +27,54 @@ import threading
 import torch
 
 from aquaculture_tpu_torch.data.jpeg_plain import (
-    COMP_INTS, IMAGE_INTS, TILE_INTS, color_batch_plain, idct_batch_plain)
+    COMP_INTS, IMAGE_INTS, RING_PITCH, RING_ROWS, RING_SLACK, STRIPE_W, TILE_INTS, decode_batch_plain,
+    decode_grid)
 from aquaculture_tpu_torch.ops import nms_cuda
 
 SOURCE = os.path.join(nms_cuda._CSRC, "jpeg_decode.cu")
 
-# Kernel launches since the last reset; chip_smoke.py zeroes them around
-# the main path to show that it went through the kernels.
-idct_launches = 0
-color_launches = 0
-# jpeg_idct_kernel's grid has one y row per component; CUDA caps gridDim.y
+# Kernel launches since the last reset; chip_smoke.py zeroes it around the
+# main path to show that it went through the kernel.
+decode_launches = 0
+# the grid's y axis is the batch's slots; CUDA caps gridDim.y
 MAX_GRID_Y = 65535
+ATTRIBUTES = ("registers", "shared_bytes", "local_bytes", "threads", "ctas_per_sm")
 
 _lib = None
 _lock = threading.Lock()
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per source hash) and load the kernel library; its
+    geometry must be ``jpeg_plain``'s."""
     global _lib
     with _lock:
         if _lib is None:
             so = nms_cuda.compile_library(SOURCE, "libaq_jpeg_decode")
             lib = ctypes.CDLL(so)
-            lib.aq_jpeg_idct.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-            lib.aq_jpeg_idct.restype = ctypes.c_int
-            lib.aq_jpeg_color.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-            lib.aq_jpeg_color.restype = ctypes.c_int
+            lib.aq_jpeg_decode.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            lib.aq_jpeg_decode.restype = ctypes.c_int
+            lib.aq_jpeg_geometry.argtypes = [ctypes.c_void_p]
+            lib.aq_jpeg_geometry.restype = None
+            lib.aq_jpeg_attributes.argtypes = [ctypes.c_void_p]
+            lib.aq_jpeg_attributes.restype = ctypes.c_int
+            geo, want = (ctypes.c_int * 4)(), (STRIPE_W, RING_ROWS, RING_PITCH, RING_SLACK)
+            lib.aq_jpeg_geometry(geo)
+            if tuple(geo) != want:
+                raise RuntimeError(f"{so}: kernel geometry {tuple(geo)} != jpeg_plain's {want}")
             _lib = lib
         return _lib
+
+
+def attributes() -> dict:
+    """The built kernel's registers per thread, static shared memory per
+    CTA, local (spill) bytes per thread, threads per CTA and resident CTAs
+    per SM on the current card (cudaFuncGetAttributes)."""
+    vals = (ctypes.c_int * len(ATTRIBUTES))()
+    err = build().aq_jpeg_attributes(vals)
+    if err != 0:
+        raise RuntimeError(f"aq_jpeg_attributes failed: cudaError {err}")
+    return dict(zip(ATTRIBUTES, vals))
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dev: torch.device) -> None:
@@ -68,46 +86,16 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dev: torch.device) ->
         raise ValueError(f"{name} must be contiguous")
 
 
-def jpeg_idct(coef: torch.Tensor, qt: torch.Tensor, comps: torch.Tensor, plane_bytes: int,
-              max_blocks: int) -> torch.Tensor:
-    """Dequantise and inverse-DCT every component of a batch: coef int16
-    coefficients, qt int32 (64 per component), comps int32 (n, 8) ->
-    planes, a uint8 buffer of plane_bytes on coef's device."""
-    global idct_launches
-    dev = coef.device
+def jpeg_decode(coef: torch.Tensor, qt: torch.Tensor, comps: torch.Tensor, images: torch.Tensor,
+                tiles: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Decode a batch into ``out`` (n_slots, TH, TW, 3) uint8, in place:
+    coef int16 coefficients, qt int32 (64 per component), comps, images and
+    tiles int32 descriptors. Each decoded slot gets its tile, zero slots
+    zeros; caller slots (TILE_CALLER) are left untouched."""
+    global decode_launches
+    dev = out.device
     _check("coef", coef, torch.int16, dev)
     _check("qt", qt, torch.int32, dev)
-    _check("comps", comps, torch.int32, dev)
-    if comps.dim() != 2 or comps.shape[1] != COMP_INTS:
-        raise ValueError(f"comps must be (n, {COMP_INTS}); got {tuple(comps.shape)}")
-    if dev.type == "cpu":
-        return idct_batch_plain(coef, qt, comps, plane_bytes)
-    if dev.type != "cuda":
-        raise ValueError(f"jpeg_idct runs on CUDA or the CPU; got {dev}")
-    planes = torch.empty(plane_bytes, dtype=torch.uint8, device=dev)
-    n = comps.shape[0]
-    if n == 0:
-        return planes
-    lib = build()
-    if n > MAX_GRID_Y:
-        raise ValueError(f"{n} components in one batch; the kernel's grid takes {MAX_GRID_Y}")
-    with torch.cuda.device(dev):
-        err = lib.aq_jpeg_idct(coef.data_ptr(), qt.data_ptr(), comps.data_ptr(), n, max_blocks,
-                               planes.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"aq_jpeg_idct launch failed: cudaError {err}")
-    idct_launches += 1
-    return planes
-
-
-def jpeg_color(planes: torch.Tensor, comps: torch.Tensor, images: torch.Tensor, tiles: torch.Tensor,
-               out: torch.Tensor) -> torch.Tensor:
-    """Upsample, colour-convert and slice a batch's planes into ``out``
-    (n_slots, TH, TW, 3) uint8, in place: each decoded slot gets its tile,
-    zero slots zeros, caller slots (TILE_CALLER) are left untouched."""
-    global color_launches
-    dev = out.device
-    _check("planes", planes, torch.uint8, dev)
     for name, t, width in (("comps", comps, COMP_INTS), ("images", images, IMAGE_INTS),
                            ("tiles", tiles, TILE_INTS)):
         _check(name, t, torch.int32, dev)
@@ -117,17 +105,21 @@ def jpeg_color(planes: torch.Tensor, comps: torch.Tensor, images: torch.Tensor, 
     if out.dim() != 4 or out.shape[3] != 3 or out.shape[0] != tiles.shape[0]:
         raise ValueError(f"out must be ({tiles.shape[0]}, TH, TW, 3); got {tuple(out.shape)}")
     if dev.type == "cpu":
-        return color_batch_plain(planes, comps, images, tiles, out)
+        return decode_batch_plain(coef, qt, comps, images, tiles, out)
     if dev.type != "cuda":
-        raise ValueError(f"jpeg_color runs on CUDA or the CPU; got {dev}")
+        raise ValueError(f"jpeg_decode runs on CUDA or the CPU; got {dev}")
     n, th, tw = out.shape[:3]
     if n * th * tw == 0:
         return out
+    if n > MAX_GRID_Y:
+        raise ValueError(f"{n} slots in one batch; the kernel's grid takes {MAX_GRID_Y}")
+    _, band_rows = decode_grid(n, th, tw)
     lib = build()
     with torch.cuda.device(dev):
-        err = lib.aq_jpeg_color(planes.data_ptr(), comps.data_ptr(), images.data_ptr(), tiles.data_ptr(),
-                                n, th, tw, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        err = lib.aq_jpeg_decode(coef.data_ptr(), qt.data_ptr(), comps.data_ptr(), images.data_ptr(),
+                                 tiles.data_ptr(), n, th, tw, band_rows, out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"aq_jpeg_color launch failed: cudaError {err}")
-    color_launches += 1
+        raise RuntimeError(f"aq_jpeg_decode launch failed: cudaError {err}")
+    decode_launches += 1
     return out

@@ -1,13 +1,13 @@
-"""Plain PyTorch versions of the JPEG reconstruction kernels.
+"""The plain PyTorch version of the JPEG reconstruction kernel.
 
 The port's JPEG decoder runs in two halves: the host entropy decode
 (csrc/jpeg_entropy.cc) gives each image's de-zigzagged, still-quantised
 int16 coefficients and their metadata; the reconstruction (dequantisation,
 integer IDCT, chroma upsampling, YCbCr->RGB, the crop and the tile grid)
-runs in the hand-written kernels of csrc/jpeg_decode.cu on the card, and
+runs in the hand-written kernel of csrc/jpeg_decode.cu on the card, and
 here, in int32 tensor code, on the CPU. The tests hold this module against
 PIL's and the JAX package's libjpeg-turbo decodes byte for byte, and
-chip_smoke.py holds the kernels against it with ``torch.equal``.
+chip_smoke.py holds the kernel against it with ``torch.equal``.
 
 The arithmetic is libjpeg-turbo's, reproduced exactly, not approximated:
 - ``jpeg_idct_islow`` for 8x8 (CONST_BITS 13, PASS1_BITS 2), and the
@@ -18,6 +18,10 @@ The arithmetic is libjpeg-turbo's, reproduced exactly, not approximated:
 - jdsample.c's "fancy" (triangle-filter) h2v1, h1v2 and h2v2 upsampling,
   with its edge replication, and the box upsampling it falls back to;
 - jdcolor.c's 16-bit fixed-point YCbCr->RGB tables with ONE_HALF rounding.
+The kernel runs them fused, stripe by stripe (``stripe_blocks`` gives the
+blocks one of its CTAs reads); ``decode_batch_plain`` is its plain version,
+the IDCT into whole planes (``idct_batch_plain``) followed by the colour
+pass over them (``color_batch_plain``).
 The sums fit int32 for every coefficient that an encoder makes from 8-bit
 samples (libjpeg computes in 64-bit ``JLONG``); the 8x8 SIMD IDCT of
 libjpeg-turbo saturates where the table wraps, which only coefficients out
@@ -329,9 +333,10 @@ def ycc_to_rgb_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> tor
 
 # ---------------------------------------------------------------- batches
 #
-# A batch for the kernels is a set of images (their coefficients one after
+# A batch for the kernel is a set of images (their coefficients one after
 # another in one int16 buffer) and a list of tile slots, described by int32
-# arrays (the layout csrc/jpeg_decode.cu reads):
+# arrays (the layout csrc/jpeg_decode.cu reads; plane_off and plane_w serve
+# the plain version's planes only):
 #   comps  (8 per component of each image): coef_off, plane_off, blocks_w,
 #          blocks_h, K, S, qt_off, plane_w
 #   images (20 per image): ncomp, first comp, out_w, out_h, colour (0 grey,
@@ -352,8 +357,7 @@ class BatchLayout:
     n_comps: int
     n_images: int
     n_slots: int
-    plane_bytes: int   # the IDCT's output: every component's plane
-    max_blocks: int    # blocks of the largest component
+    plane_bytes: int   # the plain IDCT's output: every component's plane
 
 
 def describe_batch(metas: Sequence[np.ndarray], coef_offsets: Sequence[int],
@@ -366,7 +370,7 @@ def describe_batch(metas: Sequence[np.ndarray], coef_offsets: Sequence[int],
     qt = np.zeros((n_comps, 64), np.int64)
     comps = np.zeros((n_comps, COMP_INTS), np.int64)
     images = np.zeros((len(metas), IMAGE_INTS), np.int64)
-    ci = plane_off = max_blocks = 0
+    ci = plane_off = 0
     for i, (m, off) in enumerate(zip(metas, coef_offsets)):
         cs = components_of(m)
         images[i, :5] = (len(cs), ci, m[M_OUT_W], m[M_OUT_H], m[M_COLOR])
@@ -381,13 +385,13 @@ def describe_batch(metas: Sequence[np.ndarray], coef_offsets: Sequence[int],
                          comp.kept, comp.size, 64 * ci, pw)
             qt[ci] = comp.qtable.ravel()
             plane_off += comp.blocks_h * comp.size * pw
-            max_blocks = max(max_blocks, comp.blocks_w * comp.blocks_h)
             ci += 1
+        _check_ring(comps[images[i, 1]:ci, 5].tolist(), images[i].tolist())
     t = np.asarray(tiles, np.int64).reshape(-1, TILE_INTS)
     packed = np.concatenate([qt.ravel(), comps.ravel(), images.ravel(), t.ravel()])
     if plane_off > _INT32_MAX or (n_comps and comps[:, 0].max() > _INT32_MAX):
         raise ValueError("a batch's coefficients or planes pass 2**31: use a smaller batch")
-    return packed.astype(np.int32), BatchLayout(n_comps, len(metas), len(t), plane_off, max_blocks)
+    return packed.astype(np.int32), BatchLayout(n_comps, len(metas), len(t), plane_off)
 
 
 def unpack_batch(packed: torch.Tensor, lay: BatchLayout):
@@ -399,9 +403,116 @@ def unpack_batch(packed: torch.Tensor, lay: BatchLayout):
     return (qt, comps.view(-1, COMP_INTS), images.view(-1, IMAGE_INTS), tiles.view(-1, TILE_INTS))
 
 
+# ---------------------------------------------------------------- stripes
+#
+# The kernel's geometry (csrc/jpeg_decode.cu keeps the same constants and
+# arithmetic; the wrapper checks the constants when it loads the library).
+# One CTA owns a column stripe of STRIPE_W output pixels of one slot over a
+# band of its rows, and walks down the image in steps of whole MCU rows
+# (STEP_ROWS output rows or fewer): per step it inverse-transforms each
+# component's new block rows under the stripe into a ring of sample rows in
+# shared memory (the rows above and below too for a component upsampled
+# vertically, as jdmainct.c's context rows), then upsamples and
+# colour-converts the step's pixels out of the ring.
+STRIPE_W = 128        # output pixels across one CTA
+STEP_ROWS = 64        # output rows per step: as many whole MCU rows as fit
+RING_ROWS = 64        # sample rows of one component's ring (at most 64 at 8/8, 60 at 5/8)
+RING_PITCH = 176      # bytes per ring row (a multiple of 16): the widest stripe needs 140
+                      # (10x10 at 5/8), up to 15 of pad to put its runs on 16-byte
+                      # boundaries and RING_SLACK past them
+RING_SLACK = 8        # bytes the 2x upsampler's word reads may pass a row's last sample
+BAND_ROWS = 80        # a band's rows are a multiple of this (MCU heights 8, 10, 16)
+MIN_CTAS = 4096       # split tiles into bands until the grid has this many CTAs:
+                      # about eight waves of 4 resident CTAs on an H100's 132 SMs
+
+
+def _fancy(mode: int) -> Tuple[bool, bool]:
+    """Whether a component's fancy upsampling reads a neighbour sample
+    across (h) and down (v)."""
+    return mode in (UP_H2V1, UP_H2V2), mode in (UP_H1V2, UP_H2V2)
+
+
+def _span(fancy: bool, factor: int, n: int, lo: int, hi: int) -> Tuple[int, int]:
+    """Samples [a, b) of one component's axis that output pixels [lo, hi)
+    read: the triangle filter's neighbours clamped to the n downsampled
+    samples, or the box's sample under each pixel."""
+    if fancy:
+        return max((lo >> 1) - 1, 0), min(((hi - 1) >> 1) + 1, n - 1) + 1
+    return lo // factor, (hi - 1) // factor + 1
+
+
+def _ring_row_bytes(fancy: bool, factor: int, s: int) -> int:
+    """The most bytes of a ring row that any stripe's STRIPE_W pixels
+    take, whatever its origin: the blocks under the widest span of samples
+    they read (``_span``: the triangle's neighbour on each side for a
+    fancy upsampler) and the pad (up to 15) that puts the first run on a
+    16-byte boundary."""
+    factor = 2 if fancy else factor
+    samples = -(-(STRIPE_W - 1) // factor) + (3 if fancy else 1)
+    return (-(-(samples - 1) // s) + 1) * s + 15
+
+
+def _check_ring(sizes: Sequence[int], image: Sequence[int]) -> None:
+    """Each component's rolling window (a step's block rows, and the rows
+    above and below for a vertical upsampler) fits the kernel's ring, every
+    component's block rows fall on the image's MCU rows, and the widest
+    stripe at any origin fits a ring row: the kernel traps on a CTA past
+    any of these (csrc/jpeg_decode.cu), so the batch is refused here."""
+    rows = [s * image[7 + 5 * c] for c, s in enumerate(sizes)]   # output rows per block row
+    mcu = max(rows)
+    step = max(STEP_ROWS // mcu, 1) * mcu
+    for c, (s, r) in enumerate(zip(sizes, rows)):
+        mode, hf = image[5 + 5 * c:7 + 5 * c]
+        fancy_h, fancy_v = _fancy(mode)
+        window = step // r + 2 * fancy_v
+        if mcu % r or window * s > RING_ROWS:
+            raise ValueError(f"component {c}: {window} block rows of {s} samples per step; "
+                             f"the kernel's ring holds {RING_ROWS} rows")
+        width = _ring_row_bytes(fancy_h, hf, s)
+        if width > RING_PITCH - RING_SLACK:
+            raise ValueError(f"component {c}: a stripe's samples take up to {width} bytes of a ring row; "
+                             f"the kernel's rows hold {RING_PITCH - RING_SLACK}")
+
+
+def decode_grid(n_slots: int, th: int, tw: int) -> Tuple[int, int]:
+    """(stripes, band rows) of the kernel's grid over (n_slots, th, tw, 3):
+    one CTA per stripe of STRIPE_W columns, slot and band; tiles split into
+    bands of a multiple of BAND_ROWS rows until there are MIN_CTAS CTAs."""
+    stripes = -(-tw // STRIPE_W)
+    bands = min(-(-MIN_CTAS // max(n_slots * stripes, 1)), -(-th // BAND_ROWS))
+    band_rows = -(-(-(-th // max(bands, 1))) // BAND_ROWS) * BAND_ROWS
+    return stripes, band_rows
+
+
+def stripe_blocks(comps, image: Sequence[int], tile: Sequence[int], th: int, tw: int, stripe: int,
+                  rows: Tuple[int, int] = None) -> List[Tuple[int, int, int, int]]:
+    """The blocks that the kernel's CTA for one (slot, stripe) reads, as
+    (first block row, end, first block column, end) per component of the
+    slot's image ([] when it reads none: a zero or caller slot, or a stripe
+    past the image). ``comps`` the batch's (n, 8) descriptors, ``image``
+    and ``tile`` the slot's rows; ``rows`` a band of the tile's rows
+    (default all of them)."""
+    kind, _, tx, ty = tile
+    y0, y1 = rows or (0, th)
+    x0 = stripe * STRIPE_W
+    xa, xb = tx + x0, min(tx + min(x0 + STRIPE_W, tw), image[2])
+    ya, yb = ty + y0, min(ty + y1, image[3])
+    if kind != TILE_DECODED or xa >= xb or ya >= yb:
+        return []
+    out = []
+    for c in range(image[0]):
+        s = int(comps[image[1] + c][5])
+        mode, hf, vf, dw, dh = image[5 + 5 * c:10 + 5 * c]
+        fh, fv = _fancy(mode)
+        c0, c1 = _span(fh, hf, dw, xa, xb)
+        r0, r1 = _span(fv, vf, dh, ya, yb)
+        out.append((r0 // s, (r1 - 1) // s + 1, c0 // s, (c1 - 1) // s + 1))
+    return out
+
+
 def idct_batch_plain(coef: torch.Tensor, qt: torch.Tensor, comps: torch.Tensor,
                      plane_bytes: int) -> torch.Tensor:
-    """Plain version of ``jpeg_idct_kernel``: every component's blocks ->
+    """The IDCT half of ``decode_batch_plain``: every component's blocks ->
     its plane of (blocks_h * S, blocks_w * S) samples, all planes in one
     uint8 buffer of ``plane_bytes``."""
     planes = torch.zeros(plane_bytes, dtype=torch.uint8, device=coef.device)
@@ -430,10 +541,10 @@ def image_rgb_plain(planes: torch.Tensor, comps: torch.Tensor, image: Sequence[i
 
 def color_batch_plain(planes: torch.Tensor, comps: torch.Tensor, images: torch.Tensor,
                       tiles: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``jpeg_color_kernel``: fills ``out`` (n_slots, TH,
-    TW, 3) uint8 in place, each decoded slot with its tile of its image
-    (zero past the image), zero slots with zeros; TILE_CALLER slots stay
-    as they are."""
+    """The colour half of ``decode_batch_plain``: fills ``out`` (n_slots,
+    TH, TW, 3) uint8 in place from the planes, each decoded slot with its
+    tile of its image (zero past the image), zero slots with zeros;
+    TILE_CALLER slots stay as they are."""
     th, tw = out.shape[1:3]
     rgb = {}
     for slot, (kind, img, x, y) in enumerate(tiles.tolist()):
@@ -447,6 +558,16 @@ def color_batch_plain(planes: torch.Tensor, comps: torch.Tensor, images: torch.T
         crop = rgb[img][y:y + th, x:x + tw]
         out[slot, :crop.shape[0], :crop.shape[1]] = crop
     return out
+
+
+def decode_batch_plain(coef: torch.Tensor, qt: torch.Tensor, comps: torch.Tensor, images: torch.Tensor,
+                       tiles: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``jpeg_decode_kernel``: the batch's coefficients ->
+    ``out`` (n_slots, TH, TW, 3) uint8, in place, through whole planes (the
+    kernel keeps none in device memory)."""
+    plane_bytes = max((po + bh * s * pw for _, po, _, bh, _, s, _, pw in comps.tolist()), default=0)
+    planes = idct_batch_plain(coef, qt, comps, plane_bytes)
+    return color_batch_plain(planes, comps, images, tiles, out)
 
 
 # ---------------------------------------------------------------- whole image
@@ -470,7 +591,7 @@ def reconstruct_plain(image: EntropyImage, out_tile: int = 0):
     offs = tile_grid(w, h, out_tile) if out_tile else [(0, 0)]
     packed, lay = describe_batch([image.meta], [0], [(TILE_DECODED, 0, x, y) for x, y in offs])
     qt, comps, images, tiles = unpack_batch(torch.from_numpy(packed), lay)
-    planes = idct_batch_plain(image.coef, qt, comps, lay.plane_bytes)
     shape = (out_tile, out_tile) if out_tile else (h, w)
-    out = color_batch_plain(planes, comps, images, tiles, torch.empty((len(offs), *shape, 3), dtype=torch.uint8))
+    out = decode_batch_plain(image.coef, qt, comps, images, tiles,
+                             torch.empty((len(offs), *shape, 3), dtype=torch.uint8))
     return (out, offs) if out_tile else out[0]

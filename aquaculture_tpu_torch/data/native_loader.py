@@ -1,5 +1,5 @@
 """The device tile loader: JPEG entropy decode on host threads, the rest
-of the decode in hand-written kernels on the card.
+of the decode in a hand-written kernel on the card.
 
 Counterpart of aquaculture_tpu/data/native_loader.py with
 the C++ tileloader.cc beside it, split another way. The JAX package decodes whole
@@ -10,11 +10,11 @@ libjpeg, and on a card the parallel half belongs on the card:
   still-quantised int16 coefficients (at 5/8 only each block's kept
   coefficients), ahead of the consumer and handed out in path order;
 - the coefficients go into a pinned staging slot, are copied to the card
-  ``non_blocking``, and ``data/jpeg_cuda.py``'s two kernels dequantise,
-  IDCT, upsample, colour-convert and slice the tile grid straight into the
-  (B, T, T, 3) uint8 batch on the card. Two slots, each guarded by a CUDA
+  ``non_blocking``, and ``data/jpeg_cuda.py``'s fused kernel dequantises,
+  inverse-transforms, upsamples, colour-converts and slices the tile grid
+  straight into the (B, T, T, 3) uint8 batch on the card, once per batch. Two slots, each guarded by a CUDA
   event: a slot is refilled only after its copy has finished;
-- on ``device="cpu"`` the same coefficients go through the plain versions
+- on ``device="cpu"`` the same coefficients go through the plain version
   (``data/jpeg_plain.py``).
 The pixels are libjpeg-turbo's, byte for byte, at 8/8 and at 5/8 (the
 decode-at-scale of ``detect_files(decode_scale=True)``: the DCT-domain
@@ -61,7 +61,7 @@ from aquaculture_tpu_torch.geo import native_boolean
 
 SOURCE = os.path.join(native_boolean._CSRC, "jpeg_entropy.cc")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread")
-SCALES = (8, 5)  # the N/8 scales the kernels decode at
+SCALES = (8, 5)  # the N/8 scales the kernel decodes at
 ROUTES = ("device", "pil", "pil_resize", "skipped")
 
 _lib = None
@@ -150,16 +150,15 @@ def entropy_decode(path: str, scale_n: int = 8) -> Optional[EntropyImage]:
 
 
 def _reconstruct(image: EntropyImage, dev: torch.device) -> torch.Tensor:
-    """A whole image's (H, W, 3) uint8 pixels on ``dev``: the kernels on
-    CUDA, the plain versions on the CPU."""
+    """A whole image's (H, W, 3) uint8 pixels on ``dev``: the kernel on
+    CUDA, its plain version on the CPU."""
     if dev.type == "cpu":
         return reconstruct_plain(image)
     h, w = image.out_height, image.out_width
     packed, lay = describe_batch([image.meta], [0], [(TILE_DECODED, 0, 0, 0)])
     qt, comps, images, tiles = unpack_batch(torch.from_numpy(packed).to(dev), lay)
-    planes = jpeg_cuda.jpeg_idct(image.coef.to(dev), qt, comps, lay.plane_bytes, lay.max_blocks)
     out = torch.empty((1, h, w, 3), dtype=torch.uint8, device=dev)
-    return jpeg_cuda.jpeg_color(planes, comps, images, tiles, out)[0]
+    return jpeg_cuda.jpeg_decode(image.coef.to(dev), qt, comps, images, tiles, out)[0]
 
 
 def decode_image(path: str, device="cuda") -> Optional[torch.Tensor]:
@@ -339,8 +338,7 @@ class _Batcher:
 
     def _decode(self, coef, desc, lay, out, caller) -> None:
         qt, comps, images, tiles = unpack_batch(desc, lay)
-        planes = jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks)
-        jpeg_cuda.jpeg_color(planes, comps, images, tiles, out)
+        jpeg_cuda.jpeg_decode(coef, qt, comps, images, tiles, out)
         if caller:
             px = torch.from_numpy(np.stack([a for _, a in caller]))
             if self.dev.type == "cuda":

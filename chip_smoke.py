@@ -14,9 +14,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      masks exactly equal (tolerance 0), over several input suites;
   4. drive the port's main path, ``aquaculture_tpu_torch.cli.detect.main``
      on the mt model at 640 px from 1024 px JPEG tiles through the device
-     loader (its entropy decode on host threads, ``jpeg_idct`` and
-     ``jpeg_color`` on the card), with the launch counters of all three
-     kernels zeroed just before and read just after (each == batches); compare batched_nms
+     loader (its entropy decode on host threads, ``jpeg_decode`` on the
+     card), with the launch counters of both kernels zeroed just before
+     and read just after (each == batches); compare batched_nms
      through the kernel with the plain path on one batch; compare the
      card's f32 forward with the CPU's (TF32 off);
   4b. the pipeline phase: drive ``aquaculture_tpu_torch.cli.pipeline.main``
@@ -153,16 +153,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      sweep over 100 thresholds, Figure 4's classification, the Trujillo
      tags, unique locations, the HTML map with one point per facility (the
      plots only where matplotlib imports).
- 13. after 5, ``feed``, the device loader: its two kernels equal to their
-     plain versions (torch.equal) on JPEGs at q75, q90 and q95 4:2:0,
-     4:4:4, 4:2:2, greyscale, 1000 x 750, restart intervals and a 2048 px
-     raster, at 8/8 and 5/8, alone and in one batch on the tile grid, and
-     the card's 8/8 images equal to PIL's decode on this host byte for
-     byte; detect_files through both loaders (full-decode rows equal, the
-     kernels once per batch); then the times, with the card's name and
-     power limit: the host entropy decode and PIL's full decode per second
-     on one thread and on every core, both kernels per batch of 128 at 8/8
-     and 5/8 beside the plain versions and the bytes bound, and file-fed
+ 13. after 5, ``feed``, the device loader: its fused kernel equal to its
+     plain version (torch.equal) on JPEGs at q75, q90 and q95 4:2:0,
+     4:4:4, 4:2:2, 4:4:0, greyscale, 1000 x 750, restart intervals and a
+     2048 px raster, at 8/8 and 5/8, alone and in one batch on the tile
+     grid, and the card's 8/8 images equal to PIL's decode on this host
+     byte for byte; detect_files through both loaders (full-decode rows
+     equal, the kernel once per batch); then the times, with the card's
+     name and power limit: the host entropy decode and PIL's full decode
+     per second on one thread and on every core, the kernel per batch of
+     128 at 8/8 and 5/8 beside its plain version and its bound (bytes and
+     integer operations; its registers and shared memory), and file-fed
      detect_files tiles/s (mt bf16 b128) through both loaders in turns
      (10 batches a device-loader run, 3 a Python-loader run, whole-run and
      steady rates) beside phase 5's tiles-on-card rate.
@@ -394,15 +395,14 @@ def run_main_path(tile_dir: str, label_dir: str, n_tiles: int, batch: int, optio
     from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
 
     nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
-    jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
+    jpeg_cuda.decode_launches = 0
     t0 = time.perf_counter()
     stats = cli_detect.main([
         "--source", tile_dir, "--out", label_dir, "--variant", variant,
         "--batch", str(batch), "--conf", "1e-5", *options,
     ])
     seconds = time.perf_counter() - t0
-    launches = {"nms_suppress": nms_cuda.launches, "jpeg_idct": jpeg_cuda.idct_launches,
-                "jpeg_color": jpeg_cuda.color_launches}
+    launches = {"nms_suppress": nms_cuda.launches, "jpeg_decode": jpeg_cuda.decode_launches}
     int8_calls = check_int8_routes(f"cli.detect {list(options)}", "--int8" in options)
 
     n_batches = -(-n_tiles // batch)
@@ -719,15 +719,14 @@ def drive_pipeline_full_width(d: str, inputs: tuple, variant: str = "mt", option
     tile_dir, boxes_csv, land = inputs
     out = os.path.join(d, f"det_{variant}{''.join(options)}.geojson")
     nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
-    jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
+    jpeg_cuda.decode_launches = 0
     t0 = time.perf_counter()
     det, stats = cli_pipeline.main([
         "--source", tile_dir, "--download-bboxes", boxes_csv, "--land", land, "--out", out,
         "--variant", variant, "--batch", str(PIPELINE_BATCH), "--conf", "1e-5", *options,
     ])
     seconds = time.perf_counter() - t0
-    launches = {"nms_suppress": nms_cuda.launches, "jpeg_idct": jpeg_cuda.idct_launches,
-                "jpeg_color": jpeg_cuda.color_launches}
+    launches = {"nms_suppress": nms_cuda.launches, "jpeg_decode": jpeg_cuda.decode_launches}
     int8_calls = check_int8_routes(f"pipeline {variant} {list(options)}", "--int8" in options)
 
     n_batches = -(-PIPELINE_TILES // PIPELINE_BATCH)
@@ -1694,7 +1693,7 @@ def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
     prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     for device in ("cpu", "cuda"):
         nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
-        jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
+        jpeg_cuda.decode_launches = 0
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         t0 = time.perf_counter()
         try:
@@ -1704,7 +1703,7 @@ def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
         tables[device] = {"rows": {r.name: {"map50": r.map50, "map": r.map} for r in rows},
                           "seconds": time.perf_counter() - t0, "launches": nms_cuda.launches,
-                          "jpeg_launches": [jpeg_cuda.idct_launches, jpeg_cuda.color_launches]}
+                          "jpeg_launches": jpeg_cuda.decode_launches}
         if device == "cuda":
             tables[device]["int8_conv_calls"] = check_int8_routes("accuracy table", True)
     card, cpu = tables["cuda"]["rows"], tables["cpu"]["rows"]
@@ -1712,8 +1711,8 @@ def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
     if tables["cuda"]["launches"] != 2 * len(configs) or tables["cpu"]["launches"]:
         fail(f"accuracy table: {tables['cuda']['launches']} launches on the card, "
              f"{tables['cpu']['launches']} on the CPU")
-    if tables["cuda"]["jpeg_launches"] != [2 * len(configs)] * 2 or any(tables["cpu"]["jpeg_launches"]):
-        fail(f"accuracy table: the device loader's kernels launched {tables['cuda']['jpeg_launches']} times "
+    if tables["cuda"]["jpeg_launches"] != 2 * len(configs) or tables["cpu"]["jpeg_launches"]:
+        fail(f"accuracy table: the device loader's kernel launched {tables['cuda']['jpeg_launches']} times "
              f"on the card, {tables['cpu']['jpeg_launches']} on the CPU")
     f32_diff = max(abs(card["f32"][k] - cpu["f32"][k]) for k in ("map50", "map"))
     if f32_diff > ACC_F32_TOL:
@@ -3274,14 +3273,16 @@ FEED_PATHS = 1280    # 10 batches of 128 per timed device-loader run
 FEED_PY_PATHS = 384  # 3 batches per timed Python-loader run (4x slower)
 FEED_HOST_FILES = 16  # host decode timing: files per thread
 FEED_ROWS_TILES = 16
-# (name, (height, width), PIL save options or "gray"): the samplings,
-# qualities, partial MCUs, restart intervals and a raster of 2 x 2 tiles
+# (name, (height, width), PIL save options, "gray", or "440" for 4:4:0
+# through OpenCV): the samplings, qualities, partial MCUs, restart
+# intervals and a raster of 2 x 2 tiles
 FEED_CASES = (
     ("q75_420", (1024, 1024), dict(quality=75)),
     ("q90_420", (1024, 1024), dict(quality=90)),
     ("q95_420", (1024, 1024), dict(quality=95)),
     ("q90_444", (1024, 1024), dict(quality=90, subsampling=0)),
     ("q90_422", (1024, 1024), dict(quality=90, subsampling=1)),
+    ("q90_440", (1024, 1024), "440"),
     ("gray", (1024, 1024), "gray"),
     ("1000x750", (750, 1000), dict(quality=90)),
     ("restart", (1024, 1024), dict(quality=90, restart_marker_blocks=7)),
@@ -3318,6 +3319,11 @@ def write_feed_files(d: str) -> tuple:
         p = os.path.join(d, f"case_{name}.jpg")
         if kw == "gray":
             Image.fromarray(img[..., 1]).save(p, quality=90)
+        elif kw == "440":
+            import cv2
+
+            cv2.imwrite(p, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
         else:
             Image.fromarray(img).save(p, **kw)
         cases[name] = p
@@ -3365,30 +3371,27 @@ def jpeg_batch(images: list, eff: int, dev):
     return coef, desc, lay, (len(tiles), *shape, 3)
 
 
-def jpeg_kernels_vs_plain(images: list, eff: int, dev, what: str) -> dict:
-    """Both kernels on one batch against their plain versions on the same
+def jpeg_kernel_vs_plain(images: list, eff: int, dev, what: str) -> dict:
+    """The fused kernel on one batch against its plain version on the same
     card tensors, torch.equal, or the run fails."""
     import torch
 
     from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp
 
     coef, (qt, comps, imgs, tiles), lay, shape = jpeg_batch(images, eff, dev)
-    planes = jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks)
-    want_planes = jp.idct_batch_plain(coef, qt, comps, lay.plane_bytes)
-    if not torch.equal(planes, want_planes):
-        fail(f"jpeg_idct != plain on {what}: {int((planes != want_planes).sum())} samples differ")
-    out = jpeg_cuda.jpeg_color(planes, comps, imgs, tiles, torch.full(shape, 7, dtype=torch.uint8, device=dev))
-    want = jp.color_batch_plain(want_planes, comps, imgs, tiles, torch.full_like(out, 7))
+    out = jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tiles, torch.full(shape, 7, dtype=torch.uint8, device=dev))
+    want = jp.decode_batch_plain(coef, qt, comps, imgs, tiles, torch.full_like(out, 7))
     if not torch.equal(out, want):
-        fail(f"jpeg_color != plain on {what}: {int((out != want).sum())} bytes differ")
+        fail(f"jpeg_decode != plain on {what}: {int((out != want).sum())} bytes differ")
     torch.cuda.synchronize()
-    return {"planes": lay.plane_bytes, "slots": shape[0], "out": out}
+    return {"slots": shape[0], "out": out}
 
 
 def check_jpeg_exactness(cases: dict, dev) -> dict:
     """Every case at 8/8 and 5/8, alone (the whole image) and all in one
-    batch on their tile grids, kernels == plain; at 8/8 the card's whole
-    image also equals PIL's decode on this host, byte for byte."""
+    batch on their tile grids, and the 2048 px raster at 5/8 in 625 px
+    tiles, kernel == plain; at 8/8 the card's whole image also equals
+    PIL's decode on this host, byte for byte."""
     from PIL import Image
 
     from aquaculture_tpu_torch.data import native_loader
@@ -3399,65 +3402,141 @@ def check_jpeg_exactness(cases: dict, dev) -> dict:
         for name, im in images.items():
             if im is None:
                 fail(f"the entropy decoder refused case {name}")
-            got = jpeg_kernels_vs_plain([im], 0, dev, f"{name} at {scale}/8")["out"][0]
+            got = jpeg_kernel_vs_plain([im], 0, dev, f"{name} at {scale}/8")["out"][0]
             if scale == 8:
                 pil = np.asarray(Image.open(cases[name]).convert("RGB"))
                 if got.shape != pil.shape or not np.array_equal(got.cpu().numpy(), pil):
                     fail(f"the card's 8/8 decode of {name} != PIL's")
-        batch = jpeg_kernels_vs_plain(list(images.values()), eff, dev, f"all cases at {scale}/8 on the grid")
-        out[f"{scale}/8"] = {"cases": len(images), "slots": batch["slots"], "plane_bytes": batch["planes"],
-                             "kernels_equal_plain": True, "equal_pil": scale == 8}
+        batch = jpeg_kernel_vs_plain(list(images.values()), eff, dev, f"all cases at {scale}/8 on the grid")
+        out[f"{scale}/8"] = {"cases": len(images), "slots": batch["slots"], "kernel_equals_plain": True,
+                             "equal_pil": scale == 8}
+        if scale == 5:
+            # 1000 px tiles at 5/8: stripes start 3 past a 10x10 chroma
+            # block (625 + 128), the widest ring row
+            odd = jpeg_kernel_vs_plain([images["raster_2048"]], 625, dev, "raster_2048 at 5/8 in 625 px tiles")
+            out["5/8"]["odd_origin_slots"] = odd["slots"]
     return out
 
 
-def jpeg_bound_ms(lay, shape, coefs: int) -> tuple:
-    """(idct, color) least ms at HBM rate: the IDCT reads the int16
-    coefficients and writes the planes; the colour pass reads the planes
-    and writes the tiles (each byte once)."""
-    idct = (2 * coefs + lay.plane_bytes) / HBM_BYTES_PER_S * 1e3
-    color = (lay.plane_bytes + int(np.prod(shape))) / HBM_BYTES_PER_S * 1e3
-    return idct, color
+# jidctint.c's, jdsample.c's and jdcolor.c's integer operations (one per
+# +, -, *, shift, compare, min, max and table read), counted from
+# libjpeg's formulas, not from the kernel, at the fewest they need: the
+# descale's rounding added once to the butterfly's even part (two adds a
+# pass), the range limit a shift and a clamp. jpeg_idct_islow: a pass-1
+# column tests its 7 AC terms, then either dequantises and transforms all
+# 8 (8 *, 46 in the butterfly, 2 rounding adds, 8 shifts) or, when they
+# are all zero, only the DC (1 *, 1 shift); each of the 8 pass-2 rows
+# takes 46 + 2 + 8 x (a shift and a clamp of 2).
+ISLOW_COLUMN_OPS, ISLOW_ZERO_COLUMN_OPS, ISLOW_ROWS_OPS = 7 + 8 + 46 + 2 + 8, 7 + 2, 8 * (46 + 2 + 8 * 3)
+# jpeg_idct_5x5: 5 columns of 31 (5 dequantising) and 5 rows of 36;
+# jpeg_idct_10x10: 8 columns of 71 (8 dequantising), 10 rows of 84
+IDCT5_OPS, IDCT10_OPS = 5 * 31 + 5 * 36, 8 * 71 + 10 * 84
+# per output pixel: h2v2 fancy (a column sum of 2 per 2 pixels, then 4),
+# h2v1 (3 * x once per 2 pixels, then 3), h1v2 (4); jdcolor's
+# ycc_rgb_convert with its tables (4 table reads, 4 adds, 1 shift, 3
+# range-limit reads: fewer than its arithmetic without tables)
+UPSAMPLE_OPS = {1: 3.5, 2: 4.0, 3: 5.0}   # UP_H2V1, UP_H1V2, UP_H2V2; full and box copy
+COLOR_OPS = 12
+# Hopper's integer issue per SM and clock: 64 lanes on the ALU pipe (IADD3,
+# LOP3, shifts, min/max) beside 64 on the FMA pipe (IMAD), and one
+# instruction does at most two of the operations counted above (IMAD a
+# multiply and an add, IADD3 two adds, LEA a shift and an add)
+INT_LANES_PER_SM, OPS_PER_INSTRUCTION = 128, 2
 
 
-def time_jpeg_kernels(distinct: list, dev, card: str) -> dict:
-    """jpeg_idct and jpeg_color per batch of FEED_BATCH 1024 px tiles at
-    8/8 and 5/8 (CUDA events) beside the bytes bound; at 8/8, the main
-    path's scale, also the plain versions on the same card tensors (one
-    call each), held equal (5/8 is held equal on the exactness cases)."""
+def int_ops_per_s() -> float:
+    """The most integer operations a second the card can do: its SMs x
+    INT_LANES_PER_SM x OPS_PER_INSTRUCTION x its top SM clock (nvidia-smi's
+    clocks.max.sm)."""
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT_LANES_PER_SM * OPS_PER_INSTRUCTION * float(mhz) * 1e6
+
+
+def jpeg_ops(images: list, tiles, shape) -> float:
+    """libjpeg's integer operations for one batch: each image's blocks
+    through its IDCT (islow's zero-column shortcut counted from these
+    coefficients), and each decoded pixel inside its image through the
+    upsampling and the colour conversion."""
+    import torch
+
+    from aquaculture_tpu_torch.data import jpeg_plain as jp
+
+    ops, idct = 0.0, {}
+    for im in images:
+        if id(im) in idct:  # a batch repeats its distinct images
+            ops += idct[id(im)]
+            continue
+        before = ops
+        for c in im.components:
+            n = c.blocks_w * c.blocks_h
+            blocks = im.coef[c.offset:c.offset + n * c.kept * c.kept]
+            if c.size == 8:
+                zero = int((blocks.view(n, 8, 8)[:, 1:, :] == 0).all(1).sum())
+                ops += (8 * n - zero) * ISLOW_COLUMN_OPS + zero * ISLOW_ZERO_COLUMN_OPS + n * ISLOW_ROWS_OPS
+            else:
+                ops += n * (IDCT5_OPS if c.size == 5 else IDCT10_OPS)
+        idct[id(im)] = ops - before
+    th, tw = shape[1:3]
+    for kind, i, x, y in tiles.tolist():
+        if kind != jp.TILE_DECODED:
+            continue
+        im = images[i]
+        px = max(0, min(tw, im.out_width - x)) * max(0, min(th, im.out_height - y))
+        modes = [jp.upsample_mode(c, im.meta)[0] for c in im.components]
+        ops += px * (sum(UPSAMPLE_OPS.get(m, 0.0) for m in modes) + (COLOR_OPS if len(modes) == 3 else 0))
+    return ops
+
+
+def jpeg_bound_ms(images: list, tiles, shape, coefs: int, int_rate: float) -> dict:
+    """The least ms of one batch's decode, whatever implements it: the
+    larger of its bytes (the int16 coefficients read once, the tiles
+    written once) at HBM rate and libjpeg's integer operations at the
+    card's most integer operations a second (``int_ops_per_s``)."""
+    bytes_ms = (2 * coefs + int(np.prod(shape))) / HBM_BYTES_PER_S * 1e3
+    ops = jpeg_ops(images, tiles, shape)
+    ops_ms = ops / int_rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def time_jpeg_decode(distinct: list, dev, card: str) -> dict:
+    """jpeg_decode per batch of FEED_BATCH 1024 px tiles at 8/8 and 5/8
+    (CUDA events) beside its bound and its plain version on the same card
+    tensors (one call each), held equal; with the kernel's registers and
+    shared memory per CTA."""
     import torch
 
     from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp, native_loader
 
+    attrs = jpeg_cuda.attributes()
+    rate = int_ops_per_s()
     out = {}
     for scale, eff in ((8, 1024), (5, 640)):
         base = [native_loader.entropy_decode(p, scale) for p in distinct]
         images = [base[i % len(base)] for i in range(FEED_BATCH)]
         coef, (qt, comps, imgs, tiles), lay, shape = jpeg_batch(images, eff, dev)
-        planes = jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks)
         res = torch.empty(shape, dtype=torch.uint8, device=dev)
-        idct_ms = time_cuda(lambda: jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks),
-                            iters=10)
-        color_ms = time_cuda(lambda: jpeg_cuda.jpeg_color(planes, comps, imgs, tiles, res), iters=10)
-        idct_bound, color_bound = jpeg_bound_ms(lay, shape, coef.numel())
+        ms = time_cuda(lambda: jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tiles, res), iters=10)
+        bound = jpeg_bound_ms(images, tiles, shape, coef.numel(), rate)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = jp.decode_batch_plain(coef, qt, comps, imgs, tiles, torch.empty_like(res))
+        end.record()
+        torch.cuda.synchronize()
+        if not torch.equal(res, want):
+            fail(f"jpeg_decode != plain on the timed batch at {scale}/8")
         row = {"scale": f"{scale}/8", "batch": FEED_BATCH, "tile": eff, "coef_bytes": 2 * coef.numel(),
-               "plane_bytes": lay.plane_bytes, "out_bytes": int(np.prod(shape)),
-               "idct_ms": idct_ms, "idct_bound_ms": idct_bound, "color_ms": color_ms,
-               "color_bound_ms": color_bound, "bound_by": "bytes", "library_ms": None}
-        if scale == 8:
-            start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-            start.record()
-            want_planes = jp.idct_batch_plain(coef, qt, comps, lay.plane_bytes)
-            mid.record()
-            want = jp.color_batch_plain(want_planes, comps, imgs, tiles, torch.empty_like(res))
-            end.record()
-            torch.cuda.synchronize()
-            if not (torch.equal(planes, want_planes) and torch.equal(res, want)):
-                fail(f"the jpeg kernels != plain on the timed batch at {scale}/8")
-            row.update(idct_plain_ms=start.elapsed_time(mid), color_plain_ms=mid.elapsed_time(end))
-            del want, want_planes
+               "out_bytes": int(np.prod(shape)), "decode_ms": ms, "decode_bound_ms": bound["bound_ms"],
+               "bound_bytes_ms": bound["bytes_ms"], "bound_ops_ms": bound["ops_ms"], "ops": bound["ops"],
+               "bound_by": bound["bound_by"], "decode_plain_ms": start.elapsed_time(end), "library_ms": None,
+               "int_ops_per_s": rate, "kernel": attrs}
         print(json.dumps({"metric": "jpeg_kernels", **row, "card": card}), flush=True)
         out[f"{scale}/8"] = row
-        del coef, planes, res
+        del coef, res, want
     return out
 
 
@@ -3491,37 +3570,38 @@ def _rows_of(result) -> list:
 def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
     """detect_files (mt, bf16) through the device loader and the Python
     loader: full-decode rows equal on FEED_ROWS_TILES tiles (conf 1e-5,
-    batch 8), decode-at-scale rows reported; the kernels launched once per
+    batch 8), decode-at-scale rows reported; the kernel launched once per
     batch; then file-fed tiles/s at b128, conf 0.25, the loaders in turns
     (python, device, device, python, then 5/8 device, and python over half
     a batch): the device loader over FEED_PATHS files, the Python loader
     over FEED_PY_PATHS. Each timed run gives its whole-run rate (the first
     batch's fill and the last harvest included) and its steady rate: the
     tiles of batches 2..n over the time from batch 1's entry into the
-    serving program to batch n's."""
+    serving program to batch n's; and each timed run's peak device memory."""
+    import torch
+
     from aquaculture_tpu_torch.cli.detect import load_model
     from aquaculture_tpu_torch.config import DetectConfig
     from aquaculture_tpu_torch.data import jpeg_cuda
     from aquaculture_tpu_torch.pipeline import detect_files, make_infer_fn
 
     model = load_model(None, "mt", 5)
-    out = {"rows": {}, "tiles_per_s": {}, "steady_tiles_per_s": {}, "batches": {}}
+    out = {"rows": {}, "tiles_per_s": {}, "steady_tiles_per_s": {}, "batches": {}, "peak_bytes": {}}
     cfg = DetectConfig(img_size=640, conf_threshold=1e-5)
     infer = make_infer_fn(model, cfg, 1024, device=dev)
     few = paths[:FEED_ROWS_TILES]
     for decode_scale in (False, True):
         res = {}
         for native in (True, False):
-            jpeg_cuda.idct_launches = jpeg_cuda.color_launches = 0
+            jpeg_cuda.decode_launches = 0
             res[native] = detect_files(few, model, cfg, 8, infer_fn=infer, device=dev, use_native=native,
                                        decode_scale=decode_scale)
             stats = res[native][-1]
             want_loader = "device" if native else "python"
             if stats.loader != want_loader or stats.tiles != len(few):
                 fail(f"detect_files(use_native={native}) ran {stats.loader!r} on {stats.tiles} tiles")
-            if native and not (jpeg_cuda.idct_launches == jpeg_cuda.color_launches == stats.batches):
-                fail(f"jpeg kernels launched {jpeg_cuda.idct_launches}/{jpeg_cuda.color_launches} times "
-                     f"for {stats.batches} batches")
+            if native and jpeg_cuda.decode_launches != stats.batches:
+                fail(f"jpeg_decode launched {jpeg_cuda.decode_launches} times for {stats.batches} batches")
             if native and stats.files != {"device": len(few), "pil": 0, "pil_resize": 0, "skipped": 0}:
                 fail(f"device loader routes {stats.files}")
         dev_rows, py_rows = _rows_of(res[True]), _rows_of(res[False])
@@ -3543,12 +3623,14 @@ def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
             stamps.append(time.perf_counter())
             return infer(images)
 
+        torch.cuda.reset_peak_memory_stats(dev)
         *_, stats = detect_files(todo, model, cfg, FEED_BATCH, infer_fn=stamped, device=dev, use_native=native,
                                  decode_scale=scale)
         if stats.tiles != len(todo) or stats.batches != len(stamps):
             fail(f"file-fed run: {stats.tiles} tiles in {stats.batches} batches of {len(todo)} files")
         name = f"{stats.loader}{'_5/8' if scale else ''}"
         out["tiles_per_s"].setdefault(name, []).append(stats.tiles_per_second)
+        out["peak_bytes"].setdefault(name, []).append(torch.cuda.max_memory_allocated(dev))
         if len(stamps) > 1:
             out["steady_tiles_per_s"].setdefault(name, []).append(
                 FEED_BATCH * (len(stamps) - 1) / (stamps[-1] - stamps[0]))
@@ -3567,7 +3649,7 @@ def run_feed_phase(dev, card: str, d: str, serving_tps: float) -> dict:
     seconds = {"write": time.perf_counter() - t0}
     out = {"exactness": check_jpeg_exactness(cases, dev)}
     seconds["exactness"] = time.perf_counter() - t0 - sum(seconds.values())
-    out["kernels"] = time_jpeg_kernels(distinct, dev, card)
+    out["kernels"] = time_jpeg_decode(distinct, dev, card)
     seconds["kernel_times"] = time.perf_counter() - t0 - sum(seconds.values())
     out["host_decode"] = time_host_decode(distinct, card)
     seconds["host_decode"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -3779,24 +3861,27 @@ def main() -> int:
         "p6_bound_ms": k6["bound_ms"],
         "p6_bound_by": k6["bound_by"],
         "suites_passed": list(suites),
-    }] + [{
-        "name": name,
+    }, {
+        "name": "jpeg_decode",
         "route": "cuda",
         "source": "aquaculture_tpu_torch/csrc/jpeg_decode.cu",
         "replaces": "none, not a TPU kernel: the JAX package decodes on host threads (tileloader.cc:53, decode_jpeg)",
-        "launches": main_path["launches"][name],
-        "launches_decode_scale": options["decode_scale"]["launches"][name],
-        "launches_pipeline": pipeline["full_width"]["launches"][name],
+        "launches": main_path["launches"]["jpeg_decode"],
+        "launches_decode_scale": options["decode_scale"]["launches"]["jpeg_decode"],
+        "launches_pipeline": pipeline["full_width"]["launches"]["jpeg_decode"],
+        "launches_accuracy": accuracy["on_card"]["jpeg_launches"],
         "max_abs_err": 0.0,
-        "ms": feed["kernels"]["8/8"][f"{short}_ms"],
-        "plain_ms": feed["kernels"]["8/8"][f"{short}_plain_ms"],
-        "bound_ms": feed["kernels"]["8/8"][f"{short}_bound_ms"],
-        "bound_by": "bytes",
+        "ms": feed["kernels"]["8/8"]["decode_ms"],
+        "plain_ms": feed["kernels"]["8/8"]["decode_plain_ms"],
+        "bound_ms": feed["kernels"]["8/8"]["decode_bound_ms"],
+        "bound_by": feed["kernels"]["8/8"]["bound_by"],
         "library_ms": None,
-        "ms_5/8": feed["kernels"]["5/8"][f"{short}_ms"],
-        "bound_ms_5/8": feed["kernels"]["5/8"][f"{short}_bound_ms"],
+        "ms_5/8": feed["kernels"]["5/8"]["decode_ms"],
+        "plain_ms_5/8": feed["kernels"]["5/8"]["decode_plain_ms"],
+        "bound_ms_5/8": feed["kernels"]["5/8"]["decode_bound_ms"],
+        "bound_by_5/8": feed["kernels"]["5/8"]["bound_by"],
         "exact_on": sorted(feed["exactness"]),
-    } for name, short in (("jpeg_idct", "idct"), ("jpeg_color", "color"))]}
+    }]}
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(summary), flush=True)

@@ -1,20 +1,22 @@
 """The port's JPEG decoder (csrc/jpeg_entropy.cc + data/jpeg_plain.py)
 against PIL's and the JAX package's libjpeg-turbo decodes.
 
-Tolerance 0 throughout: the host entropy decode followed by the plain
-versions of the two kernels gives PIL's bytes at 8/8 and the JAX native
-loader's (libjpeg-turbo 2.1 through native/libaquatile.so) at 8/8 and at
-5/8, where libjpeg-turbo's scaled IDCTs (5x5 for luma, 10x10 for 4:2:0
-chroma) replace a resize. The cases cover 4:2:0 at three qualities, 4:4:4,
-4:2:2, greyscale, sizes that are not multiples of the MCU, and restart
-intervals. The kernel wrappers take the plain versions on CPU tensors and
-nothing else; the kernels themselves are held to the plain versions on the
-card by chip_smoke.py.
+Tolerance 0 throughout: the host entropy decode followed by the kernel's
+plain version gives PIL's bytes at 8/8 and the JAX native loader's
+(libjpeg-turbo 2.1 through native/libaquatile.so) at 8/8 and at 5/8, where
+libjpeg-turbo's scaled IDCTs (5x5 for luma, 10x10 for 4:2:0 chroma)
+replace a resize. The cases cover 4:2:0 at three qualities, 4:4:4, 4:2:2,
+4:4:0, greyscale, sizes that are not multiples of the MCU, and restart
+intervals. The kernel wrapper takes the plain version on CPU tensors and
+nothing else; the kernel itself is held to the plain version on the card by
+chip_smoke.py. Here its stripe arithmetic is: the blocks that
+``stripe_blocks`` names for a CTA are all that its pixels depend on.
 """
 
 import subprocess
 from pathlib import Path
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,8 @@ from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp, native_loade
 
 REPO = Path(__file__).resolve().parent.parent
 
-# (name, (height, width), PIL save options; "gray" for one component)
+# (name, (height, width), PIL save options; "gray" for one component,
+# "440" for 4:4:0 through OpenCV, which PIL does not write)
 CASES = (
     ("q75_420", (96, 128), dict(quality=75)),
     ("q90_420", (128, 128), dict(quality=90)),
@@ -36,6 +39,7 @@ CASES = (
     ("partial_422", (37, 53), dict(quality=85, subsampling=1)),
     ("restart_blocks", (96, 128), dict(quality=90, restart_marker_blocks=5)),
     ("restart_rows", (70, 90), dict(quality=60, subsampling=0, restart_marker_rows=1)),
+    ("q90_440", (200, 333), "440"),                          # H1V2 chroma
 )
 NAMES = [c[0] for c in CASES]
 
@@ -59,6 +63,9 @@ def jpegs(tmp_path_factory):
         p = d / f"{name}.jpg"
         if kw == "gray":
             Image.fromarray(img[..., 0]).save(p, quality=90)
+        elif kw == "440":
+            cv2.imwrite(str(p), img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
         else:
             Image.fromarray(img).save(p, **kw)
         paths[name] = str(p)
@@ -190,8 +197,8 @@ def test_other_scales_and_sizes_name_the_roadmap(jpegs):
 
 
 def test_kernel_wrappers_take_the_plain_versions_on_cpu_tensors(jpegs, monkeypatch):
-    """On CPU tensors the wrappers run the plain versions (the kernel
-    library is never built); on any other device they raise."""
+    """On CPU tensors ``jpeg_decode`` runs its plain version (the kernel
+    library is never built); on any other device it raises."""
     monkeypatch.setattr(jpeg_cuda, "_lib", None)
     images = [native_loader.entropy_decode(jpegs[0][n], 8) for n in ("q90_420", "gray", "q90_422")]
     offs = np.cumsum([0] + [im.coef.numel() for im in images[:-1]]).tolist()
@@ -199,22 +206,103 @@ def test_kernel_wrappers_take_the_plain_versions_on_cpu_tensors(jpegs, monkeypat
     packed, lay = jp.describe_batch([im.meta for im in images], offs, tiles)
     qt, comps, imgs, tt = jp.unpack_batch(torch.from_numpy(packed), lay)
     coef = torch.cat([im.coef for im in images])
-    planes = jpeg_cuda.jpeg_idct(coef, qt, comps, lay.plane_bytes, lay.max_blocks)
-    assert torch.equal(planes, jp.idct_batch_plain(coef, qt, comps, lay.plane_bytes))
-    out = jpeg_cuda.jpeg_color(planes, comps, imgs, tt, torch.full((5, 64, 64, 3), 9, dtype=torch.uint8))
+    launches = jpeg_cuda.decode_launches
+    out = jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tt, torch.full((5, 64, 64, 3), 9, dtype=torch.uint8))
+    planes = jp.idct_batch_plain(coef, qt, comps, lay.plane_bytes)
+    want = jp.color_batch_plain(planes, comps, imgs, tt, torch.full((5, 64, 64, 3), 9, dtype=torch.uint8))
+    assert torch.equal(out, want)
     for i, name in enumerate(("q90_420", "gray", "q90_422")):
         np.testing.assert_array_equal(out[i].numpy(), np.asarray(Image.open(jpegs[0][name]).convert("RGB"))[:64, :64])
     assert (out[3] == 0).all() and (out[4] == 9).all()  # zero slot, caller slot untouched
-    assert jpeg_cuda._lib is None
+    assert jpeg_cuda._lib is None and jpeg_cuda.decode_launches == launches
+    meta = [t.to("meta") for t in (coef, qt, comps, imgs, tt)]
     with pytest.raises(ValueError, match="CUDA or the CPU"):
-        jpeg_cuda.jpeg_idct(coef.to("meta"), qt.to("meta"), comps.to("meta"), lay.plane_bytes, lay.max_blocks)
+        jpeg_cuda.jpeg_decode(*meta, torch.empty((5, 64, 64, 3), dtype=torch.uint8, device="meta"))
     with pytest.raises(TypeError, match="int16"):
-        jpeg_cuda.jpeg_idct(coef.int(), qt, comps, lay.plane_bytes, lay.max_blocks)
+        jpeg_cuda.jpeg_decode(coef.int(), qt, comps, imgs, tt, out)
+    with pytest.raises(ValueError, match="out must be"):
+        jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tt, out[:4])
+
+
+def _stripe_cases():
+    return [(name, scale) for name in NAMES for scale in (8, 5)] + [("grid_2x2", 8), ("grid_2x2", 5)]
+
+
+@pytest.mark.parametrize("name,scale", _stripe_cases())
+def test_stripe_blocks_are_all_a_cta_reads(jpegs, name, scale):
+    """For every CTA of the kernel's grid (stripe, slot, band): fill every
+    coefficient outside the blocks ``stripe_blocks`` names with seeded
+    garbage; the CTA's pixels of the plain decode stay equal to the
+    untouched decode's. Whole images, and a 2 x 2 tile grid of the 128 px
+    4:2:0 case (tiles of 64 px at 8/8, 40 at 5/8). Every named span fits
+    the kernel's ring."""
+    grid = name == "grid_2x2"
+    image = native_loader.entropy_decode(jpegs[0]["q90_420" if grid else name], scale)
+    w, h = image.out_width, image.out_height
+    eff = 8 * scale if grid else 0
+    origins = jp.tile_grid(w, h, eff) if grid else [(0, 0)]
+    assert len(origins) == (4 if grid else 1)
+    tiles = [(jp.TILE_DECODED, 0, x, y) for x, y in origins]
+    packed, lay = jp.describe_batch([image.meta], [0], tiles)
+    qt, comps, imgs, tt = jp.unpack_batch(torch.from_numpy(packed), lay)
+    th, tw = (eff, eff) if grid else (h, w)
+    shape = (len(tiles), th, tw, 3)
+    want = jp.decode_batch_plain(image.coef, qt, comps, imgs, tt, torch.empty(shape, dtype=torch.uint8))
+    stripes, band_rows = jp.decode_grid(len(tiles), th, tw)
+    cs = comps.tolist()
+    rng = np.random.default_rng(scale * 100 + len(name))
+    checked = 0
+    for slot, tile in enumerate(tt.tolist()):
+        for stripe in range(stripes):
+            for y0 in range(0, th, band_rows):
+                rows = (y0, min(y0 + band_rows, th))
+                spans = jp.stripe_blocks(cs, imgs[0].tolist(), tile, th, tw, stripe, rows)
+                assert len(spans) == len(cs)
+                keep = torch.zeros(image.coef.numel(), dtype=torch.bool)
+                for c, ((coef_off, _, bw, bh, k, s, _, _), (r0, r1, c0, c1)) in enumerate(zip(cs, spans)):
+                    assert 0 <= r0 < r1 <= bh and 0 <= c0 < c1 <= bw
+                    # the ring row: the blocks, from the pad that puts the
+                    # stripe's first pixel on a 16-byte boundary, within the
+                    # widest any origin gives, which describe_batch checks
+                    mode, hf = imgs[0, 5 + 5 * c].item(), imgs[0, 6 + 5 * c].item()
+                    fancy_h = jp._fancy(mode)[0]
+                    xa = tile[2] + stripe * jp.STRIPE_W
+                    first = xa >> 1 if fancy_h else xa // hf
+                    width = c1 * s - (c0 * s - ((c0 * s - first) & 15))
+                    assert width <= jp._ring_row_bytes(fancy_h, hf, s) <= jp.RING_PITCH - jp.RING_SLACK
+                    blocks = keep[coef_off:coef_off + bw * bh * k * k].view(bh, bw, k * k)
+                    blocks[r0:r1, c0:c1] = True
+                assert not keep.all() or stripes == 1 and th <= band_rows
+                garbage = torch.from_numpy(rng.integers(-1024, 1024, keep.numel(), dtype=np.int16))
+                coef = torch.where(keep, image.coef, garbage)
+                got = jp.decode_batch_plain(coef, qt, comps, imgs, tt, torch.empty(shape, dtype=torch.uint8))
+                x0 = stripe * jp.STRIPE_W
+                region = (slot, slice(rows[0], rows[1]), slice(x0, x0 + jp.STRIPE_W))
+                assert torch.equal(got[region], want[region]), (slot, stripe, rows)
+                checked += 1
+    assert checked == len(tiles) * stripes * -(-th // band_rows)
+
+
+def test_describe_batch_refuses_a_ring_row_past_the_pitch(jpegs, monkeypatch):
+    """At 5/8, a stripe of 4:2:0 chroma (10x10 blocks at full width) can
+    take 14 blocks and a 15 byte pad: 155 bytes of a ring row. A kernel
+    whose rows hold fewer would trap on such a stripe, so describe_batch
+    refuses the batch before any launch."""
+    image = native_loader.entropy_decode(jpegs[0]["q90_420"], 5)
+    tiles = [(jp.TILE_DECODED, 0, 0, 0)]
+    jp.describe_batch([image.meta], [0], tiles)
+    monkeypatch.setattr(jp, "RING_PITCH", 160)
+    with pytest.raises(ValueError, match="155 bytes of a ring row"):
+        jp.describe_batch([image.meta], [0], tiles)
+    monkeypatch.undo()
+    grey = native_loader.entropy_decode(jpegs[0]["gray"], 5)
+    monkeypatch.setattr(jp, "RING_PITCH", 160)
+    jp.describe_batch([grey.meta], [0], tiles)  # 5x5 luma: 150 bytes at most
 
 
 def test_failed_nvcc_build_raises_with_its_output(tmp_path, monkeypatch):
-    """The kernel library builds with nvcc at first use; a failed build
-    raises with the compiler's output and nothing falls back."""
+    """The fused kernel's library builds with nvcc at first use; a failed
+    build raises with the compiler's output and nothing falls back."""
     from aquaculture_tpu_torch.ops import nms_cuda
 
     fake = tmp_path / "nvcc"

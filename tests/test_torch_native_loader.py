@@ -244,12 +244,12 @@ def test_detect_files_use_native_matches_jax(corpus):
     kw = dict(img_size=128, conf_threshold=3e-5, max_detections=50, dtype="float32")
     jb, jc, jk, jspecs, _ = jax_detect_files(paths, jmodel, jmodel.fuse(jparams), JaxDetectConfig(**kw),
                                              batch_size=5, use_native=True)
-    jpeg_cuda.idct_launches = 0
+    jpeg_cuda.decode_launches = 0
     tb, tc, tk, tspecs, stats = detect_files(paths, model, DetectConfig(**kw), batch_size=5, device="cpu",
                                              use_native=True)
     assert isinstance(stats, PipelineStats) and stats.loader == "device" and stats.tiles == 5
     assert stats.files == {"device": 2, "pil": 0, "pil_resize": 0, "skipped": 0}
-    assert jpeg_cuda.idct_launches == 0  # the CPU path never touches the kernels
+    assert jpeg_cuda.decode_launches == 0  # the CPU path never touches the kernel
 
     def rows(b, c, k, specs):
         order = sorted(range(len(c)), key=lambda i: (_key(specs[i]), -c[i], tuple(b[i])))
