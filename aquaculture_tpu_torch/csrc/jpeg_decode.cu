@@ -8,17 +8,21 @@
 // keeps the serial part, the Huffman entropy decode (csrc/jpeg_entropy.cc),
 // and this kernel does the parallel part, writing the uint8 tiles straight
 // into the device batch that the serving program reads. The arithmetic is
-// libjpeg-turbo's, exactly: jpeg_idct_islow (8x8), jpeg_idct_5x5 and
-// jpeg_idct_10x10 (5/8; 4:2:0 chroma takes the 10x10), libjpeg's range-limit
-// table, jdsample.c's fancy upsampling, jdcolor.c's fixed-point tables. All
-// of it is integer, so any split across threads gives the same bytes. The
+// libjpeg-turbo's, exactly: the IDCT jddctmgr.c picks for each component's
+// scaled size (jpeg_idct_islow for 8x8; jidctred.c's 1x1, 2x2 and 4x4;
+// jidctint.c's 3x3, 5x5, 6x6, 7x7 and the 10x10, 12x12 and 14x14 that
+// 4:2:0 chroma takes at 5/8, 6/8 and 7/8), libjpeg's range-limit table,
+// jdsample.c's fancy upsampling, jdcolor.c's fixed-point tables. All of
+// it is integer, so any split across threads gives the same bytes. The
 // plain version is data/jpeg_plain.py's decode_batch_plain; chip_smoke.py
 // holds the kernel against it with torch.equal.
 //
 // Bound. Bytes: the int16 coefficients read once and the tiles written
 // once (no plane goes through device memory), 2 x 1,572,864 + 3,145,728
 // bytes a 1024 px 4:2:0 tile at 8/8, 0.241 ms per batch of 128 at
-// 3.35 TB/s: the larger term. Operations: libjpeg's own integer
+// 3.35 TB/s: the larger term (at N/8 the kept squares, what each IDCT
+// reads, set the bytes: 0.019, 0.070, 0.051, 0.132, 0.119, 0.153, 0.194 ms
+// from 1/8 to 7/8). Operations: libjpeg's own integer
 // arithmetic (the IDCTs with their dequantisation and range limit per
 // block, the fancy upsampler's taps and jdcolor's per pixel), counted by
 // chip_smoke.py's jpeg_ops from each batch's data, at the most the SMs
@@ -35,9 +39,13 @@
 //   zero slots, and rows and columns past the image, are written as zeros.
 // - Per step, each component's new block rows under the stripe are
 //   inverse-transformed by 8 threads a block (one column each, a warp
-//   barrier, one row each) through a padded shared workspace (pitch 9:
-//   no bank conflicts), the quantisation tables loaded once per CTA. A
-//   thread reads its block row as one 16-byte load where it is aligned.
+//   barrier, one row each) through a padded shared workspace of 8 rows
+//   (pitch 9: no bank conflicts); a 10x10, 12x12 or 14x14 block holds its
+//   column's rows past 8 in registers and runs them in a second round
+//   through the same rows. The quantisation tables are loaded once
+//   per CTA. A thread reads its block row as one 16-byte load where it is
+//   aligned. Static shared memory stays under the 48 KB a kernel may
+//   declare.
 //   The descale's rounding is folded into the butterfly's even part and
 //   the range limit is four instructions; divisions are multiply-highs.
 // - The samples go into a ring of block rows per component in shared
@@ -80,24 +88,33 @@ constexpr int TILE_CALLER = 2;
 constexpr int STRIPE_W = 128;    // output pixels across one CTA
 constexpr int STEP_ROWS = 64;    // output rows per step: the MCU rows that fit
 constexpr int RING_ROWS = 64;    // sample rows of one component's ring
-constexpr int RING_PITCH = 176;  // bytes per ring row, a multiple of 16: the widest stripe's
-                                 // blocks (14 of 10x10 chroma at 5/8, 140 bytes), its pad to
-                                 // the 16-byte grid (up to 15) and RING_SLACK
-constexpr int RING_SLACK = 8;    // bytes the 2x upsampler's word reads may pass the last sample
+constexpr int RING_PITCH = 176;  // bytes per ring row, a multiple of 16 (44 words: the 8 rows of
+                                 // a block's stores fall on distinct banks): the widest stripe's
+                                 // blocks (11 of 14x14 chroma at 7/8, 154 bytes) and its pad to
+                                 // the 16-byte grid (up to 15), and RING_SLACK past a 2x
+                                 // upsampler's
+constexpr int RING_SLACK = 8;    // bytes a 2x horizontal upsampler's word reads may pass its
+                                 // last sample (the others read no byte past it)
 constexpr int THREADS = 256;
 constexpr int GROUPS = THREADS / 8;  // one IDCT block per 8 threads
 constexpr int WS_PITCH = 9;          // ints per workspace row: conflict-free columns
-constexpr int WS_STRIDE = 104;       // ints per group's workspace (10 rows of 9, padded)
+constexpr int WS_ROWS = 8;           // workspace rows: pass 1's rows past 8 wait in registers for
+                                     // pass 2's second round
+constexpr int WS_STRIDE = 72;        // ints per group's workspace (8 rows of 9)
+static_assert(WS_ROWS * WS_PITCH <= WS_STRIDE, "pass 1 writes WS_ROWS rows at a time");
 constexpr int RUN = 16;              // output pixels per colour-pass item
 
 enum { UP_FULL = 0, UP_H2V1, UP_H1V2, UP_H2V2, UP_BOX };
 
 #define FIX(x) ((int)((x) * (1 << CONST_BITS) + 0.5))
 
-// libjpeg's post-IDCT range limit of x >> 18 (the last pass's shift): the
-// low 10 bits read as signed, plus 128, clamped to 0..255. Bits 18..27 of
-// x, sign-extended, are (x << 4) >> 22.
-__device__ __forceinline__ int range_limit_18(int x) { return min(max(((x << 4) >> 22) + 128, 0), 255); }
+// libjpeg's post-IDCT range limit of x >> SHIFT (the last pass's shift):
+// the low 10 bits read as signed, plus 128, clamped to 0..255. Bits
+// SHIFT..SHIFT+9 of x, sign-extended, are (x << (22 - SHIFT)) >> 22.
+template <int SHIFT>
+__device__ __forceinline__ int range_limit_at(int x) {
+  return min(max(((x << (22 - SHIFT)) >> 22) + 128, 0), 255);
+}
 
 // One 8-point pass of jpeg_idct_islow, with its descale's rounding term
 // added: every output takes exactly one of tmp0 and tmp1, so adding
@@ -213,8 +230,17 @@ __device__ __forceinline__ void idct10_1d(const int* z, int* o) {
   o[5] = (tmp24 - tmp14) >> s;
 }
 
-// Row r of a block's K x K coefficients, dequantised, into the workspace.
-template <int K>
+// The coefficient index of place i of an S x S IDCT's kept square (the
+// rows and columns it reads: jidctred.c's 2x2 reads 0, 1, 3, 5, 7 and its
+// 4x4 0-3 and 5-7), as data/jpeg_plain.py's kept_index.
+template <int S>
+__device__ __forceinline__ constexpr int kept_index(int i) {
+  return S == 2 ? (i == 0 ? 0 : 2 * i - 1) : S == 4 && i >= 4 ? i + 1 : i;
+}
+
+// Row r of a block's K x K kept coefficients, dequantised by the natural-
+// order table's row q, into the workspace.
+template <int S, int K>
 __device__ __forceinline__ void load_row(const int16_t* __restrict__ in, const int* q, int* ws) {
   int16_t v[K];
   if (K == 8 && (reinterpret_cast<uintptr_t>(in) & 15) == 0) {
@@ -230,86 +256,353 @@ __device__ __forceinline__ void load_row(const int16_t* __restrict__ in, const i
     for (int c = 0; c < K; ++c) v[c] = in[c];
   }
 #pragma unroll
-  for (int c = 0; c < K; ++c) ws[c] = int(v[c]) * q[c];
+  for (int c = 0; c < K; ++c) ws[c] = int(v[c]) * q[kept_index<S>(c)];
 }
 
-// The IDCTs of one block by its 8 threads (lane t of 0..7, mask the
-// group's lanes): lane t loads and dequantises row t, runs pass 1 over
-// column t, then pass 2 over row t (rows t and t + 8 of a 10x10), writing
-// its samples to dst, S bytes a row at a pitch of RING_PITCH.
-__device__ void idct8_group(const int16_t* __restrict__ in, const int* q, int* ws, uint8_t* dst, int t,
-                            unsigned mask) {
-  load_row<8>(in + t * 8, q + t * 8, ws + t * WS_PITCH);
-  __syncwarp(mask);
-  int z[8], o[8];
+// One 3-point pass of jpeg_idct_3x3; pass 1 shifts, pass 2 does not.
+template <bool SECOND>
+__device__ __forceinline__ void idct3_1d(const int* z, int* o) {
+  int tmp0 = SECOND ? (z[0] + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
+                    : z[0] * (1 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1));
+  int tmp12 = z[2] * FIX(0.707106781);
+  const int tmp10 = tmp0 + tmp12, tmp2 = tmp0 - tmp12 - tmp12;
+  tmp0 = z[1] * FIX(1.224744871);
+  const int s = SECOND ? 0 : CONST_BITS - PASS1_BITS;
+  o[0] = (tmp10 + tmp0) >> s;
+  o[2] = (tmp10 - tmp0) >> s;
+  o[1] = tmp2 >> s;
+}
+
+// One 6-point pass of jpeg_idct_6x6; pass 1 shifts (but outputs 1 and 4,
+// already at pass-1 scale), pass 2 does not.
+template <bool SECOND>
+__device__ __forceinline__ void idct6_1d(const int* z, int* o) {
+  int tmp0 = SECOND ? (z[0] + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
+                    : z[0] * (1 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1));
+  int tmp10 = z[4] * FIX(0.707106781);
+  int tmp1 = tmp0 + tmp10;
+  int tmp11 = tmp0 - tmp10 - tmp10;
+  if (!SECOND) tmp11 >>= CONST_BITS - PASS1_BITS;
+  tmp0 = z[2] * FIX(1.224744871);
+  tmp10 = tmp1 + tmp0;
+  const int tmp12 = tmp1 - tmp0;
+  const int z1 = z[1], z2 = z[3], z3 = z[5];
+  tmp1 = (z1 + z3) * FIX(0.366025404);
+  tmp0 = tmp1 + (z1 + z2) * (1 << CONST_BITS);
+  const int tmp2 = tmp1 + (z3 - z2) * (1 << CONST_BITS);
+  tmp1 = (z1 - z2 - z3) * (1 << (SECOND ? CONST_BITS : PASS1_BITS));
+  const int s = SECOND ? 0 : CONST_BITS - PASS1_BITS;
+  o[0] = (tmp10 + tmp0) >> s;
+  o[5] = (tmp10 - tmp0) >> s;
+  o[1] = tmp11 + tmp1;
+  o[4] = tmp11 - tmp1;
+  o[2] = (tmp12 + tmp2) >> s;
+  o[3] = (tmp12 - tmp2) >> s;
+}
+
+// One 7-point pass of jpeg_idct_7x7; pass 1 shifts, pass 2 does not.
+template <bool SECOND>
+__device__ __forceinline__ void idct7_1d(const int* z, int* o) {
+  int tmp13 = SECOND ? (z[0] + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
+                     : z[0] * (1 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1));
+  int z1 = z[2], z2 = z[4], z3 = z[6];
+  int tmp10 = (z2 - z3) * FIX(0.881747734);
+  int tmp12 = (z1 - z2) * FIX(0.314692123);
+  const int tmp11 = tmp10 + tmp12 + tmp13 - z2 * FIX(1.841218003);
+  int tmp0 = z1 + z3;
+  z2 -= tmp0;
+  tmp0 = tmp0 * FIX(1.274162392) + tmp13;
+  tmp10 += tmp0 - z3 * FIX(0.077722536);
+  tmp12 += tmp0 - z1 * FIX(2.470602249);
+  tmp13 += z2 * FIX(1.414213562);
+  z1 = z[1];
+  z2 = z[3];
+  z3 = z[5];
+  int tmp1 = (z1 + z2) * FIX(0.935414347);
+  int tmp2 = (z1 - z2) * FIX(0.170262339);
+  tmp0 = tmp1 - tmp2;
+  tmp1 += tmp2;
+  tmp2 = (z2 + z3) * -FIX(1.378756276);
+  tmp1 += tmp2;
+  z2 = (z1 + z3) * FIX(0.613604268);
+  tmp0 += z2;
+  tmp2 += z2 + z3 * FIX(1.870828693);
+  const int s = SECOND ? 0 : CONST_BITS - PASS1_BITS;
+  o[0] = (tmp10 + tmp0) >> s;
+  o[6] = (tmp10 - tmp0) >> s;
+  o[1] = (tmp11 + tmp1) >> s;
+  o[5] = (tmp11 - tmp1) >> s;
+  o[2] = (tmp12 + tmp2) >> s;
+  o[4] = (tmp12 - tmp2) >> s;
+  o[3] = tmp13 >> s;
+}
+
+// One 12-point pass of jpeg_idct_12x12 (8 inputs); pass 1 shifts, pass 2
+// does not.
+template <bool SECOND>
+__device__ __forceinline__ void idct12_1d(const int* z, int* o) {
+  int z3 = SECOND ? (z[0] + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
+                  : z[0] * (1 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1));
+  int z4 = z[4] * FIX(1.224744871);
+  int tmp10 = z3 + z4, tmp11 = z3 - z4;
+  int z1 = z[2];
+  z4 = z1 * FIX(1.366025404);
+  z1 *= 1 << CONST_BITS;
+  int z2 = z[6] * (1 << CONST_BITS);
+  int tmp12 = z1 - z2;
+  const int tmp21 = z3 + tmp12, tmp24 = z3 - tmp12;
+  tmp12 = z4 + z2;
+  const int tmp20 = tmp10 + tmp12, tmp25 = tmp10 - tmp12;
+  tmp12 = z4 - z1 - z2;
+  const int tmp22 = tmp11 + tmp12, tmp23 = tmp11 - tmp12;
+
+  z1 = z[1];
+  z2 = z[3];
+  z3 = z[5];
+  z4 = z[7];
+  tmp11 = z2 * FIX(1.306562965);
+  int tmp14 = z2 * -4433;  // -FIX(0.541196100)
+  tmp10 = z1 + z3;
+  int tmp15 = (tmp10 + z4) * FIX(0.860918669);
+  tmp12 = tmp15 + tmp10 * FIX(0.261052384);
+  tmp10 = tmp12 + tmp11 + z1 * FIX(0.280143716);
+  int tmp13 = (z3 + z4) * -FIX(1.045510580);
+  tmp12 += tmp13 + tmp14 - z3 * FIX(1.478575242);
+  tmp13 += tmp15 - tmp11 + z4 * FIX(1.586706681);
+  tmp15 += tmp14 - z1 * FIX(0.676326758) - z4 * FIX(1.982889723);
+  z1 -= z4;
+  z2 -= z3;
+  z3 = (z1 + z2) * 4433;   // FIX(0.541196100)
+  tmp11 = z3 + z1 * 6270;  // FIX(0.765366865)
+  tmp14 = z3 - z2 * 15137; // FIX(1.847759065)
+  const int s = SECOND ? 0 : CONST_BITS - PASS1_BITS;
+  o[0] = (tmp20 + tmp10) >> s;
+  o[11] = (tmp20 - tmp10) >> s;
+  o[1] = (tmp21 + tmp11) >> s;
+  o[10] = (tmp21 - tmp11) >> s;
+  o[2] = (tmp22 + tmp12) >> s;
+  o[9] = (tmp22 - tmp12) >> s;
+  o[3] = (tmp23 + tmp13) >> s;
+  o[8] = (tmp23 - tmp13) >> s;
+  o[4] = (tmp24 + tmp14) >> s;
+  o[7] = (tmp24 - tmp14) >> s;
+  o[5] = (tmp25 + tmp15) >> s;
+  o[6] = (tmp25 - tmp15) >> s;
+}
+
+// One 14-point pass of jpeg_idct_14x14 (8 inputs); pass 1 shifts (but
+// outputs 3 and 10, already at pass-1 scale), pass 2 does not.
+template <bool SECOND>
+__device__ __forceinline__ void idct14_1d(const int* z, int* o) {
+  int z1 = SECOND ? (z[0] + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
+                  : z[0] * (1 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1));
+  int z4 = z[4];
+  int z2 = z4 * FIX(1.274162392);
+  int z3 = z4 * FIX(0.314692123);
+  z4 *= FIX(0.881747734);
+  int tmp10 = z1 + z2, tmp11 = z1 + z3, tmp12 = z1 - z4;
+  int tmp23 = z1 - (z2 + z3 - z4) * 2;
+  if (!SECOND) tmp23 >>= CONST_BITS - PASS1_BITS;
+  z1 = z[2];
+  z2 = z[6];
+  z3 = (z1 + z2) * FIX(1.105676686);
+  int tmp13 = z3 + z1 * FIX(0.273079590);
+  int tmp14 = z3 - z2 * FIX(1.719280954);
+  int tmp15 = z1 * FIX(0.613604268) - z2 * FIX(1.378756276);
+  const int tmp20 = tmp10 + tmp13, tmp26 = tmp10 - tmp13;
+  const int tmp21 = tmp11 + tmp14, tmp25 = tmp11 - tmp14;
+  const int tmp22 = tmp12 + tmp15, tmp24 = tmp12 - tmp15;
+
+  z1 = z[1];
+  z2 = z[3];
+  z3 = z[5];
+  const int w4 = z[7] * (1 << CONST_BITS);
+  tmp14 = z1 + z3;
+  tmp11 = (z1 + z2) * FIX(1.334852607);
+  tmp12 = tmp14 * FIX(1.197448846);
+  tmp10 = tmp11 + tmp12 + w4 - z1 * FIX(1.126980169);
+  tmp14 *= FIX(0.752406978);
+  int tmp16 = tmp14 - z1 * FIX(1.061150426);
+  z1 -= z2;
+  tmp15 = z1 * FIX(0.467085129) - w4;
+  tmp16 += tmp15;
+  int t = (z2 + z3) * -FIX(0.158341681) - w4;
+  tmp11 += t - z2 * FIX(0.424103948);
+  tmp12 += t - z3 * FIX(2.373959773);
+  t = (z3 - z2) * FIX(1.405321284);
+  tmp14 += t + w4 - z3 * FIX(1.6906431334);
+  tmp15 += t + z2 * FIX(0.674957567);
+  const int sh = SECOND ? CONST_BITS : PASS1_BITS;
+  tmp13 = (z1 - z3) * (1 << sh) + z[7] * (1 << sh);
+  const int s = SECOND ? 0 : CONST_BITS - PASS1_BITS;
+  o[0] = (tmp20 + tmp10) >> s;
+  o[13] = (tmp20 - tmp10) >> s;
+  o[1] = (tmp21 + tmp11) >> s;
+  o[12] = (tmp21 - tmp11) >> s;
+  o[2] = (tmp22 + tmp12) >> s;
+  o[11] = (tmp22 - tmp12) >> s;
+  o[3] = tmp23 + tmp13;
+  o[10] = tmp23 - tmp13;
+  o[4] = (tmp24 + tmp14) >> s;
+  o[9] = (tmp24 - tmp14) >> s;
+  o[5] = (tmp25 + tmp15) >> s;
+  o[8] = (tmp25 - tmp15) >> s;
+  o[6] = (tmp26 + tmp16) >> s;
+  o[7] = (tmp26 - tmp16) >> s;
+}
+
+// One pass of jidctred.c's jpeg_idct_2x2 on its kept indices 0, 1, 3, 5, 7
+// (z[0..4]), its descale's rounding added (pass 1 also shifts).
+template <bool SECOND>
+__device__ __forceinline__ void red2_1d(const int* z, int* o) {
+  const int tmp10 = z[0] * (1 << (CONST_BITS + 2));
+  const int tmp0 = z[4] * -FIX(0.720959822) + z[3] * FIX(0.850430095) + z[2] * -FIX(1.272758580) +
+                   z[1] * FIX(3.624509785);
+  const int n = SECOND ? CONST_BITS + PASS1_BITS + 3 + 2 : CONST_BITS - PASS1_BITS + 2;
+  const int round = 1 << (n - 1), s = SECOND ? 0 : n;
+  o[0] = (tmp10 + tmp0 + round) >> s;
+  o[1] = (tmp10 - tmp0 + round) >> s;
+}
+
+// One pass of jidctred.c's jpeg_idct_4x4 on its kept indices 0-3, 5-7
+// (z[0..6]), its descale's rounding added (pass 1 also shifts).
+template <bool SECOND>
+__device__ __forceinline__ void red4_1d(const int* z, int* o) {
+  const int n = SECOND ? CONST_BITS + PASS1_BITS + 3 + 1 : CONST_BITS - PASS1_BITS + 1;
+  const int round = 1 << (n - 1), s = SECOND ? 0 : n;
+  int tmp0 = z[0] * (1 << (CONST_BITS + 1)) + round;
+  int tmp2 = z[2] * 15137 + z[5] * -6270;  // FIX(1.847759065), -FIX(0.765366865)
+  const int tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+  const int z1 = z[6], z2 = z[4], z3 = z[3], z4 = z[1];
+  tmp0 = z1 * -FIX(0.211164243) + z2 * FIX(1.451774981) + z3 * -FIX(2.172734803) + z4 * FIX(1.061594337);
+  tmp2 = z1 * -FIX(0.509795579) + z2 * -FIX(0.601344887) + z3 * 7373 + z4 * 20995;  // FIX(0.899976223),
+                                                                                        // FIX(2.562915447)
+  o[0] = (tmp10 + tmp2) >> s;
+  o[3] = (tmp10 - tmp2) >> s;
+  o[1] = (tmp12 + tmp0) >> s;
+  o[2] = (tmp12 - tmp0) >> s;
+}
+
+// Each IDCT size's passes: K coefficients a side in (the square the entropy
+// decoder keeps), S samples out, and the range limit's shift after pass 2.
+template <int S>
+struct Idct;
+template <>
+struct Idct<2> {
+  static constexpr int K = 5, SHIFT = CONST_BITS + PASS1_BITS + 3 + 2;
+  template <bool B> __device__ static void pass(const int* z, int* o) { red2_1d<B>(z, o); }
+};
+template <>
+struct Idct<3> {
+  static constexpr int K = 3, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) { idct3_1d<B>(z, o); }
+};
+template <>
+struct Idct<4> {
+  static constexpr int K = 7, SHIFT = CONST_BITS + PASS1_BITS + 3 + 1;
+  template <bool B> __device__ static void pass(const int* z, int* o) { red4_1d<B>(z, o); }
+};
+template <>
+struct Idct<5> {
+  static constexpr int K = 5, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) { idct5_1d<B>(z, o); }
+};
+template <>
+struct Idct<6> {
+  static constexpr int K = 6, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) { idct6_1d<B>(z, o); }
+};
+template <>
+struct Idct<7> {
+  static constexpr int K = 7, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) { idct7_1d<B>(z, o); }
+};
+template <>
+struct Idct<8> {
+  static constexpr int K = 8, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) {
+    islow_1d(z, o, 1 << (B ? CONST_BITS + PASS1_BITS + 2 : CONST_BITS - PASS1_BITS - 1));
+    if (!B) {
 #pragma unroll
-  for (int r = 0; r < 8; ++r) z[r] = ws[r * WS_PITCH + t];
-  islow_1d(z, o, 1 << (CONST_BITS - PASS1_BITS - 1));
-#pragma unroll
-  for (int r = 0; r < 8; ++r) ws[r * WS_PITCH + t] = o[r] >> (CONST_BITS - PASS1_BITS);
-  __syncwarp(mask);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) z[c] = ws[t * WS_PITCH + c];
-  islow_1d(z, o, 1 << (CONST_BITS + PASS1_BITS + 2));
-  uint32_t lo = 0, hi = 0;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    lo |= uint32_t(range_limit_18(o[c])) << (8 * c);
-    hi |= uint32_t(range_limit_18(o[c + 4])) << (8 * c);
-  }
-  uint8_t* row = dst + t * RING_PITCH;
-  if ((reinterpret_cast<uintptr_t>(row) & 7) == 0) {
-    *reinterpret_cast<uint2*>(row) = make_uint2(lo, hi);
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      row[c] = uint8_t(lo >> (8 * c));
-      row[c + 4] = uint8_t(hi >> (8 * c));
+      for (int r = 0; r < 8; ++r) o[r] >>= CONST_BITS - PASS1_BITS;
     }
   }
+};
+template <>
+struct Idct<10> {
+  static constexpr int K = 8, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) { idct10_1d<B>(z, o); }
+};
+template <>
+struct Idct<12> {
+  static constexpr int K = 8, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) { idct12_1d<B>(z, o); }
+};
+template <>
+struct Idct<14> {
+  static constexpr int K = 8, SHIFT = CONST_BITS + PASS1_BITS + 3;
+  template <bool B> __device__ static void pass(const int* z, int* o) { idct14_1d<B>(z, o); }
+};
+
+// Pass 2 of one row of an S x S block: workspace row ws_row (K ints) to
+// S samples at dst, 8 or 4 at once where aligned.
+template <int S>
+__device__ __forceinline__ void idct_row(const int* ws_row, uint8_t* row) {
+  constexpr int K = Idct<S>::K;
+  int z[K], o[S];
+#pragma unroll
+  for (int c = 0; c < K; ++c) z[c] = ws_row[c];
+  Idct<S>::template pass<true>(z, o);
+  if constexpr (S == 8 || S == 4) {
+    uint32_t w[S / 4] = {};
+#pragma unroll
+    for (int c = 0; c < S; ++c) w[c >> 2] |= uint32_t(range_limit_at<Idct<S>::SHIFT>(o[c])) << (8 * (c & 3));
+    if ((reinterpret_cast<uintptr_t>(row) & (S - 1)) == 0) {
+      if constexpr (S == 8) *reinterpret_cast<uint2*>(row) = make_uint2(w[0], w[1]);
+      else *reinterpret_cast<uint32_t*>(row) = w[0];
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < S; ++c) row[c] = uint8_t(range_limit_at<Idct<S>::SHIFT>(o[c]));
 }
 
-__device__ void idct5_group(const int16_t* __restrict__ in, const int* q, int* ws, uint8_t* dst, int t,
-                            unsigned mask) {
-  if (t < 5) load_row<5>(in + t * 5, q + t * 8, ws + t * WS_PITCH);
-  __syncwarp(mask);
-  int z[5], o[5];
-  if (t < 5) {
+// The IDCT of one S x S block by its 8 threads (lane t of 0..7, mask the
+// group's lanes): lane t < K loads and dequantises row t of the block's
+// K x K coefficients, runs pass 1 over column t, then pass 2 over rows t
+// and t + 8 < S, writing its samples to dst at a pitch of RING_PITCH.
+// Past WS_ROWS rows (10x10, 12x12, 14x14) pass 1's rows 8.. stay in
+// registers until the first 8 rows are out, then take the workspace's rows
+// 0.. for a second round (lane t: row t + 8). jpeg_idct_1x1 is the DC alone. A
+// lane's pass 2 reads only rows that no other lane's next load writes, so
+// the group's next block needs no barrier before its load.
+template <int S>
+__device__ void idct_group(const int16_t* __restrict__ in, const int* q, int* ws, uint8_t* dst, int t,
+                           unsigned mask) {
+  if constexpr (S == 1) {
+    if (t == 0) dst[0] = uint8_t(range_limit_at<3>(int(in[0]) * q[0] + 4));
+  } else {
+    constexpr int K = Idct<S>::K, R = S < WS_ROWS ? S : WS_ROWS;  // R: the rows of a round
+    if (t < K) load_row<S, K>(in + t * K, q + kept_index<S>(t) * 8, ws + t * WS_PITCH);
+    __syncwarp(mask);
+    int o[S];
+    if (t < K) {
+      int z[K];
 #pragma unroll
-    for (int r = 0; r < 5; ++r) z[r] = ws[r * WS_PITCH + t];
-    idct5_1d<false>(z, o);
+      for (int r = 0; r < K; ++r) z[r] = ws[r * WS_PITCH + t];
+      Idct<S>::template pass<false>(z, o);
 #pragma unroll
-    for (int r = 0; r < 5; ++r) ws[r * WS_PITCH + t] = o[r];
-  }
-  __syncwarp(mask);
-  if (t < 5) {
+      for (int r = 0; r < R; ++r) ws[r * WS_PITCH + t] = o[r];
+    }
+    __syncwarp(mask);
+    for (int r = t; r < R; r += 8) idct_row<S>(ws + r * WS_PITCH, dst + r * RING_PITCH);
+    if constexpr (S > WS_ROWS) {
+      __syncwarp(mask);  // every lane has read its rows of the first round
 #pragma unroll
-    for (int c = 0; c < 5; ++c) z[c] = ws[t * WS_PITCH + c];
-    idct5_1d<true>(z, o);
-#pragma unroll
-    for (int c = 0; c < 5; ++c)
-      dst[t * RING_PITCH + c] = uint8_t(range_limit_18(o[c]));
-  }
-}
-
-__device__ void idct10_group(const int16_t* __restrict__ in, const int* q, int* ws, uint8_t* dst, int t,
-                             unsigned mask) {
-  load_row<8>(in + t * 8, q + t * 8, ws + t * WS_PITCH);
-  __syncwarp(mask);
-  int z[8], o[10];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) z[r] = ws[r * WS_PITCH + t];
-  idct10_1d<false>(z, o);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) ws[r * WS_PITCH + t] = o[r];
-  __syncwarp(mask);
-  for (int r = t; r < 10; r += 8) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) z[c] = ws[r * WS_PITCH + c];
-    idct10_1d<true>(z, o);
-#pragma unroll
-    for (int c = 0; c < 10; ++c)
-      dst[r * RING_PITCH + c] = uint8_t(range_limit_18(o[c]));
+      for (int r = WS_ROWS; r < S; ++r) ws[(r - WS_ROWS) * WS_PITCH + t] = o[r];
+      __syncwarp(mask);
+      if (t < S - WS_ROWS) idct_row<S>(ws + t * WS_PITCH, dst + (t + WS_ROWS) * RING_PITCH);
+    }
   }
 }
 
@@ -614,7 +907,11 @@ __device__ __forceinline__ void zero_run(uint8_t* p, int n) {
   for (int b = 0; b < 3 * n; ++b) p[b] = 0;
 }
 
-// grid: (stripes, slots, bands); THREADS threads.
+// grid: (stripes, slots, bands); THREADS threads. One instantiation per
+// scale N/8 holds only that scale's IDCTs: N x N, and 2N x 2N for a
+// chroma that needs no upsampling (a kernel that carried all eleven sizes
+// ran 8-10% slower at 8/8 and 5/8 for its code alone).
+template <int N>
 __global__ void __launch_bounds__(THREADS, 4)
 jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt, const int* __restrict__ comps,
                    const int* __restrict__ images, const int* __restrict__ tiles, int th, int tw, int band_rows,
@@ -670,7 +967,8 @@ jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt,
       g.row_magic = magic_of(g.ns * g.s);
       g.col_magic = magic_of(g.bc1 - g.bc0);
       // describe_batch refuses a geometry outside the ring (_check_ring)
-      if (g.ns * g.s > RING_ROWS || g.bc1 * g.s - g.c0 > RING_PITCH - RING_SLACK || mh % (g.s * g.vf)) __trap();
+      const int slack = g.mode == UP_H2V1 || g.mode == UP_H2V2 ? RING_SLACK : 0;
+      if (g.ns * g.s > RING_ROWS || g.bc1 * g.s - g.c0 > RING_PITCH - slack || mh % (g.s * g.vf)) __trap();
     }
     step_h = k * mh;
   }
@@ -728,9 +1026,13 @@ jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt,
           const int row = div_magic(jj, nb, col_magic), col = jj - row * nb;
           const int16_t* in = base + (row * bw + col) * kk;
           uint8_t* dst = ring_c + mod_magic((first[c] + row) * s_, rows, row_magic) * RING_PITCH + col * s_;
-          if (s_ == 8) idct8_group(in, qs[c], ws, dst, lane8, gmask);
-          else if (s_ == 5) idct5_group(in, qs[c], ws, dst, lane8, gmask);
-          else idct10_group(in, qs[c], ws, dst, lane8, gmask);
+          if (s_ == N) {
+            idct_group<N>(in, qs[c], ws, dst, lane8, gmask);
+          } else if (N < 8 && s_ == 2 * N) {
+            idct_group<(N < 8 ? 2 * N : N)>(in, qs[c], ws, dst, lane8, gmask);
+          } else {
+            __trap();  // describe_batch gives a batch one scale
+          }
         }
       }
       if (c < ncomp) before += jobs[c];
@@ -751,6 +1053,23 @@ jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt,
     }
 #endif
 #undef AQ_COLOUR
+  }
+}
+
+using KernelFn = void (*)(const int16_t*, const int*, const int*, const int*, const int*, int, int, int, uint8_t*);
+
+// The kernel of scale N/8, for N of 1..8; nullptr for another N.
+KernelFn kernel_for(int n) {
+  switch (n) {
+    case 1: return jpeg_decode_kernel<1>;
+    case 2: return jpeg_decode_kernel<2>;
+    case 3: return jpeg_decode_kernel<3>;
+    case 4: return jpeg_decode_kernel<4>;
+    case 5: return jpeg_decode_kernel<5>;
+    case 6: return jpeg_decode_kernel<6>;
+    case 7: return jpeg_decode_kernel<7>;
+    case 8: return jpeg_decode_kernel<8>;
+    default: return nullptr;
   }
 }
 
@@ -782,13 +1101,17 @@ extern "C" int aq_jpeg_stripe_blocks(const int* comps, const int* images, const 
 
 extern "C" {
 
-// Decode a batch into out (n_slots, th, tw, 3) uint8: grid (stripes,
-// n_slots, bands of band_rows). Returns cudaGetLastError() after the launch.
+// Decode a batch of images at scale_n/8 into out (n_slots, th, tw, 3)
+// uint8: grid (stripes, n_slots, bands of band_rows). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a scale
+// outside 1..8).
 int aq_jpeg_decode(const void* coef, const void* qt, const void* comps, const void* images, const void* tiles,
-                   int n_slots, int th, int tw, int band_rows, void* out, void* stream) {
+                   int n_slots, int th, int tw, int band_rows, int scale_n, void* out, void* stream) {
+  const KernelFn kernel = kernel_for(scale_n);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (n_slots <= 0 || th <= 0 || tw <= 0) return 0;
   dim3 grid((tw + STRIPE_W - 1) / STRIPE_W, n_slots, (th + band_rows - 1) / band_rows);
-  jpeg_decode_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int16_t*)coef, (const int*)qt, (const int*)comps, (const int*)images, (const int*)tiles, th, tw,
       band_rows, (uint8_t*)out);
   return (int)cudaGetLastError();
@@ -803,15 +1126,17 @@ void aq_jpeg_geometry(int* out) {
   out[3] = RING_SLACK;
 }
 
-// The kernel's registers per thread, static shared memory and local
-// (spill) bytes per thread, threads per CTA, and resident CTAs per SM.
-// Returns the CUDA error of the queries.
-int aq_jpeg_attributes(int* out) {
+// The scale_n/8 kernel's registers per thread, static shared memory and
+// local (spill) bytes per thread, threads per CTA, and resident CTAs per
+// SM. Returns the CUDA error of the queries.
+int aq_jpeg_attributes(int scale_n, int* out) {
+  const KernelFn kernel = kernel_for(scale_n);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, jpeg_decode_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, jpeg_decode_kernel, THREADS, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, THREADS, 0);
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
   out[2] = (int)a.localSizeBytes;

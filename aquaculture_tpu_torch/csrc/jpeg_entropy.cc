@@ -1,6 +1,6 @@
 // Host half of the port's JPEG decoder: marker parsing and Huffman entropy
-// decode of baseline sequential JPEG, on a thread pool, into de-zigzagged,
-// still-quantised int16 coefficients.
+// decode, on a thread pool, into de-zigzagged, still-quantised int16
+// coefficients.
 //
 // Counterpart of the JPEG half of the JAX package's tileloader.cc, split another
 // way: the serial part (the entropy decode) stays on host threads here, and
@@ -8,18 +8,33 @@
 // the tile grid) runs in csrc/jpeg_decode.cu on the card, or in
 // data/jpeg_plain.py on the CPU. No libjpeg: the bitstream is parsed here.
 //
-// Decodes SOF0/SOF1 8-bit scans with 1 or 3 components (YCbCr by libjpeg's
-// rules), sampling factors 1 or 2, one interleaved scan, restart intervals.
-// Every other JPEG process (progressive, lossless, arithmetic, 12-bit, CMYK,
-// multi-scan, RGB-coded) is recognised from its header and reported as
-// KIND_OTHER_JPEG, so that the caller routes it to another decoder; TIFF is
-// KIND_TIFF; anything else, or a header that does not parse, KIND_UNREADABLE.
+// Decodes 8-bit Huffman-coded frames with 1 or 3 components (YCbCr by
+// libjpeg's rules), sampling factors 1 or 2, restart intervals throughout:
+// - sequential (SOF0/SOF1) in one interleaved scan, straight into each
+//   block's kept coefficients;
+// - progressive (SOF2: jdphuff.c's DC first, DC refinement, AC first with
+//   its EOB runs and AC refinement with its correction bits) and sequential
+//   in several scans (a first scan without every component), into whole
+//   8x8 blocks scan by scan (libjpeg's pre-zeroed coefficient buffer: a
+//   non-interleaved scan covers only its component's own blocks, and the
+//   MCU-padding blocks keep what interleaved scans gave them), each block
+//   then cut to its kept coefficients.
+// Every other JPEG process (lossless, arithmetic, hierarchical, 12-bit,
+// CMYK, RGB-coded) is recognised from its markers and reported as
+// KIND_OTHER_JPEG with the frame's size, so that the caller routes it to
+// another decoder; so is a progressive file whose scans leave one of the
+// first nine AC coefficients of a component unfinished, where libjpeg
+// smooths the blocks (jdcoefct.c's block smoothing). TIFF is KIND_TIFF;
+// anything else, or markers that do not parse, KIND_UNREADABLE.
 //
 // At scale N/8 every coefficient is still parsed, but each block keeps only
-// its top-left K x K (K = min(8, the component's scaled IDCT size), as the
-// scaled IDCTs read no more). The scaled IDCT size of each component follows
-// libjpeg-turbo's jpeg_calc_output_dimensions: chroma of 4:2:0 at 5/8 takes
-// a 10x10 IDCT, so that it needs no upsampling.
+// the K x K square that its scaled IDCT reads (kept_index): the DC for the
+// 1x1, the top-left N x N for jidctint.c's N x N (N = 3, 5, 6, 7), indices
+// 0, 1, 3, 5, 7 of each axis for jidctred.c's 2x2 and 0-3, 5-7 for its
+// 4x4, and all 8 x 8 for the 8x8 and larger ones. The scaled IDCT size of
+// each component follows libjpeg-turbo's jpeg_calc_output_dimensions:
+// chroma of 4:2:0 at N/8 takes a 2N x 2N IDCT (up to 14x14 at 7/8), so that
+// it needs no upsampling.
 //
 // C ABI (bound with ctypes by data/native_loader.py): aq_jpeg_probe,
 // aq_jpeg_decode for one file, and a loader (aq_jpeg_loader_create / peek /
@@ -40,7 +55,8 @@
 
 namespace {
 
-enum Kind { KIND_BASELINE = 0, KIND_OTHER_JPEG = 1, KIND_TIFF = 2, KIND_UNREADABLE = 3 };
+// KIND_BASELINE: the entropy decoder takes the file (any process above)
+enum Kind { KIND_BASELINE = 0, KIND_OTHER_JPEG = 1, KIND_TIFF = 2, KIND_UNREADABLE = 3, KIND_END = 4 };
 
 // Per-image metadata, one int32 array (mirrored in data/native_loader.py).
 constexpr int META_INTS = 256;
@@ -75,18 +91,32 @@ struct Comp {
   int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
 };
 
+// One scan's header: its components (indices into the frame's), spectral
+// band Ss..Se and successive-approximation bits Ah, Al.
+struct Scan {
+  int ncomp = 0;
+  int comp[4] = {0, 0, 0, 0};
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
+
 struct Header {
   int width = 0, height = 0, ncomp = 0, max_h = 1, max_v = 1, precision = 8;
   int restart_interval = 0, sof = 0;
+  bool saw_sof = false, saw_sos = false;
+  bool progressive = false;
+  bool multi_scan = false;  // progressive, or sequential with a first scan short of a component
   Comp comp[4];
-  uint16_t qt[4][64];  // natural order
+  uint16_t qt[4][64];  // natural order, as last defined
   bool qt_present[4] = {false, false, false, false};
+  // each component's table, latched at its first scan (jdinput.c's
+  // latch_quant_tables); zeros for a component no scan holds
+  uint16_t latched[4][64] = {};
+  bool is_latched[4] = {false, false, false, false};
   Huff dc[4], ac[4];
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
-  size_t scan_start = 0;
-  int scan_ncomp = 0;
-  int scan_comp[4] = {0, 0, 0, 0};
+  Scan scan;              // the scan whose header was read last
+  size_t scan_start = 0;  // where its entropy-coded data starts
 };
 
 inline int extend(int v, int s) { return s == 0 ? 0 : (v < (1 << (s - 1)) ? v - (1 << s) + 1 : v); }
@@ -156,32 +186,65 @@ inline int seg_len(const uint8_t* d, size_t n, size_t pos) {
   return (d[pos] << 8) | d[pos + 1];
 }
 
-// Parse markers up to the first SOS. Returns a Kind.
-int parse_header(const uint8_t* d, size_t n, Header* h) {
-  if (n >= 4 && ((d[0] == 'I' && d[1] == 'I' && d[2] == 42 && d[3] == 0) ||
-                 (d[0] == 'M' && d[1] == 'M' && d[2] == 0 && d[3] == 42)))
-    return KIND_TIFF;
-  if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return KIND_UNREADABLE;
-  size_t pos = 2;
-  bool saw_sof = false;
+// An SOS segment's header into h->scan (and each of its components' table
+// selectors). Returns a Kind.
+int parse_sos(const uint8_t* s, int slen, Header* h) {
+  if (slen < 1) return KIND_UNREADABLE;
+  Scan& sc = h->scan;
+  int ns = s[0];
+  if (ns < 1 || ns > 4 || slen < 1 + 2 * ns + 3) return KIND_UNREADABLE;
+  sc.ncomp = ns;
+  for (int i = 0; i < ns; ++i) {
+    int cid = s[1 + 2 * i], tables = s[2 + 2 * i];
+    int ci = -1;
+    for (int c = 0; c < h->ncomp; ++c)
+      if (h->comp[c].id == cid) ci = c;
+    if (ci < 0) return KIND_UNREADABLE;
+    for (int j = 0; j < i; ++j)
+      if (sc.comp[j] == ci) return KIND_UNREADABLE;
+    sc.comp[i] = ci;
+    h->comp[ci].td = tables >> 4;
+    h->comp[ci].ta = tables & 15;
+    if (h->comp[ci].td > 3 || h->comp[ci].ta > 3) return KIND_UNREADABLE;
+  }
+  sc.ss = s[1 + 2 * ns];
+  sc.se = s[2 + 2 * ns];
+  sc.ah = s[3 + 2 * ns] >> 4;
+  sc.al = s[3 + 2 * ns] & 15;
+  return KIND_BASELINE;
+}
+
+// Parse markers from *at (2 for the first call: past SOI) up to the next
+// SOS, whose header goes into h->scan, with *at and h->scan_start at its
+// entropy-coded data (skipped by the search for the next marker, which
+// passes stuffed bytes and RSTn): returns KIND_BASELINE, or KIND_END at EOI
+// or the end of the data after a scan, or the Kind that ends the file's
+// route (another JPEG process, markers that do not parse).
+int read_markers(const uint8_t* d, size_t n, size_t* at, Header* h) {
+  const int end = h->saw_sos ? KIND_END : KIND_UNREADABLE;
+  size_t pos = *at;
   while (true) {
     // find the next marker: 0xFF, fill bytes, code
-    while (pos < n && d[pos] != 0xFF) ++pos;
+    const void* ff = pos < n ? std::memchr(d + pos, 0xFF, n - pos) : nullptr;
+    if (ff == nullptr) return end;
+    pos = size_t(static_cast<const uint8_t*>(ff) - d);
     while (pos < n && d[pos] == 0xFF) ++pos;
-    if (pos >= n) return KIND_UNREADABLE;
+    if (pos >= n) return end;
     int m = d[pos++];
-    if (m == 0x00 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // TEM, stray RST
-    if (m == 0xD9) return KIND_UNREADABLE;                               // EOI before SOS
+    if (m == 0x00 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // stuffed byte, TEM, RSTn
+    if (m == 0xD9) return end;                                           // EOI
     int len = seg_len(d, n, pos);
-    if (len < 2 || pos + size_t(len) > n) return KIND_UNREADABLE;
+    if (len < 2 || pos + size_t(len) > n) return end;
     const uint8_t* s = d + pos + 2;
     int slen = len - 2;
     switch (m) {
       case 0xC0:
-      case 0xC1: {
-        if (saw_sof || slen < 6) return KIND_UNREADABLE;
-        saw_sof = true;
+      case 0xC1:
+      case 0xC2: {
+        if (h->saw_sof || slen < 6) return KIND_UNREADABLE;
+        h->saw_sof = true;
         h->sof = m;
+        h->progressive = m == 0xC2;
         h->precision = s[0];
         h->height = (s[1] << 8) | s[2];
         h->width = (s[3] << 8) | s[4];
@@ -204,9 +267,15 @@ int parse_header(const uint8_t* d, size_t n, Header* h) {
         }
         break;
       }
-      case 0xC2: case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
+      case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
       case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-        return KIND_OTHER_JPEG;  // progressive, lossless, hierarchical, arithmetic
+        // lossless, hierarchical, arithmetic: the frame's size for the caller
+        if (h->saw_sof || slen < 5) return KIND_UNREADABLE;
+        h->sof = m;
+        h->precision = s[0];
+        h->height = (s[1] << 8) | s[2];
+        h->width = (s[3] << 8) | s[4];
+        return KIND_OTHER_JPEG;
       case 0xC4: {  // DHT
         int q = 0;
         while (q < slen) {
@@ -251,39 +320,11 @@ int parse_header(const uint8_t* d, size_t n, Header* h) {
         }
         break;
       case 0xDA: {  // SOS
-        if (!saw_sof || slen < 1) return KIND_UNREADABLE;
-        int ns = s[0];
-        if (slen < 1 + 2 * ns + 3) return KIND_UNREADABLE;
-        if (ns != h->ncomp) return KIND_OTHER_JPEG;  // one scan per component
-        h->scan_ncomp = ns;
-        for (int i = 0; i < ns; ++i) {
-          int cid = s[1 + 2 * i], tables = s[2 + 2 * i];
-          int ci = -1;
-          for (int c = 0; c < h->ncomp; ++c)
-            if (h->comp[c].id == cid) ci = c;
-          if (ci < 0) return KIND_UNREADABLE;
-          h->scan_comp[i] = ci;
-          h->comp[ci].td = tables >> 4;
-          h->comp[ci].ta = tables & 15;
-          if (h->comp[ci].td > 3 || h->comp[ci].ta > 3) return KIND_UNREADABLE;
-        }
-        int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], a = s[3 + 2 * ns];
-        if (ss != 0 || se != 63 || a != 0) return KIND_OTHER_JPEG;
-        for (int c = 0; c < h->ncomp; ++c) {
-          const Comp& cp = h->comp[c];
-          if (!h->qt_present[cp.tq] || !h->dc[cp.td].present || !h->ac[cp.ta].present)
-            return KIND_UNREADABLE;
-        }
-        if (h->ncomp == 3) {
-          // libjpeg's colour-space guess (jdapimin.c default_decompress_parms):
-          // RGB-coded files are another process here
-          bool rgb;
-          if (h->jfif) rgb = false;
-          else if (h->adobe) rgb = h->adobe_transform == 0;
-          else rgb = h->comp[0].id == 82 && h->comp[1].id == 71 && h->comp[2].id == 66;
-          if (rgb) return KIND_OTHER_JPEG;
-        }
-        h->scan_start = pos + len;
+        if (!h->saw_sof) return KIND_UNREADABLE;
+        int kind = parse_sos(s, slen, h);
+        if (kind != KIND_BASELINE) return kind;
+        h->saw_sos = true;
+        *at = h->scan_start = pos + len;
         return KIND_BASELINE;
       }
       default:
@@ -293,7 +334,104 @@ int parse_header(const uint8_t* d, size_t n, Header* h) {
   }
 }
 
+// The scan in h->scan against the frame's process (jdhuff.c's and
+// jdphuff.c's start_pass checks), its tables present; latches the
+// quantisation table of each component at its first scan. Returns a Kind.
+int check_scan(Header* h) {
+  const Scan& sc = h->scan;
+  int blocks = 0;
+  for (int i = 0; i < sc.ncomp; ++i) {
+    const int c = sc.comp[i];
+    const Comp& cp = h->comp[c];
+    blocks += cp.h * cp.v;
+    if (!h->is_latched[c]) {
+      if (!h->qt_present[cp.tq]) return KIND_UNREADABLE;
+      std::memcpy(h->latched[c], h->qt[cp.tq], sizeof(h->latched[c]));
+      h->is_latched[c] = true;
+    }
+  }
+  if (sc.ncomp > 1 && blocks > 10) return KIND_UNREADABLE;  // libjpeg's D_MAX_BLOCKS_IN_MCU
+  bool need_dc, need_ac;
+  if (!h->progressive) {
+    if (sc.ss != 0 || sc.se != 63 || sc.ah != 0 || sc.al != 0) return KIND_OTHER_JPEG;
+    need_dc = need_ac = true;
+  } else {
+    bool bad = sc.ss == 0 ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ncomp != 1);
+    if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+    if (sc.al > 13 || bad) return KIND_UNREADABLE;  // libjpeg: JERR_BAD_PROGRESSION
+    need_dc = sc.ss == 0 && sc.ah == 0;
+    need_ac = sc.ss > 0;
+  }
+  for (int i = 0; i < sc.ncomp; ++i) {
+    const Comp& cp = h->comp[sc.comp[i]];
+    if ((need_dc && !h->dc[cp.td].present) || (need_ac && !h->ac[cp.ta].present)) return KIND_UNREADABLE;
+  }
+  return KIND_BASELINE;
+}
+
+// Parse markers up to the first SOS and check it. Returns a Kind.
+int parse_header(const uint8_t* d, size_t n, Header* h) {
+  if (n >= 4 && ((d[0] == 'I' && d[1] == 'I' && d[2] == 42 && d[3] == 0) ||
+                 (d[0] == 'M' && d[1] == 'M' && d[2] == 0 && d[3] == 42)))
+    return KIND_TIFF;
+  if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return KIND_UNREADABLE;
+  size_t pos = 2;
+  int kind = read_markers(d, n, &pos, h);
+  if (kind != KIND_BASELINE) return kind;
+  if (h->ncomp == 3) {
+    // libjpeg's colour-space guess (jdapimin.c default_decompress_parms):
+    // RGB-coded files are another process here
+    bool rgb;
+    if (h->jfif) rgb = false;
+    else if (h->adobe) rgb = h->adobe_transform == 0;
+    else rgb = h->comp[0].id == 82 && h->comp[1].id == 71 && h->comp[2].id == 66;
+    if (rgb) return KIND_OTHER_JPEG;
+  }
+  h->multi_scan = h->progressive || h->scan.ncomp != h->ncomp;
+  return check_scan(h);
+}
+
 inline int ceil_div(long a, long b) { return int((a + b - 1) / b); }
+
+// A component's blocks: the MCU-padded grid of an interleaved image, a
+// one-component image's own blocks.
+inline int blocks_w(const Header& h, int c) {
+  if (h.ncomp == 1) return ceil_div(ceil_div(long(h.width) * h.comp[c].h, h.max_h), 8);
+  return ceil_div(h.width, 8 * h.max_h) * h.comp[c].h;
+}
+
+inline int blocks_h(const Header& h, int c) {
+  if (h.ncomp == 1) return ceil_div(ceil_div(long(h.height) * h.comp[c].v, h.max_v), 8);
+  return ceil_div(h.height, 8 * h.max_v) * h.comp[c].v;
+}
+
+// The coefficients a side that the IDCT of size s reads, and the index of
+// place i of its kept square (data/jpeg_plain.py's kept and kept_index).
+inline int kept(int s) { return s == 2 ? 5 : s == 4 ? 7 : std::min(s, 8); }
+inline int kept_index(int s, int i) { return s == 2 ? (i == 0 ? 0 : 2 * i - 1) : s == 4 && i >= 4 ? i + 1 : i; }
+
+// The kept square of an s x s IDCT's blocks: k a side, and for each of its
+// places the index in the natural-order block (kept_index of its row and
+// column), or rows: the square is the block's top-left one.
+struct Cut {
+  int k = 8;
+  bool rows = true;
+  uint8_t from[64];
+  explicit Cut(int s = 8) : k(kept(s)), rows(s != 2 && s != 4) {
+    for (int r = 0; r < k; ++r)
+      for (int c = 0; c < k; ++c) from[r * k + c] = uint8_t(8 * kept_index(s, r) + kept_index(s, c));
+  }
+};
+
+// A natural-order block's kept square into out.
+inline void cut_block(const int16_t* blk, const Cut& cut, int16_t* out) {
+  const int k = cut.k;
+  if (cut.rows) {
+    for (int r = 0; r < k; ++r) std::memcpy(out + r * k, blk + 8 * r, sizeof(int16_t) * k);
+  } else {
+    for (int i = 0; i < k * k; ++i) out[i] = blk[cut.from[i]];
+  }
+}
 
 // Layout of the coefficients at scale_n/8 (libjpeg-turbo's choice of each
 // component's IDCT size, its downsampled sizes and the output size).
@@ -310,7 +448,6 @@ bool fill_meta(const Header& h, int scale_n, int32_t* meta) {
   meta[M_COLOR] = h.ncomp == 3 ? 1 : 0;
   meta[M_RESTART] = h.restart_interval;
   meta[M_SOF] = h.sof;
-  int mcux = ceil_div(h.width, 8 * h.max_h), mcuy = ceil_div(h.height, 8 * h.max_v);
   long off = 0;
   for (int c = 0; c < h.ncomp; ++c) {
     const Comp& cp = h.comp[c];
@@ -319,15 +456,8 @@ bool fill_meta(const Header& h, int scale_n, int32_t* meta) {
     while (ssize < 8 && (h.max_h * scale_n) % (cp.h * ssize * 2) == 0 &&
            (h.max_v * scale_n) % (cp.v * ssize * 2) == 0)
       ssize *= 2;
-    int k = std::min(ssize, 8);
-    int bw, bh;
-    if (h.ncomp == 1) {  // a non-interleaved scan: one block per MCU
-      bw = ceil_div(ceil_div(long(h.width) * cp.h, h.max_h), 8);
-      bh = ceil_div(ceil_div(long(h.height) * cp.v, h.max_v), 8);
-    } else {
-      bw = mcux * cp.h;
-      bh = mcuy * cp.v;
-    }
+    const int k = kept(ssize);
+    const int bw = blocks_w(h, c), bh = blocks_h(h, c);
     m[C_H] = cp.h;
     m[C_V] = cp.v;
     m[C_S] = ssize;
@@ -337,7 +467,7 @@ bool fill_meta(const Header& h, int scale_n, int32_t* meta) {
     m[C_OFF] = int32_t(off);
     m[C_DW] = ceil_div(long(h.width) * cp.h * ssize, long(h.max_h) * 8);
     m[C_DH] = ceil_div(long(h.height) * cp.v * ssize, long(h.max_v) * 8);
-    for (int i = 0; i < 64; ++i) m[COMP_QT + i] = h.qt[cp.tq][i];
+    for (int i = 0; i < 64; ++i) m[COMP_QT + i] = h.latched[c][i];
     off += long(bw) * bh * k * k;
     if (off > 0x7FFFFFFFL) return false;
   }
@@ -400,6 +530,10 @@ struct BitReader {
   inline void ensure() {
     if (bits < 32) fill();
   }
+  inline int bit() {
+    ensure();
+    return get(1);
+  }
   inline int decode(const Huff& h) {
     ensure();
     int e = h.look[(buf >> (bits - kLook)) & ((1 << kLook) - 1)];
@@ -434,97 +568,242 @@ struct BitReader {
   }
 };
 
-// Entropy-decode the scan into coef (meta's layout). Data that ends early
-// decodes as zeros, as libjpeg does after its "premature end" warning.
-void decode_scan(const uint8_t* d, size_t n, const Header& h, const int32_t* meta, int16_t* coef) {
-  BitReader br;
-  br.p = d + h.scan_start;
-  br.end = d + n;
-  int K[3], BW[3], KK[3];
-  int16_t* base[3];
-  for (int c = 0; c < h.ncomp; ++c) {
-    const int32_t* m = meta + COMP_BASE + COMP_INTS * c;
-    K[c] = m[C_K];
-    KK[c] = K[c] * K[c];
-    BW[c] = m[C_BW];
-    base[c] = coef + m[C_OFF];
-  }
-  int pred[3] = {0, 0, 0};
-
-  // A block decodes into blk (natural order, with a slot past the end that
-  // takes the coefficients of a corrupt run past 63), then its top-left
-  // K x K is copied out.
-  alignas(16) int16_t blk[64 + 16];
-  auto block = [&](int c, int by, int bx) {
-    const Comp& cp = h.comp[c];
-    std::memset(blk, 0, sizeof(int16_t) * 64);
-    int s = br.decode(h.dc[cp.td]);
-    if (s) pred[c] += extend(br.get(s), s);
-    blk[0] = int16_t(pred[c]);
-    const Huff& ac = h.ac[cp.ta];
-    for (int k = 1; k < 64;) {
-      br.ensure();
-      int32_t f = ac.fast_ac[(br.buf >> (br.bits - kLook)) & ((1 << kLook) - 1)];
-      if (f) {
-        br.bits -= f & 15;
-        k += (f >> 4) & 15;
-        blk[kNatural[k]] = int16_t(f >> 8);
-        ++k;
-        continue;
-      }
-      int rs = br.decode(ac);
-      int r = rs >> 4;
-      s = rs & 15;
-      if (s) {
-        k += r;
-        blk[kNatural[k]] = int16_t(extend(br.get(s), s));
-        ++k;
-      } else {
-        if (r != 15) break;
-        k += 16;
-      }
+// One sequential block (jdhuff.c's decode_mcu) into blk, natural order,
+// writing its DC and its nonzero ACs over what blk holds.
+inline void sequential_block(BitReader& br, const Huff& dc, const Huff& ac, int& pred, int16_t* blk) {
+  int s = br.decode(dc);
+  if (s) pred += extend(br.get(s), s);
+  blk[0] = int16_t(pred);
+  for (int k = 1; k < 64;) {
+    br.ensure();
+    int32_t f = ac.fast_ac[(br.buf >> (br.bits - kLook)) & ((1 << kLook) - 1)];
+    if (f) {
+      br.bits -= f & 15;
+      k += (f >> 4) & 15;
+      blk[kNatural[k]] = int16_t(f >> 8);
+      ++k;
+      continue;
     }
-    const int kk = K[c];
-    int16_t* out = base[c] + (long(by) * BW[c] + bx) * KK[c];
-    if (kk == 8) {
-      std::memcpy(out, blk, sizeof(int16_t) * 64);
+    int rs = br.decode(ac);
+    int r = rs >> 4;
+    s = rs & 15;
+    if (s) {
+      k += r;
+      blk[kNatural[k]] = int16_t(extend(br.get(s), s));
+      ++k;
     } else {
-      for (int r = 0; r < kk; ++r) std::memcpy(out + r * kk, blk + 8 * r, sizeof(int16_t) * kk);
+      if (r != 15) break;
+      k += 16;
     }
-  };
+  }
+}
 
+// jdphuff.c's four block decoders. Coefficients are JCOEF (int16): shifts
+// and refinements wrap as libjpeg's do.
+inline void dc_first(BitReader& br, const Huff& dc, int al, int& pred, int16_t* blk) {
+  int s = br.decode(dc);
+  if (s) pred += extend(br.get(s), s);
+  blk[0] = int16_t(uint32_t(pred) << al);
+}
+
+inline void dc_refine(BitReader& br, int al, int16_t* blk) {
+  if (br.bit()) blk[0] = int16_t(blk[0] | (1 << al));
+}
+
+inline void ac_first(BitReader& br, const Huff& ac, const Scan& sc, unsigned& eobrun, int16_t* blk) {
+  if (eobrun > 0) {
+    --eobrun;
+    return;
+  }
+  for (int k = sc.ss; k <= sc.se; ++k) {
+    int rs = br.decode(ac), r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      blk[kNatural[k]] = int16_t(uint32_t(extend(br.get(s), s)) << sc.al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      eobrun = 1u << r;
+      if (r) eobrun += unsigned(br.get(r));
+      --eobrun;
+      break;
+    }
+  }
+}
+
+// A correction bit for a coefficient already nonzero: 1 moves it one step
+// of the bit being coded away from zero (once).
+inline void correct(BitReader& br, int p1, int16_t* c) {
+  if (br.bit() && (*c & p1) == 0) *c = int16_t(*c >= 0 ? *c + p1 : *c - p1);
+}
+
+inline void ac_refine(BitReader& br, const Huff& ac, const Scan& sc, unsigned& eobrun, int16_t* blk) {
+  const int p1 = 1 << sc.al;
+  int k = sc.ss;
+  if (eobrun == 0) {
+    for (; k <= sc.se; ++k) {
+      int rs = br.decode(ac), r = rs >> 4, s = rs & 15;
+      if (s) {
+        s = br.bit() ? p1 : -p1;  // the newly nonzero coefficient's sign
+      } else if (r != 15) {
+        eobrun = 1u << r;
+        if (r) eobrun += unsigned(br.get(r));
+        break;
+      }
+      // pass the nonzero coefficients (each takes a correction bit) and r
+      // zero ones; a new coefficient lands on the next zero
+      do {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) {
+          correct(br, p1, c);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= sc.se);
+      if (s) blk[kNatural[k]] = int16_t(s);
+    }
+  }
+  if (eobrun > 0) {
+    for (; k <= sc.se; ++k) {
+      int16_t* c = blk + kNatural[k];
+      if (*c != 0) correct(br, p1, c);
+    }
+    --eobrun;
+  }
+}
+
+// Walk a scan's MCUs from h.scan_start, calling block(i, by, bx) for each
+// block (i its component's place in the scan) after each MCU's restart
+// handling (reset() drops the predictions and the EOB run). A
+// non-interleaved scan covers its component's own blocks; an interleaved
+// one the MCU grid.
+template <class Block, class Reset>
+void walk_mcus(BitReader& br, const Header& h, Block block, Reset reset) {
+  const Scan& sc = h.scan;
   int restarts_to_go = h.restart_interval;
   auto mcu_start = [&]() {
     if (h.restart_interval) {
       if (restarts_to_go == 0) {
         br.restart();
-        pred[0] = pred[1] = pred[2] = 0;
+        reset();
         restarts_to_go = h.restart_interval;
       }
       --restarts_to_go;
     }
   };
-
-  if (h.ncomp == 1) {
-    const int32_t* m = meta + COMP_BASE;
-    for (int by = 0; by < m[C_BH]; ++by)
-      for (int bx = 0; bx < m[C_BW]; ++bx) {
+  if (sc.ncomp == 1) {
+    const int c = sc.comp[0];
+    const Comp& cp = h.comp[c];
+    const int bw = ceil_div(long(h.width) * cp.h, 8L * h.max_h), bh = ceil_div(long(h.height) * cp.v, 8L * h.max_v);
+    for (int by = 0; by < bh; ++by)
+      for (int bx = 0; bx < bw; ++bx) {
         mcu_start();
         block(0, by, bx);
       }
   } else {
-    int mcux = ceil_div(h.width, 8 * h.max_h), mcuy = ceil_div(h.height, 8 * h.max_v);
+    const int mcux = ceil_div(h.width, 8 * h.max_h), mcuy = ceil_div(h.height, 8 * h.max_v);
     for (int my = 0; my < mcuy; ++my)
       for (int mx = 0; mx < mcux; ++mx) {
         mcu_start();
-        for (int i = 0; i < h.scan_ncomp; ++i) {
-          int c = h.scan_comp[i];
-          const Comp& cp = h.comp[c];
+        for (int i = 0; i < sc.ncomp; ++i) {
+          const Comp& cp = h.comp[sc.comp[i]];
           for (int v = 0; v < cp.v; ++v)
-            for (int u = 0; u < cp.h; ++u) block(c, my * cp.v + v, mx * cp.h + u);
+            for (int u = 0; u < cp.h; ++u) block(i, my * cp.v + v, mx * cp.h + u);
         }
       }
   }
+}
+
+// Entropy-decode a one-scan image into coef (meta's layout): a block kept
+// whole straight into its place, any other into a scratch block, then its
+// kept square out. Data that ends early decodes as zeros, as libjpeg does
+// after its "premature end" warning.
+void decode_scan(const uint8_t* d, size_t n, const Header& h, const int32_t* meta, int16_t* coef) {
+  BitReader br;
+  br.p = d + h.scan_start;
+  br.end = d + n;
+  Cut cut[3];
+  int BW[3], KK[3];
+  int16_t* base[3];
+  for (int c = 0; c < h.ncomp; ++c) {
+    const int32_t* m = meta + COMP_BASE + COMP_INTS * c;
+    cut[c] = Cut(m[C_S]);
+    KK[c] = m[C_K] * m[C_K];
+    BW[c] = m[C_BW];
+    base[c] = coef + m[C_OFF];
+  }
+  int pred[3] = {0, 0, 0};
+  alignas(16) int16_t blk[64];
+  walk_mcus(
+      br, h,
+      [&](int i, int by, int bx) {
+        const int c = h.scan.comp[i];
+        const Comp& cp = h.comp[c];
+        int16_t* out = base[c] + (long(by) * BW[c] + bx) * KK[c];
+        int16_t* dst = KK[c] == 64 ? out : blk;
+        std::memset(dst, 0, sizeof(blk));
+        sequential_block(br, h.dc[cp.td], h.ac[cp.ta], pred[c], dst);
+        if (dst == blk) cut_block(blk, cut[c], out);
+      },
+      [&]() { pred[0] = pred[1] = pred[2] = 0; });
+}
+
+// Walk every scan of a multi-scan image, from the one in h->scan on: given
+// full (each component's blocks_w x blocks_h blocks of 64 coefficients,
+// natural order, zeroed) each scan is decoded into it; given nullptr only
+// the markers are read. Returns KIND_BASELINE, or the Kind a later scan gives
+// the file: a progressive one whose scans leave one of a component's AC
+// coefficients 1..9 unfinished is KIND_OTHER_JPEG, as libjpeg smooths its
+// blocks (jdcoefct.c's smoothing_ok).
+int walk_scans(const uint8_t* d, size_t n, Header* h, int16_t* full) {
+  int coef_bits[3][64];
+  std::fill(&coef_bits[0][0], &coef_bits[0][0] + 3 * 64, -1);
+  int16_t* base[3] = {full, full, full};
+  int bw[3] = {0, 0, 0};
+  for (int c = 0; c < h->ncomp; ++c) {
+    bw[c] = blocks_w(*h, c);
+    if (full != nullptr && c + 1 < h->ncomp) base[c + 1] = base[c] + long(bw[c]) * blocks_h(*h, c) * 64;
+  }
+  size_t pos = h->scan_start;
+  while (true) {
+    const Scan& sc = h->scan;
+    for (int i = 0; i < sc.ncomp; ++i)
+      for (int k = sc.ss; k <= sc.se; ++k) coef_bits[sc.comp[i]][k] = sc.al;
+    if (full != nullptr) {
+      BitReader br;
+      br.p = d + h->scan_start;
+      br.end = d + n;
+      int pred[3] = {0, 0, 0};
+      unsigned eobrun = 0;
+      const Header& hh = *h;
+      walk_mcus(
+          br, hh,
+          [&](int i, int by, int bx) {
+            const int c = sc.comp[i];
+            const Comp& cp = hh.comp[c];
+            int16_t* blk = base[c] + (long(by) * bw[c] + bx) * 64;
+            if (!hh.progressive) sequential_block(br, hh.dc[cp.td], hh.ac[cp.ta], pred[c], blk);
+            else if (sc.ss == 0 && sc.ah == 0) dc_first(br, hh.dc[cp.td], sc.al, pred[c], blk);
+            else if (sc.ss == 0) dc_refine(br, sc.al, blk);
+            else if (sc.ah == 0) ac_first(br, hh.ac[cp.ta], sc, eobrun, blk);
+            else ac_refine(br, hh.ac[cp.ta], sc, eobrun, blk);
+          },
+          [&]() {
+            pred[0] = pred[1] = pred[2] = 0;
+            eobrun = 0;
+          });
+    }
+    int kind = read_markers(d, n, &pos, h);
+    if (kind == KIND_END) break;
+    if (kind == KIND_BASELINE) kind = check_scan(h);
+    if (kind != KIND_BASELINE) return kind;
+  }
+  if (h->progressive)
+    for (int c = 0; c < h->ncomp; ++c)
+      for (int k = 1; k <= 9; ++k)
+        if (coef_bits[c][k] != 0) return KIND_OTHER_JPEG;
+  return KIND_BASELINE;
 }
 
 bool read_file(const char* path, std::vector<uint8_t>* out) {
@@ -546,11 +825,35 @@ bool read_file(const char* path, std::vector<uint8_t>* out) {
   return ok;
 }
 
+// A multi-scan image's coefficients into coef (meta's layout): every scan
+// into whole blocks, then each block's kept square out.
+int decode_multi_scan(const uint8_t* d, size_t n, const int32_t* meta, int16_t* coef) {
+  Header* h = new Header();
+  int kind = parse_header(d, n, h);
+  if (kind == KIND_BASELINE) {
+    long total = 0;
+    for (int c = 0; c < h->ncomp; ++c) total += long(blocks_w(*h, c)) * blocks_h(*h, c) * 64;
+    std::vector<int16_t> full(size_t(total), 0);
+    kind = walk_scans(d, n, h, full.data());
+    const int16_t* src = full.data();
+    for (int c = 0; kind == KIND_BASELINE && c < h->ncomp; ++c) {
+      const int32_t* m = meta + COMP_BASE + COMP_INTS * c;
+      const Cut cut(m[C_S]);
+      const long blocks = long(m[C_BW]) * m[C_BH];
+      int16_t* out = coef + m[C_OFF];
+      for (long b = 0; b < blocks; ++b, src += 64, out += cut.k * cut.k) cut_block(src, cut, out);
+    }
+  }
+  delete h;
+  return kind;
+}
+
 // Probe (coef == nullptr) or decode one in-memory file. Returns the Kind,
 // or -2 if cap (int16 units) is too small for the coefficients.
 int decode_bytes(const uint8_t* d, size_t n, int scale_n, int32_t* meta, int16_t* coef, long cap) {
   Header* h = new Header();
   int kind = parse_header(d, n, h);
+  if (kind == KIND_BASELINE && h->multi_scan) kind = walk_scans(d, n, h, nullptr);
   if (kind == KIND_BASELINE && !fill_meta(*h, scale_n, meta)) kind = KIND_OTHER_JPEG;
   if (kind != KIND_BASELINE) {
     std::memset(meta, 0, sizeof(int32_t) * META_INTS);
@@ -562,6 +865,8 @@ int decode_bytes(const uint8_t* d, size_t n, int scale_n, int32_t* meta, int16_t
   } else if (coef != nullptr) {
     if (cap < meta[M_COEFS]) {
       kind = -2;
+    } else if (h->multi_scan) {
+      kind = decode_multi_scan(d, n, meta, coef);
     } else {
       decode_scan(d, n, *h, meta, coef);
     }

@@ -4,12 +4,14 @@
 ``jpeg_decode_kernel``: dequantisation + libjpeg-turbo's integer IDCT at
 each component's scaled size, fancy chroma upsampling, YCbCr->RGB, the crop
 and the tile grid, fused, into the (B, TH, TW, 3) uint8 batch, with the
-component planes kept in shared memory (never in device memory). It is not
+component planes kept in shared memory (never in device memory); one
+instantiation per scale N/8 (N = 1..8) holds that scale's IDCTs. It is not
 a port of a TPU kernel: the JAX package decodes JPEG on host threads with
 libjpeg-turbo (its tileloader.cc). The host keeps the entropy decode
 (csrc/jpeg_entropy.cc, data/native_loader.py).
 
-``jpeg_decode`` takes the descriptors of ``data.jpeg_plain.describe_batch``.
+``jpeg_decode`` takes the descriptors and the layout of
+``data.jpeg_plain.describe_batch``.
 On CUDA tensors it launches the kernel on the current stream or raises; on
 CPU tensors it runs the plain version (``decode_batch_plain``), which the
 CPU tests use and ``chip_smoke.py`` holds the kernel against. The library
@@ -23,12 +25,13 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+from typing import Optional
 
 import torch
 
 from aquaculture_tpu_torch.data.jpeg_plain import (
-    COMP_INTS, IMAGE_INTS, RING_PITCH, RING_ROWS, RING_SLACK, STRIPE_W, TILE_INTS, decode_batch_plain,
-    decode_grid)
+    COMP_INTS, IMAGE_INTS, RING_PITCH, RING_ROWS, RING_SLACK, STRIPE_W, TILE_INTS, BatchLayout,
+    decode_batch_plain, decode_grid)
 from aquaculture_tpu_torch.ops import nms_cuda
 
 SOURCE = os.path.join(nms_cuda._CSRC, "jpeg_decode.cu")
@@ -52,11 +55,11 @@ def build() -> ctypes.CDLL:
         if _lib is None:
             so = nms_cuda.compile_library(SOURCE, "libaq_jpeg_decode")
             lib = ctypes.CDLL(so)
-            lib.aq_jpeg_decode.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            lib.aq_jpeg_decode.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
             lib.aq_jpeg_decode.restype = ctypes.c_int
             lib.aq_jpeg_geometry.argtypes = [ctypes.c_void_p]
             lib.aq_jpeg_geometry.restype = None
-            lib.aq_jpeg_attributes.argtypes = [ctypes.c_void_p]
+            lib.aq_jpeg_attributes.argtypes = [ctypes.c_int, ctypes.c_void_p]
             lib.aq_jpeg_attributes.restype = ctypes.c_int
             geo, want = (ctypes.c_int * 4)(), (STRIPE_W, RING_ROWS, RING_PITCH, RING_SLACK)
             lib.aq_jpeg_geometry(geo)
@@ -66,12 +69,12 @@ def build() -> ctypes.CDLL:
         return _lib
 
 
-def attributes() -> dict:
-    """The built kernel's registers per thread, static shared memory per
+def attributes(scale: int = 8) -> dict:
+    """The scale/8 kernel's registers per thread, static shared memory per
     CTA, local (spill) bytes per thread, threads per CTA and resident CTAs
     per SM on the current card (cudaFuncGetAttributes)."""
     vals = (ctypes.c_int * len(ATTRIBUTES))()
-    err = build().aq_jpeg_attributes(vals)
+    err = build().aq_jpeg_attributes(scale, vals)
     if err != 0:
         raise RuntimeError(f"aq_jpeg_attributes failed: cudaError {err}")
     return dict(zip(ATTRIBUTES, vals))
@@ -87,11 +90,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dev: torch.device) ->
 
 
 def jpeg_decode(coef: torch.Tensor, qt: torch.Tensor, comps: torch.Tensor, images: torch.Tensor,
-                tiles: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+                tiles: torch.Tensor, out: torch.Tensor, lay: Optional[BatchLayout] = None) -> torch.Tensor:
     """Decode a batch into ``out`` (n_slots, TH, TW, 3) uint8, in place:
     coef int16 coefficients, qt int32 (64 per component), comps, images and
     tiles int32 descriptors. Each decoded slot gets its tile, zero slots
-    zeros; caller slots (TILE_CALLER) are left untouched."""
+    zeros; caller slots (TILE_CALLER) are left untouched. ``lay``, the
+    batch's ``BatchLayout``, picks the kernel of its scale and the grid's
+    band unit; CUDA tensors need it, the plain version does not."""
     global decode_launches
     dev = out.device
     _check("coef", coef, torch.int16, dev)
@@ -113,11 +118,13 @@ def jpeg_decode(coef: torch.Tensor, qt: torch.Tensor, comps: torch.Tensor, image
         return out
     if n > MAX_GRID_Y:
         raise ValueError(f"{n} slots in one batch; the kernel's grid takes {MAX_GRID_Y}")
-    _, band_rows = decode_grid(n, th, tw)
+    if lay is None:
+        raise ValueError("jpeg_decode on CUDA tensors needs the batch's BatchLayout (describe_batch)")
+    _, band_rows = decode_grid(n, th, tw, lay)
     lib = build()
     with torch.cuda.device(dev):
         err = lib.aq_jpeg_decode(coef.data_ptr(), qt.data_ptr(), comps.data_ptr(), images.data_ptr(),
-                                 tiles.data_ptr(), n, th, tw, band_rows, out.data_ptr(),
+                                 tiles.data_ptr(), n, th, tw, band_rows, lay.scale, out.data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"aq_jpeg_decode launch failed: cudaError {err}")

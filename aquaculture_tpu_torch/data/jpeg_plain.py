@@ -10,13 +10,18 @@ PIL's and the JAX package's libjpeg-turbo decodes byte for byte, and
 chip_smoke.py holds the kernel against it with ``torch.equal``.
 
 The arithmetic is libjpeg-turbo's, reproduced exactly, not approximated:
-- ``jpeg_idct_islow`` for 8x8 (CONST_BITS 13, PASS1_BITS 2), and the
-  scaled ``jpeg_idct_5x5`` and ``jpeg_idct_10x10`` of jidctint.c for 5/8
-  (4:2:0 chroma at 5/8 takes the 10x10, so it needs no upsampling), each
-  ending in libjpeg's range-limit table (the descaled value's low 10 bits,
-  read as signed, plus 128, clamped to 0..255);
+- the IDCT that jddctmgr.c picks for each component's scaled size S:
+  ``jpeg_idct_islow`` for 8x8 (CONST_BITS 13, PASS1_BITS 2), jidctred.c's
+  ``jpeg_idct_1x1``, ``jpeg_idct_2x2`` and ``jpeg_idct_4x4`` (which read
+  indices 0, 1, 3, 5, 7 and 0-3, 5-7 of the 8 x 8 coefficients), and
+  jidctint.c's ``jpeg_idct_3x3`` .. ``jpeg_idct_7x7`` (N x N coefficients)
+  and ``jpeg_idct_10x10``, ``12x12``, ``14x14`` (8 x 8 in, 4:2:0 chroma at
+  5/8, 6/8 and 7/8, so that it needs no upsampling), each ending in
+  libjpeg's range-limit table (the descaled value's low 10 bits, read as
+  signed, plus 128, clamped to 0..255);
 - jdsample.c's "fancy" (triangle-filter) h2v1, h1v2 and h2v2 upsampling,
-  with its edge replication, and the box upsampling it falls back to;
+  with its edge replication, and the box upsampling it falls back to
+  (always at 1/8);
 - jdcolor.c's 16-bit fixed-point YCbCr->RGB tables with ONE_HALF rounding.
 The kernel runs them fused, stripe by stripe (``stripe_blocks`` gives the
 blocks one of its CTAs reads); ``decode_batch_plain`` is its plain version,
@@ -31,6 +36,7 @@ of that range can tell apart.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -66,7 +72,7 @@ class Component:
     h: int          # sampling factors
     v: int
     size: int       # scaled IDCT size S: each block gives S x S samples
-    kept: int       # K: coefficients kept per block side (min(8, S))
+    kept: int       # K: coefficients kept per block side (``kept(S)``)
     blocks_w: int
     blocks_h: int
     offset: int     # into the image's coefficients, in int16 values
@@ -173,12 +179,72 @@ def _descale(x: torch.Tensor, n: int) -> torch.Tensor:
     return (x + (1 << (n - 1))) >> n
 
 
-def _idct5_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
-    """One 5-point pass of jpeg_idct_5x5, shifted (pass 1) or not."""
+# Each 1-D pass below takes its inputs z[0..] (coefficients, or the
+# workspace) and returns its outputs: pass 1's workspace values, or pass
+# 2's samples before the range limit (``second``).
+OUT_SHIFT = CONST_BITS + PASS1_BITS + 3   # jidctint.c's last shift, its rounding added up front
+FUDGE = 1 << (CONST_BITS - PASS1_BITS - 1)
+
+
+def _islow_pass(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    n = OUT_SHIFT if second else CONST_BITS - PASS1_BITS
+    return [_descale(o, n) for o in _islow_1d(z)]
+
+
+def _dc_term(z0: torch.Tensor, second: bool) -> torch.Tensor:
+    """jidctint.c's even-part start: the DC scaled up, with the rounding of
+    the pass's final shift (pass 2 adds it before the scaling)."""
     if second:
-        tmp12 = (z[0] + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
-    else:
-        tmp12 = z[0] * (1 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1))
+        return (z0 + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
+    return z0 * (1 << CONST_BITS) + FUDGE
+
+
+def _shifted(out: List[torch.Tensor], second: bool, keep=()) -> List[torch.Tensor]:
+    """The pass's final shift (pass 1: CONST_BITS - PASS1_BITS, but the
+    outputs in ``keep``, already at pass-1 scale; pass 2: OUT_SHIFT)."""
+    if second:
+        return [o >> OUT_SHIFT for o in out]
+    return [o if i in keep else o >> (CONST_BITS - PASS1_BITS) for i, o in enumerate(out)]
+
+
+def _red1(d: torch.Tensor) -> torch.Tensor:
+    """jpeg_idct_1x1: the DC, descaled by 3."""
+    return range_limit(_descale(d[:, :1, :1], 3))
+
+
+def _red2_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctred.c's jpeg_idct_2x2 (reads indices 0, 1, 3, 5, 7)."""
+    tmp10 = z[0] * (1 << (CONST_BITS + 2))
+    tmp0 = z[7] * -_fix(0.720959822) + z[5] * _fix(0.850430095) + z[3] * -_fix(1.272758580) \
+        + z[1] * _fix(3.624509785)
+    n = CONST_BITS + PASS1_BITS + 3 + 2 if second else CONST_BITS - PASS1_BITS + 2
+    return [_descale(tmp10 + tmp0, n), _descale(tmp10 - tmp0, n)]
+
+
+def _red4_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctred.c's jpeg_idct_4x4 (reads indices 0-3, 5-7)."""
+    tmp0 = z[0] * (1 << (CONST_BITS + 1))
+    tmp2 = z[2] * F_1_847759065 + z[6] * -F_0_765366865
+    tmp10, tmp12 = tmp0 + tmp2, tmp0 - tmp2
+    z1, z2, z3, z4 = z[7], z[5], z[3], z[1]
+    tmp0 = z1 * -_fix(0.211164243) + z2 * _fix(1.451774981) + z3 * -_fix(2.172734803) + z4 * _fix(1.061594337)
+    tmp2 = z1 * -_fix(0.509795579) + z2 * -_fix(0.601344887) + z3 * F_0_899976223 + z4 * F_2_562915447
+    n = CONST_BITS + PASS1_BITS + 3 + 1 if second else CONST_BITS - PASS1_BITS + 1
+    return [_descale(o, n) for o in (tmp10 + tmp2, tmp12 + tmp0, tmp12 - tmp0, tmp10 - tmp2)]
+
+
+def _idct3_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctint.c's jpeg_idct_3x3."""
+    tmp0 = _dc_term(z[0], second)
+    tmp12 = z[2] * _fix(0.707106781)
+    tmp10, tmp2 = tmp0 + tmp12, tmp0 - tmp12 - tmp12
+    tmp0 = z[1] * _fix(1.224744871)
+    return _shifted([tmp10 + tmp0, tmp2, tmp10 - tmp0], second)
+
+
+def _idct5_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctint.c's jpeg_idct_5x5."""
+    tmp12 = _dc_term(z[0], second)
     tmp0, tmp1 = z[2], z[4]
     z1 = (tmp0 + tmp1) * _fix(0.790569415)
     z2 = (tmp0 - tmp1) * _fix(0.353553391)
@@ -189,19 +255,58 @@ def _idct5_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
     z1 = (z2 + z3) * _fix(0.831253876)
     tmp0 = z1 + z2 * _fix(0.513743148)
     tmp1 = z1 - z3 * _fix(2.176250899)
-    out = [tmp10 + tmp0, tmp11 + tmp1, tmp12, tmp11 - tmp1, tmp10 - tmp0]
-    if second:
-        return out
-    return [o >> (CONST_BITS - PASS1_BITS) for o in out]
+    return _shifted([tmp10 + tmp0, tmp11 + tmp1, tmp12, tmp11 - tmp1, tmp10 - tmp0], second)
+
+
+def _idct6_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctint.c's jpeg_idct_6x6."""
+    tmp0 = _dc_term(z[0], second)
+    tmp10 = z[4] * _fix(0.707106781)
+    tmp1 = tmp0 + tmp10
+    tmp11 = tmp0 - tmp10 - tmp10
+    if not second:
+        tmp11 = tmp11 >> (CONST_BITS - PASS1_BITS)
+    tmp0 = z[2] * _fix(1.224744871)
+    tmp10, tmp12 = tmp1 + tmp0, tmp1 - tmp0
+    z1, z2, z3 = z[1], z[3], z[5]
+    tmp1 = (z1 + z3) * _fix(0.366025404)
+    tmp0 = tmp1 + (z1 + z2) * (1 << CONST_BITS)
+    tmp2 = tmp1 + (z3 - z2) * (1 << CONST_BITS)
+    tmp1 = (z1 - z2 - z3) * (1 << (CONST_BITS if second else PASS1_BITS))
+    return _shifted([tmp10 + tmp0, tmp11 + tmp1, tmp12 + tmp2, tmp12 - tmp2, tmp11 - tmp1, tmp10 - tmp0],
+                    second, keep=(1, 4))
+
+
+def _idct7_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctint.c's jpeg_idct_7x7."""
+    tmp13 = _dc_term(z[0], second)
+    z1, z2, z3 = z[2], z[4], z[6]
+    tmp10 = (z2 - z3) * _fix(0.881747734)
+    tmp12 = (z1 - z2) * _fix(0.314692123)
+    tmp11 = tmp10 + tmp12 + tmp13 - z2 * _fix(1.841218003)
+    tmp0 = z1 + z3
+    z2 = z2 - tmp0
+    tmp0 = tmp0 * _fix(1.274162392) + tmp13
+    tmp10 = tmp10 + tmp0 - z3 * _fix(0.077722536)
+    tmp12 = tmp12 + tmp0 - z1 * _fix(2.470602249)
+    tmp13 = tmp13 + z2 * _fix(1.414213562)
+    z1, z2, z3 = z[1], z[3], z[5]
+    tmp1 = (z1 + z2) * _fix(0.935414347)
+    tmp2 = (z1 - z2) * _fix(0.170262339)
+    tmp0 = tmp1 - tmp2
+    tmp1 = tmp1 + tmp2
+    tmp2 = (z2 + z3) * -_fix(1.378756276)
+    tmp1 = tmp1 + tmp2
+    z2 = (z1 + z3) * _fix(0.613604268)
+    tmp0 = tmp0 + z2
+    tmp2 = tmp2 + z2 + z3 * _fix(1.870828693)
+    return _shifted([tmp10 + tmp0, tmp11 + tmp1, tmp12 + tmp2, tmp13, tmp12 - tmp2, tmp11 - tmp1,
+                     tmp10 - tmp0], second)
 
 
 def _idct10_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
-    """One 10-point pass of jpeg_idct_10x10 (8 inputs), shifted (pass 1)
-    or not."""
-    if second:
-        z3 = (z[0] + (1 << (PASS1_BITS + 2))) * (1 << CONST_BITS)
-    else:
-        z3 = z[0] * (1 << CONST_BITS) + (1 << (CONST_BITS - PASS1_BITS - 1))
+    """One pass of jidctint.c's jpeg_idct_10x10 (8 inputs)."""
+    z3 = _dc_term(z[0], second)
     z4 = z[4]
     z1 = z4 * _fix(1.144122806)
     z2 = z4 * _fix(0.437016024)
@@ -232,37 +337,144 @@ def _idct10_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
         tmp12 = (z1 - tmp13 - z3) * (1 << PASS1_BITS)
     tmp11 = z1 * _fix(1.260073511) - z2 - z4
     tmp13 = z1 * _fix(0.642039522) - z2 + z4
-    out = [tmp20 + tmp10, tmp21 + tmp11, tmp22 + tmp12, tmp23 + tmp13, tmp24 + tmp14,
-           tmp24 - tmp14, tmp23 - tmp13, tmp22 - tmp12, tmp21 - tmp11, tmp20 - tmp10]
-    if second:
-        return out
-    s = CONST_BITS - PASS1_BITS
-    return [o if i in (2, 7) else o >> s for i, o in enumerate(out)]
+    return _shifted([tmp20 + tmp10, tmp21 + tmp11, tmp22 + tmp12, tmp23 + tmp13, tmp24 + tmp14,
+                     tmp24 - tmp14, tmp23 - tmp13, tmp22 - tmp12, tmp21 - tmp11, tmp20 - tmp10],
+                    second, keep=(2, 7))
+
+
+def _idct12_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctint.c's jpeg_idct_12x12 (8 inputs)."""
+    z3 = _dc_term(z[0], second)
+    z4 = z[4] * _fix(1.224744871)
+    tmp10, tmp11 = z3 + z4, z3 - z4
+    z1 = z[2]
+    z4 = z1 * _fix(1.366025404)
+    z1 = z1 * (1 << CONST_BITS)
+    z2 = z[6] * (1 << CONST_BITS)
+    tmp12 = z1 - z2
+    tmp21, tmp24 = z3 + tmp12, z3 - tmp12
+    tmp12 = z4 + z2
+    tmp20, tmp25 = tmp10 + tmp12, tmp10 - tmp12
+    tmp12 = z4 - z1 - z2
+    tmp22, tmp23 = tmp11 + tmp12, tmp11 - tmp12
+
+    z1, z2, z3, z4 = z[1], z[3], z[5], z[7]
+    tmp11 = z2 * _fix(1.306562965)
+    tmp14 = z2 * -F_0_541196100
+    tmp10 = z1 + z3
+    tmp15 = (tmp10 + z4) * _fix(0.860918669)
+    tmp12 = tmp15 + tmp10 * _fix(0.261052384)
+    tmp10 = tmp12 + tmp11 + z1 * _fix(0.280143716)
+    tmp13 = (z3 + z4) * -_fix(1.045510580)
+    tmp12 = tmp12 + tmp13 + tmp14 - z3 * _fix(1.478575242)
+    tmp13 = tmp13 + tmp15 - tmp11 + z4 * _fix(1.586706681)
+    tmp15 = tmp15 + tmp14 - z1 * _fix(0.676326758) - z4 * _fix(1.982889723)
+    z1 = z1 - z4
+    z2 = z2 - z3
+    z3 = (z1 + z2) * F_0_541196100
+    tmp11 = z3 + z1 * F_0_765366865
+    tmp14 = z3 - z2 * F_1_847759065
+    return _shifted([tmp20 + tmp10, tmp21 + tmp11, tmp22 + tmp12, tmp23 + tmp13, tmp24 + tmp14,
+                     tmp25 + tmp15, tmp25 - tmp15, tmp24 - tmp14, tmp23 - tmp13, tmp22 - tmp12,
+                     tmp21 - tmp11, tmp20 - tmp10], second)
+
+
+def _idct14_1d(z: List[torch.Tensor], second: bool) -> List[torch.Tensor]:
+    """One pass of jidctint.c's jpeg_idct_14x14 (8 inputs)."""
+    z1 = _dc_term(z[0], second)
+    z4 = z[4]
+    z2 = z4 * _fix(1.274162392)
+    z3 = z4 * _fix(0.314692123)
+    z4 = z4 * _fix(0.881747734)
+    tmp10, tmp11, tmp12 = z1 + z2, z1 + z3, z1 - z4
+    tmp23 = z1 - (z2 + z3 - z4) * 2
+    if not second:
+        tmp23 = tmp23 >> (CONST_BITS - PASS1_BITS)
+    z1, z2 = z[2], z[6]
+    z3 = (z1 + z2) * _fix(1.105676686)
+    tmp13 = z3 + z1 * _fix(0.273079590)
+    tmp14 = z3 - z2 * _fix(1.719280954)
+    tmp15 = z1 * _fix(0.613604268) - z2 * _fix(1.378756276)
+    tmp20, tmp26 = tmp10 + tmp13, tmp10 - tmp13
+    tmp21, tmp25 = tmp11 + tmp14, tmp11 - tmp14
+    tmp22, tmp24 = tmp12 + tmp15, tmp12 - tmp15
+
+    z1, z2, z3 = z[1], z[3], z[5]
+    w4 = z[7] * (1 << CONST_BITS)
+    tmp14 = z1 + z3
+    tmp11 = (z1 + z2) * _fix(1.334852607)
+    tmp12 = tmp14 * _fix(1.197448846)
+    tmp10 = tmp11 + tmp12 + w4 - z1 * _fix(1.126980169)
+    tmp14 = tmp14 * _fix(0.752406978)
+    tmp16 = tmp14 - z1 * _fix(1.061150426)
+    z1 = z1 - z2
+    tmp15 = z1 * _fix(0.467085129) - w4
+    tmp16 = tmp16 + tmp15
+    t = (z2 + z3) * -_fix(0.158341681) - w4
+    tmp11 = tmp11 + t - z2 * _fix(0.424103948)
+    tmp12 = tmp12 + t - z3 * _fix(2.373959773)
+    t = (z3 - z2) * _fix(1.405321284)
+    tmp14 = tmp14 + t + w4 - z3 * _fix(1.6906431334)
+    tmp15 = tmp15 + t + z2 * _fix(0.674957567)
+    s = CONST_BITS if second else PASS1_BITS
+    tmp13 = (z1 - z3) * (1 << s) + z[7] * (1 << s)
+    return _shifted([tmp20 + tmp10, tmp21 + tmp11, tmp22 + tmp12, tmp23 + tmp13, tmp24 + tmp14,
+                     tmp25 + tmp15, tmp26 + tmp16, tmp26 - tmp16, tmp25 - tmp15, tmp24 - tmp14,
+                     tmp23 - tmp13, tmp22 - tmp12, tmp21 - tmp11, tmp20 - tmp10], second, keep=(3, 10))
+
+
+# the 1-D pass of each scaled IDCT size (1x1 has none: ``_red1``)
+IDCT_PASSES = {2: _red2_1d, 3: _idct3_1d, 4: _red4_1d, 5: _idct5_1d, 6: _idct6_1d, 7: _idct7_1d,
+               8: _islow_pass, 10: _idct10_1d, 12: _idct12_1d, 14: _idct14_1d}
+
+
+def kept_index(size: int) -> Tuple[int, ...]:
+    """The coefficient indices of each axis that the IDCT of ``size``
+    reads, in order: the block's kept K x K square (``kept``) holds these
+    rows and columns. jidctred.c's 2x2 reads 0, 1, 3, 5, 7 and its 4x4
+    0-3 and 5-7; the others read 0 .. min(size, 8) - 1 (the 1x1 the DC)."""
+    if size == 2:
+        return (0, 1, 3, 5, 7)
+    if size == 4:
+        return (0, 1, 2, 3, 5, 6, 7)
+    return tuple(range(min(size, 8)))
+
+
+def kept(size: int) -> int:
+    """K: the coefficients a side that the IDCT of ``size`` reads (and the
+    entropy decoder keeps, ``kept_index``)."""
+    return len(kept_index(size))
+
+
+def _spread(z: List[torch.Tensor], index: Tuple[int, ...]) -> List[torch.Tensor]:
+    """A pass's inputs by coefficient index from the kept square's (the
+    indices the IDCT does not read stay None)."""
+    out = [None] * (index[-1] + 1)
+    for i, v in zip(index, z):
+        out[i] = v
+    return out
 
 
 def idct_plain(coeffs: torch.Tensor, qtable: torch.Tensor, size: int) -> torch.Tensor:
     """Dequantise and inverse-DCT blocks: coeffs (N, K, K) quantised
-    coefficients (K = min(8, size)), qtable (8, 8) or (N, 8, 8) in natural
-    order -> (N, size, size) int32 samples in 0..255. size 8 is
-    jpeg_idct_islow, 5 and 10 the scaled IDCTs of libjpeg-turbo."""
-    k = min(size, 8)
+    coefficients, the kept square (``kept_index(size)`` of each axis),
+    qtable (8, 8) or (N, 8, 8) in natural order -> (N, size, size) int32
+    samples in 0..255, by the IDCT that libjpeg-turbo runs at that size."""
+    if size != 1 and size not in IDCT_PASSES:
+        raise ValueError(f"libjpeg has no scaled IDCT of size {size} (sizes {IDCT_SIZES})")
+    index = kept_index(size)
+    k = len(index)
     if coeffs.shape[-2:] != (k, k):
         raise ValueError(f"size {size} takes {k} x {k} coefficients; got {tuple(coeffs.shape)}")
-    q = qtable.to(torch.int32)[..., :k, :k]
+    idx = torch.tensor(index)
+    q = qtable.to(torch.int32)[..., idx, :][..., idx]
     d = coeffs.to(torch.int32) * q
-    if size == 8:
-        # pass 1 over columns: rows of d are the 1-D inputs
-        ws = torch.stack([_descale(o, CONST_BITS - PASS1_BITS) for o in _islow_1d(list(d.unbind(1)))], 1)
-        out = [range_limit(_descale(o, CONST_BITS + PASS1_BITS + 3)) for o in _islow_1d(list(ws.unbind(2)))]
-    elif size == 5:
-        ws = torch.stack(_idct5_1d(list(d.unbind(1)), False), 1)
-        out = [range_limit(o >> (CONST_BITS + PASS1_BITS + 3)) for o in _idct5_1d(list(ws.unbind(2)), True)]
-    elif size == 10:
-        ws = torch.stack(_idct10_1d(list(d.unbind(1)), False), 1)
-        out = [range_limit(o >> (CONST_BITS + PASS1_BITS + 3)) for o in _idct10_1d(list(ws.unbind(2)), True)]
-    else:
-        raise ValueError(f"no IDCT of size {size} in the port: 8/8 and 5/8 only (ROADMAP.md)")
-    return torch.stack(out, 2)
+    if size == 1:
+        return _red1(d)
+    one_d = IDCT_PASSES[size]
+    # pass 1 over columns (rows of d are the 1-D inputs), pass 2 over rows
+    ws = torch.stack(one_d(_spread(list(d.unbind(1)), index), False), 1)
+    return torch.stack([range_limit(o) for o in one_d(_spread(list(ws.unbind(2)), index), True)], 2)
 
 
 # ---------------------------------------------------------------- upsampling
@@ -346,7 +558,7 @@ def ycc_to_rgb_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> tor
 #          image, x and y origin in decoded pixels
 COMP_INTS, IMAGE_INTS, TILE_INTS = 8, 20, 4
 TILE_ZERO, TILE_DECODED, TILE_CALLER = 0, 1, 2
-IDCT_SIZES = (8, 5, 10)
+IDCT_SIZES = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14)  # libjpeg's scaled sizes at N/8, N = 1..8
 _INT32_MAX = 2**31 - 1
 
 
@@ -358,6 +570,8 @@ class BatchLayout:
     n_images: int
     n_slots: int
     plane_bytes: int   # the plain IDCT's output: every component's plane
+    band_unit: int     # the least common multiple of the images' MCU heights (``decode_grid``)
+    scale: int = 8     # the N/8 the batch's images decode at (the kernel is built per scale)
 
 
 def describe_batch(metas: Sequence[np.ndarray], coef_offsets: Sequence[int],
@@ -365,19 +579,22 @@ def describe_batch(metas: Sequence[np.ndarray], coef_offsets: Sequence[int],
     """Pack the descriptors of a batch into one int32 array [qt | comps |
     images | tiles]: ``metas`` the images' metadata, ``coef_offsets`` where
     each image's coefficients start in the batch's int16 buffer, ``tiles``
-    one (kind, image, x, y) per slot."""
+    one (kind, image, x, y) per slot. The images share one scale."""
+    scales = sorted({int(m[M_SCALE]) for m in metas})
+    if len(scales) > 1:
+        raise ValueError(f"a batch decodes at one scale; its images are at {scales} (N/8)")
     n_comps = sum(int(m[M_NCOMP]) for m in metas)
     qt = np.zeros((n_comps, 64), np.int64)
     comps = np.zeros((n_comps, COMP_INTS), np.int64)
     images = np.zeros((len(metas), IMAGE_INTS), np.int64)
     ci = plane_off = 0
+    band_unit = 1
     for i, (m, off) in enumerate(zip(metas, coef_offsets)):
         cs = components_of(m)
         images[i, :5] = (len(cs), ci, m[M_OUT_W], m[M_OUT_H], m[M_COLOR])
         for c, comp in enumerate(cs):
             if comp.size not in IDCT_SIZES:
-                raise ValueError(f"no {comp.size}x{comp.size} IDCT in the port: it decodes at "
-                                 "8/8 and 5/8 only (ROADMAP.md, section 1)")
+                raise ValueError(f"libjpeg has no {comp.size}x{comp.size} IDCT (scale {m[M_SCALE]}/8)")
             mode, hf, vf = upsample_mode(comp, m)
             images[i, 5 + 5 * c:10 + 5 * c] = (mode, hf, vf, comp.width, comp.height)
             pw = comp.blocks_w * comp.size
@@ -387,11 +604,13 @@ def describe_batch(metas: Sequence[np.ndarray], coef_offsets: Sequence[int],
             plane_off += comp.blocks_h * comp.size * pw
             ci += 1
         _check_ring(comps[images[i, 1]:ci, 5].tolist(), images[i].tolist())
+        band_unit = math.lcm(band_unit, mcu_rows(comps[images[i, 1]:ci, 5].tolist(), images[i].tolist()))
     t = np.asarray(tiles, np.int64).reshape(-1, TILE_INTS)
     packed = np.concatenate([qt.ravel(), comps.ravel(), images.ravel(), t.ravel()])
     if plane_off > _INT32_MAX or (n_comps and comps[:, 0].max() > _INT32_MAX):
         raise ValueError("a batch's coefficients or planes pass 2**31: use a smaller batch")
-    return packed.astype(np.int32), BatchLayout(n_comps, len(metas), len(t), plane_off)
+    return packed.astype(np.int32), BatchLayout(n_comps, len(metas), len(t), plane_off, band_unit,
+                                                (scales or [8])[0])
 
 
 def unpack_batch(packed: torch.Tensor, lay: BatchLayout):
@@ -416,14 +635,17 @@ def unpack_batch(packed: torch.Tensor, lay: BatchLayout):
 # colour-converts the step's pixels out of the ring.
 STRIPE_W = 128        # output pixels across one CTA
 STEP_ROWS = 64        # output rows per step: as many whole MCU rows as fit
-RING_ROWS = 64        # sample rows of one component's ring (at most 64 at 8/8, 60 at 5/8)
-RING_PITCH = 176      # bytes per ring row (a multiple of 16): the widest stripe needs 140
-                      # (10x10 at 5/8), up to 15 of pad to put its runs on 16-byte
-                      # boundaries and RING_SLACK past them
-RING_SLACK = 8        # bytes the 2x upsampler's word reads may pass a row's last sample
-BAND_ROWS = 80        # a band's rows are a multiple of this (MCU heights 8, 10, 16)
+RING_ROWS = 64        # sample rows of one component's ring (at most 64 at 8/8, 60 at 5/8 and 6/8)
+RING_PITCH = 176      # bytes per ring row (a multiple of 16; 44 words, so that a block's 8
+                      # rows of stores fall on distinct banks): the widest stripe needs 154
+                      # (11 blocks of 14x14 chroma at 7/8) and up to 15 of pad to put its
+                      # runs on 16-byte boundaries, a 2x upsampler's RING_SLACK past them
+RING_SLACK = 8        # bytes a 2x horizontal upsampler's word reads may pass a row's last
+                      # sample (the other modes read no byte past it)
 MIN_CTAS = 4096       # split tiles into bands until the grid has this many CTAs:
                       # about eight waves of 4 resident CTAs on an H100's 132 SMs
+BAND_ROWS = 80        # the bands' step at BAND_ROWS_SCALES, where every MCU height divides
+BAND_ROWS_SCALES = (8, 5)  # it (1024 px tiles at 8/8: 320-row bands, faster than 256: PERF.md §6)
 
 
 def _fancy(mode: int) -> Tuple[bool, bool]:
@@ -452,6 +674,13 @@ def _ring_row_bytes(fancy: bool, factor: int, s: int) -> int:
     return (-(-(samples - 1) // s) + 1) * s + 15
 
 
+def mcu_rows(sizes: Sequence[int], image: Sequence[int]) -> int:
+    """An image's MCU height in output rows: its tallest component's block
+    rows (IDCT size x vertical upsampling), e.g. 16 for 4:2:0 at 8/8, 14
+    at 7/8, N for 4:4:4 at N/8."""
+    return max(s * image[7 + 5 * c] for c, s in enumerate(sizes))
+
+
 def _check_ring(sizes: Sequence[int], image: Sequence[int]) -> None:
     """Each component's rolling window (a step's block rows, and the rows
     above and below for a vertical upsampler) fits the kernel's ring, every
@@ -459,7 +688,7 @@ def _check_ring(sizes: Sequence[int], image: Sequence[int]) -> None:
     stripe at any origin fits a ring row: the kernel traps on a CTA past
     any of these (csrc/jpeg_decode.cu), so the batch is refused here."""
     rows = [s * image[7 + 5 * c] for c, s in enumerate(sizes)]   # output rows per block row
-    mcu = max(rows)
+    mcu = mcu_rows(sizes, image)
     step = max(STEP_ROWS // mcu, 1) * mcu
     for c, (s, r) in enumerate(zip(sizes, rows)):
         mode, hf = image[5 + 5 * c:7 + 5 * c]
@@ -469,18 +698,24 @@ def _check_ring(sizes: Sequence[int], image: Sequence[int]) -> None:
             raise ValueError(f"component {c}: {window} block rows of {s} samples per step; "
                              f"the kernel's ring holds {RING_ROWS} rows")
         width = _ring_row_bytes(fancy_h, hf, s)
-        if width > RING_PITCH - RING_SLACK:
+        room = RING_PITCH - (RING_SLACK if fancy_h else 0)
+        if width > room:
             raise ValueError(f"component {c}: a stripe's samples take up to {width} bytes of a ring row; "
-                             f"the kernel's rows hold {RING_PITCH - RING_SLACK}")
+                             f"the kernel's rows hold {room}")
 
 
-def decode_grid(n_slots: int, th: int, tw: int) -> Tuple[int, int]:
-    """(stripes, band rows) of the kernel's grid over (n_slots, th, tw, 3):
-    one CTA per stripe of STRIPE_W columns, slot and band; tiles split into
-    bands of a multiple of BAND_ROWS rows until there are MIN_CTAS CTAs."""
+def decode_grid(n_slots: int, th: int, tw: int, lay: BatchLayout) -> Tuple[int, int]:
+    """(stripes, band rows) of the kernel's grid over (n_slots, th, tw, 3)
+    for a batch of layout ``lay``: one CTA per stripe of STRIPE_W columns,
+    slot and band; tiles split into bands until there are MIN_CTAS CTAs,
+    each band a multiple of BAND_ROWS rows at BAND_ROWS_SCALES, else of the
+    batch's MCU height (``BatchLayout.band_unit``): bands then start on
+    whole MCU rows, no block row decoded twice. Any band is exact; the
+    unit saves work."""
+    step = BAND_ROWS if lay.scale in BAND_ROWS_SCALES else lay.band_unit
     stripes = -(-tw // STRIPE_W)
-    bands = min(-(-MIN_CTAS // max(n_slots * stripes, 1)), -(-th // BAND_ROWS))
-    band_rows = -(-(-(-th // max(bands, 1))) // BAND_ROWS) * BAND_ROWS
+    bands = min(-(-MIN_CTAS // max(n_slots * stripes, 1)), -(-th // step))
+    band_rows = -(-(-(-th // max(bands, 1))) // step) * step
     return stripes, band_rows
 
 

@@ -6,9 +6,11 @@ the C++ tileloader.cc beside it, split another way. The JAX package decodes whol
 JPEGs on a C++ thread pool with libjpeg-turbo; the port's hosts have no
 libjpeg, and on a card the parallel half belongs on the card:
 - ``csrc/jpeg_entropy.cc`` (g++, ctypes) parses the markers and
-  Huffman-decodes each baseline JPEG on a thread pool into de-zigzagged,
-  still-quantised int16 coefficients (at 5/8 only each block's kept
-  coefficients), ahead of the consumer and handed out in path order;
+  Huffman-decodes each JPEG (baseline or extended sequential, in one scan
+  or several, and progressive) on a thread pool into de-zigzagged,
+  still-quantised int16 coefficients (at scale only the coefficients each
+  block's scaled IDCT reads), ahead of the consumer and handed out in path
+  order;
 - the coefficients go into a pinned staging slot, are copied to the card
   ``non_blocking``, and ``data/jpeg_cuda.py``'s fused kernel dequantises,
   inverse-transforms, upsamples, colour-converts and slices the tile grid
@@ -16,25 +18,26 @@ libjpeg, and on a card the parallel half belongs on the card:
   event: a slot is refilled only after its copy has finished;
 - on ``device="cpu"`` the same coefficients go through the plain version
   (``data/jpeg_plain.py``).
-The pixels are libjpeg-turbo's, byte for byte, at 8/8 and at 5/8 (the
-decode-at-scale of ``detect_files(decode_scale=True)``: the DCT-domain
-scaled IDCT, not a resize).
+The pixels are libjpeg-turbo's, byte for byte, at every N/8 from 1/8 to
+8/8 (the decode-at-scale of ``detect_files(decode_scale=True)``: the
+DCT-domain scaled IDCT, not a resize), as the JAX package's native loader
+gives them.
 
-Files are routed by content, from their header, never by catching an
-error: baseline JPEG goes to the card; TIFF and the JPEG processes the
-entropy decoder does not speak (progressive, lossless, arithmetic, 12-bit,
-CMYK, multi-scan, RGB-coded) decode on a host thread pool through PIL
-(``data/geotiff.read_image``; at scale through the Python loader's PIL
-resize, as the JAX module routes non-JPEG files); a file that is neither,
-or whose header does not parse, is skipped. ``counts`` says how many files
-took each route: "device", "pil", "pil_resize", "skipped".
+Files are routed by content, from their markers, never by catching an
+error: the JPEG processes above go to the card; TIFF and the JPEG
+processes the entropy decoder does not speak (lossless, arithmetic,
+12-bit, CMYK, RGB-coded, and a progressive file whose scans leave
+coefficients unfinished, which libjpeg smooths) decode on a host thread
+pool through PIL (``data/geotiff.read_image``; at scale through the Python
+loader's PIL resize, as the JAX module routes non-JPEG files); a file that
+is neither, or whose markers do not parse, is skipped. ``counts`` says how
+many files took each route: "device", "pil", "pil_resize", "skipped".
 
 Tile order is deterministic: files in path order, each raster's tiles
 x-major (the JAX native loader's order varies from run to run). The grid is
 tileloader.cc's: a side no longer than a tile gives one zero-padded tile.
 
-Scales: 8/8 and 5/8. Other N/8 scales raise a ValueError (ROADMAP.md);
-``pipeline.detect_files`` then takes the Python loader.
+Scales: every N/8, N = 1..8 (``SCALES``), as libjpeg's scale_num / 8.
 """
 
 from __future__ import annotations
@@ -55,13 +58,13 @@ from aquaculture_tpu_torch.data.geotiff import read_image
 from aquaculture_tpu_torch.data.jpeg_plain import (
     KIND_BASELINE, KIND_OTHER_JPEG, KIND_TIFF, KIND_UNREADABLE, M_COEFS, M_HEIGHT, M_KIND,
     M_OUT_H, M_OUT_W, M_WIDTH, META_INTS, TILE_CALLER, TILE_DECODED, TILE_ZERO,
-    EntropyImage, describe_batch, reconstruct_plain, tile_grid, unpack_batch)
+    EntropyImage, describe_batch, kept, reconstruct_plain, tile_grid, unpack_batch)
 from aquaculture_tpu_torch.data.loader import TileBatch, _emit_tiles, resize_to_scale
 from aquaculture_tpu_torch.geo import native_boolean
 
 SOURCE = os.path.join(native_boolean._CSRC, "jpeg_entropy.cc")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread")
-SCALES = (8, 5)  # the N/8 scales the kernel decodes at
+SCALES = tuple(range(1, 9))  # the N of the N/8 scales the kernel decodes at
 ROUTES = ("device", "pil", "pil_resize", "skipped")
 
 _lib = None
@@ -106,25 +109,13 @@ def supports_scaled() -> bool:
 
 def check_scale(out_tile: int, tile: int = IM_WIDTH) -> int:
     """The N of an N/8 decode that gives ``out_tile`` px tiles from
-    ``tile`` px ones (8 for out_tile 0); raises ValueError for anything but
-    8/8 and 5/8."""
+    ``tile`` px ones (8 for out_tile 0); raises ValueError unless out_tile
+    is a proper N/8 fraction of tile."""
     if not out_tile:
         return 8
     if out_tile >= tile or (8 * out_tile) % tile != 0:
         raise ValueError(f"out_tile must be a proper N/8 fraction of tile; got {out_tile}/{tile}")
-    n = 8 * out_tile // tile
-    if n not in SCALES:
-        raise ValueError(f"the device loader decodes at 8/8 and 5/8; {n}/8 is still to port "
-                         "(ROADMAP.md, section 1)")
-    return n
-
-
-def supports_scale(out_tile: int, tile: int = IM_WIDTH) -> bool:
-    try:
-        check_scale(out_tile, tile)
-    except ValueError:
-        return False
-    return True
+    return 8 * out_tile // tile
 
 
 def probe(path: str, scale_n: int = 8) -> np.ndarray:
@@ -136,8 +127,9 @@ def probe(path: str, scale_n: int = 8) -> np.ndarray:
 
 
 def entropy_decode(path: str, scale_n: int = 8) -> Optional[EntropyImage]:
-    """The host half alone: a baseline JPEG's coefficients and metadata
-    at scale_n/8, None for any other file."""
+    """The host half alone: the coefficients and metadata of a JPEG the
+    entropy decoder takes (M_KIND KIND_BASELINE) at scale_n/8, None for
+    any other file."""
     lib = build()
     meta = probe(path, scale_n)
     if meta[M_KIND] != KIND_BASELINE:
@@ -158,7 +150,7 @@ def _reconstruct(image: EntropyImage, dev: torch.device) -> torch.Tensor:
     packed, lay = describe_batch([image.meta], [0], [(TILE_DECODED, 0, 0, 0)])
     qt, comps, images, tiles = unpack_batch(torch.from_numpy(packed).to(dev), lay)
     out = torch.empty((1, h, w, 3), dtype=torch.uint8, device=dev)
-    return jpeg_cuda.jpeg_decode(image.coef.to(dev), qt, comps, images, tiles, out)[0]
+    return jpeg_cuda.jpeg_decode(image.coef.to(dev), qt, comps, images, tiles, out, lay)[0]
 
 
 def decode_image(path: str, device="cuda") -> Optional[torch.Tensor]:
@@ -184,10 +176,10 @@ def scale_for(width: int, height: int, target: int) -> int:
 
 def decode_image_scaled(path: str, target: int, device="cuda") -> Optional[torch.Tensor]:
     """Decode with a DCT-domain downscale: a JPEG at the largest N/8 scale
-    whose longer side stays >= target (``scale_for``); only 8/8 and 5/8
-    are ported, other scales raise ValueError. A non-baseline JPEG goes to
-    the PIL resize to libjpeg's ceil(d * N / 8); TIFF decodes at full size,
-    as in the JAX package. None if the file does not parse."""
+    whose longer side stays >= target (``scale_for``), on the card (or
+    its plain version on the CPU). A JPEG the entropy decoder does not take
+    goes to the PIL resize to libjpeg's ceil(d * N / 8); TIFF decodes at
+    full size, as in the JAX package. None if the file does not parse."""
     dev = resolve_device(device)
     meta = probe(path)
     kind = meta[M_KIND]
@@ -196,9 +188,6 @@ def decode_image_scaled(path: str, target: int, device="cuda") -> Optional[torch
     if kind == KIND_TIFF:
         return decode_image(path, dev)
     n = scale_for(int(meta[M_WIDTH]), int(meta[M_HEIGHT]), target)
-    if n not in SCALES:
-        raise ValueError(f"the device loader decodes at 8/8 and 5/8; {n}/8 is still to port "
-                         "(ROADMAP.md, section 1)")
     if kind == KIND_OTHER_JPEG:
         return torch.from_numpy(np.array(resize_to_scale(read_image(path), n))).to(dev)
     return _reconstruct(entropy_decode(path, n), dev)
@@ -207,10 +196,11 @@ def decode_image_scaled(path: str, target: int, device="cuda") -> Optional[torch
 # ---------------------------------------------------------------- batches
 
 def coefs_per_tile(tile: int, scale_n: int) -> int:
-    """int16 coefficients of one 4:2:0 tile at scale_n/8: the staging
-    slots' first size (they grow for other samplings)."""
-    k_luma = min(scale_n, 8)
-    return (tile // 8) ** 2 * k_luma ** 2 + 2 * (tile // 16) ** 2 * 64
+    """int16 coefficients of one 4:2:0 tile at scale_n/8 (luma IDCTs of
+    scale_n, chroma of 2 * scale_n up to 8, each keeping ``kept`` a
+    side): the staging slots' first size (they grow for other samplings)."""
+    k_luma, k_chroma = kept(scale_n), kept(min(2 * scale_n, 8) if scale_n < 8 else 8)
+    return (tile // 8) ** 2 * k_luma ** 2 + 2 * (tile // 16) ** 2 * k_chroma ** 2
 
 
 class _Slot:
@@ -338,7 +328,7 @@ class _Batcher:
 
     def _decode(self, coef, desc, lay, out, caller) -> None:
         qt, comps, images, tiles = unpack_batch(desc, lay)
-        jpeg_cuda.jpeg_decode(coef, qt, comps, images, tiles, out)
+        jpeg_cuda.jpeg_decode(coef, qt, comps, images, tiles, out, lay)
         if caller:
             px = torch.from_numpy(np.stack([a for _, a in caller]))
             if self.dev.type == "cuda":
@@ -388,8 +378,9 @@ def native_tile_batches(
     n_threads: the entropy decoder's threads (0 = cores capped at 8), and
     as many PIL threads for routed files; queue_depth: files decoded ahead
     of the consumer. out_tile > 0 decodes at out_tile/tile (5/8: 640 px
-    tiles from 1024 px ones) with offsets in source pixels; other scales
-    raise ValueError here, before any file is read. ``counts`` (a dict,
+    tiles from 1024 px ones) with offsets in source pixels; an out_tile
+    that is not a proper N/8 fraction of tile raises ValueError here,
+    before any file is read. ``counts`` (a dict,
     filled in place) gets the files of each route in ``ROUTES``."""
     scale_n = check_scale(out_tile, tile)
     dev = resolve_device(device)

@@ -31,9 +31,11 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SOURCE = os.path.join(_CSRC, "nms_suppress.cu")
 BUILD_DIR = os.path.join(_CSRC, "build")
+# -split-compile=0: the device code's optimisation on every core (a source
+# with many kernels, as jpeg_decode.cu's one per scale, builds in parallel)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
 )
 # Shared-memory budget of one CTA: the in-block row words and the alive and
 # kept bitsets, 4.25 B per candidate (csrc kMaxK). Covers the whole P5 pool

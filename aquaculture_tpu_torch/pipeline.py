@@ -210,7 +210,7 @@ def detect_files(
 
     use_native: the device loader (data/native_loader.py) or the Python
     one, chosen as the JAX package chooses: None takes the device loader
-    for local files at a scale it decodes (8/8, 5/8); None or True then
+    for local files, at full size and at every N/8 scale; None or True then
     keep it only when every path is .jpg/.jpeg/.tif/.tiff and, with
     overlap serving, no raster is larger than a tile; False forces the
     Python loader.
@@ -228,8 +228,7 @@ def detect_files(
             )
         out_tile = cfg.img_size
     if use_native is None:
-        use_native = (store is None and native_loader.available()
-                      and native_loader.supports_scale(out_tile, tile))
+        use_native = store is None and native_loader.available()
     if use_native and not all(p.lower().endswith(_NATIVE_EXTS) for p in paths):
         # the device loader skips what it cannot read: a PNG corpus would
         # vanish, so it goes to the Python loader

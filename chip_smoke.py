@@ -155,18 +155,22 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      plots only where matplotlib imports).
  13. after 5, ``feed``, the device loader: its fused kernel equal to its
      plain version (torch.equal) on JPEGs at q75, q90 and q95 4:2:0,
-     4:4:4, 4:2:2, 4:4:0, greyscale, 1000 x 750, restart intervals and a
-     2048 px raster, at 8/8 and 5/8, alone and in one batch on the tile
-     grid, and the card's 8/8 images equal to PIL's decode on this host
-     byte for byte; detect_files through both loaders (full-decode rows
-     equal, the kernel once per batch); then the times, with the card's
-     name and power limit: the host entropy decode and PIL's full decode
-     per second on one thread and on every core, the kernel per batch of
-     128 at 8/8 and 5/8 beside its plain version and its bound (bytes and
-     integer operations; its registers and shared memory), and file-fed
+     4:4:4, 4:2:2, 4:4:0, greyscale, 1000 x 750, restart intervals, a
+     progressive one and a 2048 px raster, at 8/8 and 5/8, alone and in
+     one batch on the tile grid, and the card's 8/8 images equal to PIL's
+     decode on this host byte for byte; at 1/8, 2/8, 3/8, 4/8, 6/8 and 7/8
+     all but the raster in one batch on the grid; detect_files through
+     both loaders (full-decode rows equal, the kernel once per batch), and
+     at --img 512 (4/8) through the device loader by default (each kernel
+     once per batch, the card's tiles equal to the CPU plain path's); then
+     the times, with the card's name and power limit: the host entropy
+     decode and PIL's full decode per second on one thread and on every
+     core, the kernel per batch of 128 at every N/8 beside its bound
+     (bytes and integer operations; its registers, shared memory and
+     spills) and, at 8/8 and 5/8, its plain version's time, and file-fed
      detect_files tiles/s (mt bf16 b128) through both loaders in turns
-     (10 batches a device-loader run, 3 a Python-loader run, whole-run and
-     steady rates) beside phase 5's tiles-on-card rate.
+     (10 batches a device-loader run, 3 a Python-loader run, whole-run and steady rates) beside phase
+     5's tiles-on-card rate.
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -3275,7 +3279,7 @@ FEED_HOST_FILES = 16  # host decode timing: files per thread
 FEED_ROWS_TILES = 16
 # (name, (height, width), PIL save options, "gray", or "440" for 4:4:0
 # through OpenCV): the samplings, qualities, partial MCUs, restart
-# intervals and a raster of 2 x 2 tiles
+# intervals, a progressive file and a raster of 2 x 2 tiles
 FEED_CASES = (
     ("q75_420", (1024, 1024), dict(quality=75)),
     ("q90_420", (1024, 1024), dict(quality=90)),
@@ -3286,8 +3290,13 @@ FEED_CASES = (
     ("gray", (1024, 1024), "gray"),
     ("1000x750", (750, 1000), dict(quality=90)),
     ("restart", (1024, 1024), dict(quality=90, restart_marker_blocks=7)),
+    ("progressive", (1024, 1024), dict(quality=90, progressive=True)),
     ("raster_2048", (2048, 2048), dict(quality=90)),
 )
+# the scales besides 8/8 and 5/8: libjpeg's 1x1, 2x2, 3x3, 4x4, 6x6 and
+# 7x7 IDCTs, and 4:2:0 chroma through the 4x4 .. 14x14
+OTHER_SCALES = (1, 2, 3, 4, 6, 7)
+FEED_SCALE_IMG = 512  # the file-fed detect_files run at 4/8
 
 
 def aerial_image(rng, h: int, w: int) -> np.ndarray:
@@ -3379,7 +3388,8 @@ def jpeg_kernel_vs_plain(images: list, eff: int, dev, what: str) -> dict:
     from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp
 
     coef, (qt, comps, imgs, tiles), lay, shape = jpeg_batch(images, eff, dev)
-    out = jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tiles, torch.full(shape, 7, dtype=torch.uint8, device=dev))
+    out = jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tiles, torch.full(shape, 7, dtype=torch.uint8, device=dev),
+                                lay)
     want = jp.decode_batch_plain(coef, qt, comps, imgs, tiles, torch.full_like(out, 7))
     if not torch.equal(out, want):
         fail(f"jpeg_decode != plain on {what}: {int((out != want).sum())} bytes differ")
@@ -3387,18 +3397,27 @@ def jpeg_kernel_vs_plain(images: list, eff: int, dev, what: str) -> dict:
     return {"slots": shape[0], "out": out}
 
 
+def entropy_decode_all(paths: list, scale: int) -> list:
+    """The host half for many files at once (the decoder's ctypes calls
+    release the GIL)."""
+    from aquaculture_tpu_torch.data import native_loader
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda p: native_loader.entropy_decode(p, scale), paths))
+
+
 def check_jpeg_exactness(cases: dict, dev) -> dict:
     """Every case at 8/8 and 5/8, alone (the whole image) and all in one
     batch on their tile grids, and the 2048 px raster at 5/8 in 625 px
     tiles, kernel == plain; at 8/8 the card's whole image also equals
-    PIL's decode on this host, byte for byte."""
+    PIL's decode on this host, byte for byte. At each of OTHER_SCALES the
+    cases but the 2048 px raster, progressive included, in one batch on
+    their grids of 128 N px tiles, kernel == plain."""
     from PIL import Image
-
-    from aquaculture_tpu_torch.data import native_loader
 
     out = {}
     for scale, eff in ((8, 1024), (5, 640)):
-        images = {name: native_loader.entropy_decode(p, scale) for name, p in cases.items()}
+        images = dict(zip(cases, entropy_decode_all(list(cases.values()), scale)))
         for name, im in images.items():
             if im is None:
                 fail(f"the entropy decoder refused case {name}")
@@ -3415,6 +3434,14 @@ def check_jpeg_exactness(cases: dict, dev) -> dict:
             # block (625 + 128), the widest ring row
             odd = jpeg_kernel_vs_plain([images["raster_2048"]], 625, dev, "raster_2048 at 5/8 in 625 px tiles")
             out["5/8"]["odd_origin_slots"] = odd["slots"]
+    names = [n for n in cases if n != "raster_2048"]
+    for scale in OTHER_SCALES:
+        images = entropy_decode_all([cases[n] for n in names], scale)
+        if any(im is None for im in images):
+            fail(f"the entropy decoder refused a case at {scale}/8")
+        batch = jpeg_kernel_vs_plain(images, 128 * scale, dev, f"the cases at {scale}/8 on the grid")
+        out[f"{scale}/8"] = {"cases": len(images), "slots": batch["slots"], "kernel_equals_plain": True,
+                             "equal_pil": False}
     return out
 
 
@@ -3429,8 +3456,18 @@ def check_jpeg_exactness(cases: dict, dev) -> dict:
 # takes 46 + 2 + 8 x (a shift and a clamp of 2).
 ISLOW_COLUMN_OPS, ISLOW_ZERO_COLUMN_OPS, ISLOW_ROWS_OPS = 7 + 8 + 46 + 2 + 8, 7 + 2, 8 * (46 + 2 + 8 * 3)
 # jpeg_idct_5x5: 5 columns of 31 (5 dequantising) and 5 rows of 36;
-# jpeg_idct_10x10: 8 columns of 71 (8 dequantising), 10 rows of 84
-IDCT5_OPS, IDCT10_OPS = 5 * 31 + 5 * 36, 8 * 71 + 10 * 84
+# jpeg_idct_10x10: 8 columns of 71 (8 dequantising), 10 rows of 84. The
+# other scaled sizes, counted from data/jpeg_plain.py's passes (one per +,
+# -, *, shift) with K dequantising multiplies a column and a shift and a
+# clamp of 2 a sample: jpeg_idct_1x1 one multiply, one add, one shift and
+# the clamp; jidctred.c's 2x2 5 columns of 5 + 14 (it reads rows and
+# columns 0, 1, 3, 5, 7), 2 rows of 14 + 2 x 3; its 4x4 7 columns of 7 + 32
+# (it reads 0-3 and 5-7), 4 rows of 32 + 4 x 3; jidctint.c's 3x3 3 x (3 + 12) + 3 x (12 + 9),
+# 6x6 6 x (6 + 31) + 6 x (32 + 18), 7x7 7 x (7 + 50) + 7 x (50 + 21),
+# 12x12 8 x (8 + 75) + 12 x (75 + 36), 14x14 8 x (8 + 92) + 14 x (93 + 42)
+IDCT_OPS = {1: 5, 2: 5 * 19 + 2 * 20, 3: 3 * 15 + 3 * 21, 4: 7 * 39 + 4 * 44, 5: 5 * 31 + 5 * 36,
+            6: 6 * 37 + 6 * 50, 7: 7 * 57 + 7 * 71, 10: 8 * 71 + 10 * 84, 12: 8 * 83 + 12 * 111,
+            14: 8 * 100 + 14 * 135}
 # per output pixel: h2v2 fancy (a column sum of 2 per 2 pixels, then 4),
 # h2v1 (3 * x once per 2 pixels, then 3), h1v2 (4); jdcolor's
 # ycc_rgb_convert with its tables (4 table reads, 4 adds, 1 shift, 3
@@ -3478,7 +3515,7 @@ def jpeg_ops(images: list, tiles, shape) -> float:
                 zero = int((blocks.view(n, 8, 8)[:, 1:, :] == 0).all(1).sum())
                 ops += (8 * n - zero) * ISLOW_COLUMN_OPS + zero * ISLOW_ZERO_COLUMN_OPS + n * ISLOW_ROWS_OPS
             else:
-                ops += n * (IDCT5_OPS if c.size == 5 else IDCT10_OPS)
+                ops += n * IDCT_OPS[c.size]
         idct[id(im)] = ops - before
     th, tw = shape[1:3]
     for kind, i, x, y in tiles.tolist():
@@ -3493,8 +3530,8 @@ def jpeg_ops(images: list, tiles, shape) -> float:
 
 def jpeg_bound_ms(images: list, tiles, shape, coefs: int, int_rate: float) -> dict:
     """The least ms of one batch's decode, whatever implements it: the
-    larger of its bytes (the int16 coefficients read once, the tiles
-    written once) at HBM rate and libjpeg's integer operations at the
+    larger of its bytes (the int16 coefficients read once: each block's
+    kept square, what its IDCT reads; the tiles written once) at HBM rate and libjpeg's integer operations at the
     card's most integer operations a second (``int_ops_per_s``)."""
     bytes_ms = (2 * coefs + int(np.prod(shape))) / HBM_BYTES_PER_S * 1e3
     ops = jpeg_ops(images, tiles, shape)
@@ -3504,36 +3541,45 @@ def jpeg_bound_ms(images: list, tiles, shape, coefs: int, int_rate: float) -> di
 
 
 def time_jpeg_decode(distinct: list, dev, card: str) -> dict:
-    """jpeg_decode per batch of FEED_BATCH 1024 px tiles at 8/8 and 5/8
-    (CUDA events) beside its bound and its plain version on the same card
-    tensors (one call each), held equal; with the kernel's registers and
-    shared memory per CTA."""
+    """jpeg_decode per batch of FEED_BATCH 1024 px tiles at every N/8
+    (128 N px tiles; CUDA events) beside its bound, held equal to its plain
+    version; with the kernel's registers, shared memory and spills per CTA
+    (each scale's kernel). At 8/8 and 5/8 the plain version runs on the
+    same card tensors, timed (one call); at the other scales, untimed, on
+    the batch's distinct images alone (the batch repeats them), each slot
+    held to its image's."""
     import torch
 
-    from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp, native_loader
+    from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp
 
-    attrs = jpeg_cuda.attributes()
     rate = int_ops_per_s()
     out = {}
-    for scale, eff in ((8, 1024), (5, 640)):
-        base = [native_loader.entropy_decode(p, scale) for p in distinct]
+    for scale in (8, 5, *OTHER_SCALES):
+        eff = 128 * scale
+        base = entropy_decode_all(distinct, scale)
         images = [base[i % len(base)] for i in range(FEED_BATCH)]
         coef, (qt, comps, imgs, tiles), lay, shape = jpeg_batch(images, eff, dev)
         res = torch.empty(shape, dtype=torch.uint8, device=dev)
-        ms = time_cuda(lambda: jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tiles, res), iters=10)
+        ms = time_cuda(lambda: jpeg_cuda.jpeg_decode(coef, qt, comps, imgs, tiles, res, lay), iters=10)
         bound = jpeg_bound_ms(images, tiles, shape, coef.numel(), rate)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        want = jp.decode_batch_plain(coef, qt, comps, imgs, tiles, torch.empty_like(res))
-        end.record()
-        torch.cuda.synchronize()
-        if not torch.equal(res, want):
-            fail(f"jpeg_decode != plain on the timed batch at {scale}/8")
         row = {"scale": f"{scale}/8", "batch": FEED_BATCH, "tile": eff, "coef_bytes": 2 * coef.numel(),
                "out_bytes": int(np.prod(shape)), "decode_ms": ms, "decode_bound_ms": bound["bound_ms"],
                "bound_bytes_ms": bound["bytes_ms"], "bound_ops_ms": bound["ops_ms"], "ops": bound["ops"],
-               "bound_by": bound["bound_by"], "decode_plain_ms": start.elapsed_time(end), "library_ms": None,
-               "int_ops_per_s": rate, "kernel": attrs}
+               "bound_by": bound["bound_by"], "library_ms": None, "int_ops_per_s": rate,
+               "kernel": jpeg_cuda.attributes(scale)}
+        if scale in (8, 5):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            want = jp.decode_batch_plain(coef, qt, comps, imgs, tiles, torch.empty_like(res))
+            end.record()
+            torch.cuda.synchronize()
+            row["decode_plain_ms"] = start.elapsed_time(end)
+        else:
+            c32, (q32, k32, i32, t32), _, s32 = jpeg_batch(base, eff, dev)
+            one = jp.decode_batch_plain(c32, q32, k32, i32, t32, torch.empty(s32, dtype=torch.uint8, device=dev))
+            want = one[[i % len(base) for i in range(FEED_BATCH)] + [len(base)]]  # the zero slot last
+        if not torch.equal(res, want):
+            fail(f"jpeg_decode != plain on the timed batch at {scale}/8")
         print(json.dumps({"metric": "jpeg_kernels", **row, "card": card}), flush=True)
         out[f"{scale}/8"] = row
         del coef, res, want
@@ -3565,6 +3611,37 @@ def _rows_of(result) -> list:
     boxes, conf, cls, specs, _ = result
     keys = [(s.bbox_ind, s.x_offset, s.y_offset) for s in specs]
     return sorted(zip(keys, map(tuple, boxes.tolist()), conf.tolist(), cls.tolist()))
+
+
+def drive_scaled_feed(paths: list, model, dev) -> dict:
+    """detect_files(decode_scale=True) of mt bf16 at --img FEED_SCALE_IMG
+    (4/8 of the 1024 px tiles) through the loader it takes by default, the
+    device loader: each kernel launched once a batch (counts zeroed just
+    before, read just after); and the loader's tiles on the card equal its
+    plain path's on the CPU, batch for batch."""
+    import torch
+
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.data import jpeg_cuda, native_loader
+    from aquaculture_tpu_torch.ops import nms_cuda
+    from aquaculture_tpu_torch.pipeline import detect_files, make_infer_fn
+
+    img = FEED_SCALE_IMG
+    card_b = list(native_loader.native_tile_batches(paths, batch_size=8, out_tile=img, device=dev))
+    cpu_b = list(native_loader.native_tile_batches(paths, batch_size=8, out_tile=img, device="cpu"))
+    if len(card_b) != len(cpu_b) or not all(torch.equal(a.images.cpu(), b.images) for a, b in zip(card_b, cpu_b)):
+        fail(f"the device loader's {img} px tiles on the card != its plain path's on the CPU")
+    cfg = DetectConfig(img_size=img, conf_threshold=1e-5)
+    infer = make_infer_fn(model, cfg, 1024, device=dev)
+    nms_cuda.launches = 0
+    jpeg_cuda.decode_launches = 0
+    *_, stats = detect_files(paths, model, cfg, 8, infer_fn=infer, device=dev, decode_scale=True)
+    launches = {"nms_suppress": nms_cuda.launches, "jpeg_decode": jpeg_cuda.decode_launches}
+    if stats.loader != "device" or stats.tiles != len(paths) or set(launches.values()) != {stats.batches}:
+        fail(f"detect_files at --img {img}: the {stats.loader!r} loader, {stats.tiles} tiles, "
+             f"{stats.batches} batches, launches {launches}")
+    return {"img": img, "tiles": stats.tiles, "batches": stats.batches, "launches": launches,
+            "detections": stats.detections, "tiles_equal_cpu_plain": True, "files": stats.files}
 
 
 def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
@@ -3609,6 +3686,7 @@ def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
         if not decode_scale and dev_rows != py_rows:
             fail(f"full-decode rows differ: device loader {len(dev_rows)}, Python loader {len(py_rows)}")
         out["rows"][key] = {"device": len(dev_rows), "python": len(py_rows), "equal": dev_rows == py_rows}
+    out["decode_scale_512"] = drive_scaled_feed(few, model, dev)
     cfg = DetectConfig(img_size=640, conf_threshold=0.25)
     infer = make_infer_fn(model, cfg, 1024, device=dev)
     detect_files(paths[:FEED_BATCH], model, cfg, FEED_BATCH, infer_fn=infer, device=dev, use_native=True)  # warm
@@ -3843,6 +3921,7 @@ def main() -> int:
         "launches_int8_detect": int8_detect["launches"]["nms_suppress"],
         "launches_int8_pipeline": int8_pipeline["launches"]["nms_suppress"],
         "launches_accuracy": accuracy["on_card"]["launches"],
+        "launches_decode_scale_512": feed["path"]["decode_scale_512"]["launches"]["nms_suppress"],
         "launches_pod": pod["launches"],
         "launches_pod_resume": pod["launches_resume"],
         "launches_aot_detect": tooling["aot_detect"]["launches"]["nms_suppress"],
@@ -3870,6 +3949,7 @@ def main() -> int:
         "launches_decode_scale": options["decode_scale"]["launches"]["jpeg_decode"],
         "launches_pipeline": pipeline["full_width"]["launches"]["jpeg_decode"],
         "launches_accuracy": accuracy["on_card"]["jpeg_launches"],
+        "launches_decode_scale_512": feed["path"]["decode_scale_512"]["launches"]["jpeg_decode"],
         "max_abs_err": 0.0,
         "ms": feed["kernels"]["8/8"]["decode_ms"],
         "plain_ms": feed["kernels"]["8/8"]["decode_plain_ms"],
@@ -3880,6 +3960,11 @@ def main() -> int:
         "plain_ms_5/8": feed["kernels"]["5/8"]["decode_plain_ms"],
         "bound_ms_5/8": feed["kernels"]["5/8"]["decode_bound_ms"],
         "bound_by_5/8": feed["kernels"]["5/8"]["bound_by"],
+        **{f"{key}_{n}/8": feed["kernels"][f"{n}/8"][field] for n in OTHER_SCALES
+           for key, field in (("ms", "decode_ms"), ("bound_ms", "decode_bound_ms"), ("bound_by", "bound_by"))},
+        **{k: feed["kernels"]["8/8"]["kernel"][k] for k in ("registers", "shared_bytes", "local_bytes", "ctas_per_sm")},
+        "registers_by_scale": {n: row["kernel"]["registers"] for n, row in feed["kernels"].items()},
+        "local_bytes_by_scale": {n: row["kernel"]["local_bytes"] for n, row in feed["kernels"].items()},
         "exact_on": sorted(feed["exactness"]),
     }]}
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)

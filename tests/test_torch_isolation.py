@@ -146,7 +146,7 @@ def test_serving_options_load_no_jax():
         cfg = DetectConfig(img_size=128, conf_threshold=1e-6)
         *_, s1 = detect_files([path], model, cfg, batch_size=4, device="cpu", stride=768)
         *_, s2 = detect_files([path], model, cfg, batch_size=4, device="cpu", decode_scale=True, decode_threads=1)
-        assert (s1.tiles, s2.tiles, s1.loader, s2.loader) == (3, 2, "python", "python"), (s1, s2)
+        assert (s1.tiles, s2.tiles, s1.loader, s2.loader) == (3, 2, "python", "device"), (s1, s2)
         import shutil; shutil.rmtree(d)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -3,17 +3,19 @@ against PIL's and the JAX package's libjpeg-turbo decodes.
 
 Tolerance 0 throughout: the host entropy decode followed by the kernel's
 plain version gives PIL's bytes at 8/8 and the JAX native loader's
-(libjpeg-turbo 2.1 through native/libaquatile.so) at 8/8 and at 5/8, where
-libjpeg-turbo's scaled IDCTs (5x5 for luma, 10x10 for 4:2:0 chroma)
-replace a resize. The cases cover 4:2:0 at three qualities, 4:4:4, 4:2:2,
-4:4:0, greyscale, sizes that are not multiples of the MCU, and restart
-intervals. The kernel wrapper takes the plain version on CPU tensors and
-nothing else; the kernel itself is held to the plain version on the card by
-chip_smoke.py. Here its stripe arithmetic is: the blocks that
-``stripe_blocks`` names for a CTA are all that its pixels depend on.
+(libjpeg-turbo 2.1 through native/libaquatile.so) at every N/8, where
+libjpeg-turbo's scaled IDCTs (jidctred.c's 1x1, 2x2, 4x4 and jidctint.c's
+3x3 .. 14x14; 4:2:0 chroma takes twice the luma's size) replace a resize.
+The cases cover 4:2:0 at three qualities, 4:4:4, 4:2:2, 4:4:0,
+greyscale, sizes that are not multiples of the MCU, and restart
+intervals; one-block cosine images hold each scaled IDCT to the
+coefficients libjpeg's reads. The kernel wrapper takes the plain version
+on CPU tensors and nothing else; the kernel itself is held to the plain
+version on the card by chip_smoke.py. Here its stripe arithmetic is: the
+blocks that ``stripe_blocks`` names for a CTA are all that its pixels
+depend on.
 """
 
-import subprocess
 from pathlib import Path
 
 import cv2
@@ -23,8 +25,10 @@ import torch
 from PIL import Image
 
 from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp, native_loader
+from torch_jax_native import jax_native_loader
 
 REPO = Path(__file__).resolve().parent.parent
+SCALES = tuple(range(1, 9))
 
 # (name, (height, width), PIL save options; "gray" for one component,
 # "440" for 4:4:0 through OpenCV, which PIL does not write)
@@ -53,8 +57,8 @@ def aerial(rng, h, w):
 
 @pytest.fixture(scope="module")
 def jpegs(tmp_path_factory):
-    """Seeded images written by PIL, and the JAX native loader (built with
-    make as tests/test_native.py builds it; None if that build fails)."""
+    """Seeded images written by PIL, and the JAX native loader
+    (``jax_native_loader``: None if it does not build here)."""
     d = tmp_path_factory.mktemp("jpegs")
     rng = np.random.default_rng(21)
     paths = {}
@@ -69,14 +73,7 @@ def jpegs(tmp_path_factory):
         else:
             Image.fromarray(img).save(p, **kw)
         paths[name] = str(p)
-    jax_native = None
-    if not (REPO / "native" / "libaquatile.so").exists():
-        subprocess.run(["make", "-C", str(REPO / "native")], capture_output=True)
-    if (REPO / "native" / "libaquatile.so").exists():
-        from aquaculture_tpu.data import native_loader as jn
-
-        jax_native = jn if jn.available() else None
-    return paths, jax_native
+    return paths, jax_native_loader()
 
 
 def _jax(jpegs):
@@ -108,6 +105,111 @@ def test_equal_jax_native_loader_at_8_8_and_5_8(jpegs, name):
     want = jn.decode_image_scaled(path, target)
     assert got.shape == want.shape == ((h * 5 + 7) // 8, (w * 5 + 7) // 8, 3)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("scale", [n for n in SCALES if n not in (5, 8)])
+@pytest.mark.parametrize("name", NAMES)
+def test_equal_jax_native_loader_at_every_other_scale(jpegs, name, scale):
+    """1/8, 2/8, 3/8, 4/8, 6/8 and 7/8 (the 1x1, 2x2, 4x4 IDCTs of
+    jidctred.c, the 3x3, 6x6, 7x7 of jidctint.c, 4:2:0 chroma at 6x6 ..
+    14x14, box upsampling at 1/8): the JAX native loader's bytes."""
+    jn = _jax(jpegs)
+    path = jpegs[0][name]
+    w, h = Image.open(path).size
+    target = max(w, h) * scale // 8
+    assert native_loader.scale_for(w, h, target) == scale
+    got = native_loader.decode_image_scaled(path, target, "cpu").numpy()
+    want = jn.decode_image_scaled(path, target)
+    assert got.shape == want.shape == (-(-h * scale // 8), -(-w * scale // 8), 3)
+    np.testing.assert_array_equal(got, want)
+
+
+# The layout probe gives at each N/8: (luma, chroma) IDCT sizes and the
+# chroma's upsampling per sampling (jdmaster.c's and jdsample.c's choices)
+LAYOUT = {
+    "q90_420": {1: (1, 2, jp.UP_FULL), 2: (2, 4, jp.UP_FULL), 3: (3, 6, jp.UP_FULL), 4: (4, 8, jp.UP_FULL),
+                5: (5, 10, jp.UP_FULL), 6: (6, 12, jp.UP_FULL), 7: (7, 14, jp.UP_FULL), 8: (8, 8, jp.UP_H2V2)},
+    "q90_422": {1: (1, 1, jp.UP_BOX), **{n: (n, n, jp.UP_H2V1) for n in range(2, 9)}},
+    "q90_440": {1: (1, 1, jp.UP_BOX), **{n: (n, n, jp.UP_H1V2) for n in range(2, 9)}},
+    "q90_444": {n: (n, n, jp.UP_FULL) for n in SCALES},
+}
+
+
+@pytest.mark.parametrize("scale", SCALES)
+def test_layout_at_every_scale_is_libjpegs(jpegs, scale):
+    """Each component's IDCT size, kept coefficients and upsampling at
+    scale/8, as libjpeg-turbo's jpeg_calc_output_dimensions and jdsample.c
+    choose them; the kept square is what the IDCT reads (5 x 5 for
+    jidctred.c's 2x2, 7 x 7 for its 4x4). The MCU height is a batch's band
+    unit."""
+    for name, sizes in LAYOUT.items():
+        m = native_loader.probe(jpegs[0][name], scale)
+        comps = jp.components_of(m)
+        luma, chroma, mode = sizes[scale]
+        assert [c.size for c in comps] == [luma, chroma, chroma], name
+        assert [c.kept for c in comps] == [{2: 5, 4: 7}.get(s, min(s, 8)) for s in (luma, chroma, chroma)]
+        assert [jp.upsample_mode(c, m)[0] for c in comps] == [jp.UP_FULL, mode, mode], name
+        rows = max(c.size * jp.upsample_mode(c, m)[2] for c in comps)  # IDCT rows x vertical factor
+        want = 2 * scale if name in ("q90_420", "q90_440") else scale
+        assert jp.describe_batch([m], [0], [])[1].band_unit == rows == want, name
+
+
+def _cosine_block(u: int, v: int, n: int = 8) -> np.ndarray:
+    """An n x n block of 128 + 60 cos((2x + 1) u pi / 16) cos((2y + 1) v
+    pi / 16), tiled from one 8 x 8 period."""
+    x = np.arange(n) % 8
+    cu = np.cos((2 * x + 1) * u * np.pi / 16)
+    cv = np.cos((2 * x + 1) * v * np.pi / 16)
+    return np.clip(np.round(128 + 60 * np.outer(cv, cu)), 0, 255).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def cosines(tmp_path_factory, jpegs):
+    """One-block JPEGs at quality 100 (quantisation 1): grey 8 x 8 with a
+    horizontal cosine of frequency u = 0..7 (or vertical, v), and one
+    16 x 16 4:2:0 MCU whose chroma carries the cosine."""
+    d = tmp_path_factory.mktemp("cosines")
+    paths = {}
+    for f in range(8):
+        for axis, (u, v) in (("h", (f, 0)), ("v", (0, f))):
+            p = d / f"grey_{axis}{f}.jpg"
+            Image.fromarray(_cosine_block(u, v)).save(p, quality=100)
+            paths[("grey", axis, f)] = str(p)
+        cb = np.kron(_cosine_block(f, 0), np.ones((2, 2), np.uint8))
+        ycc = np.stack([np.full((16, 16), 128, np.uint8), cb, 255 - cb], -1)
+        p = d / f"chroma_h{f}.jpg"
+        Image.fromarray(ycc, "YCbCr").save(p, quality=100)
+        paths[("chroma", "h", f)] = str(p)
+    return paths
+
+
+@pytest.mark.parametrize("scale", SCALES)
+def test_scaled_idcts_equal_jax_on_one_block_cosines(jpegs, cosines, scale):
+    """Every scaled IDCT against the JAX loader, one block at a time: grey
+    blocks take the luma size (1 .. 8), the 4:2:0 MCU's chroma twice it
+    (10x10, 12x12, 14x14 at 5/8 .. 7/8). libjpeg's 4x4 and 2x2 read past
+    the top-left square: at 4/8 frequencies 5 and 7 move the output and 4
+    does not; at 2/8 3, 5 and 7 do and 2, 4 do not; at 3/8 frequency 3
+    does not (jidctint.c's 3x3 reads 0-2)."""
+    jn = _jax(jpegs)
+    flat = {}
+    for key, path in cosines.items():
+        kind = key[0]
+        target = (8 if kind == "grey" else 16) * scale // 8
+        got = native_loader.decode_image_scaled(path, target, "cpu").numpy()
+        want = jn.decode_image_scaled(path, target) if scale < 8 else jn.decode_image(path)
+        assert got.shape == want.shape, key
+        np.testing.assert_array_equal(got, want, err_msg=str(key))
+        if kind == "grey":
+            line = want[0, :, 0] if key[1] == "h" else want[:, 0, 0]
+            flat[key[1:]] = int(line.max()) - int(line.min()) == 0
+    reads = {1: {0}, 2: {0, 1, 3, 5, 7}, 3: {0, 1, 2}, 4: {0, 1, 2, 3, 5, 6, 7}}
+    if scale in reads:
+        assert set(jp.kept_index(scale)) == reads[scale]  # the kept square is what moves the output
+    for axis in ("h", "v"):
+        for f in range(1, 8):
+            if scale in reads:
+                assert flat[(axis, f)] == (f not in reads[scale]), (axis, f)
 
 
 def test_scaled_chroma_takes_the_10x10_idct(jpegs):
@@ -179,8 +281,8 @@ def test_range_limit_is_libjpegs_table():
 
 def test_dc_only_blocks_are_flat():
     q = torch.ones((8, 8), dtype=torch.int32)
-    for size in (8, 5, 10):
-        k = min(size, 8)
+    for size in jp.IDCT_SIZES:
+        k = jp.kept(size)
         coeffs = torch.zeros((3, k, k), dtype=torch.int32)
         coeffs[:, 0, 0] = torch.tensor([-1024, 0, 800])
         px = jp.idct_plain(coeffs, q, size)
@@ -188,12 +290,15 @@ def test_dc_only_blocks_are_flat():
         assert [int(v) for v in px.reshape(3, -1).unique(dim=1).reshape(-1)] == [0, 128, 228]
 
 
-def test_other_scales_and_sizes_name_the_roadmap(jpegs):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        jp.idct_plain(torch.zeros((1, 4, 4), dtype=torch.int32), torch.ones((8, 8)), 4)
-    meta = native_loader.probe(jpegs[0]["q90_420"], 3)  # 3/8: a 3x3 luma IDCT
-    with pytest.raises(ValueError, match="ROADMAP"):
-        jp.describe_batch([meta], [0], [(jp.TILE_DECODED, 0, 0, 0)])
+def test_idct_plain_refuses_what_libjpeg_has_not(jpegs):
+    """A size libjpeg has no scaled IDCT for (9 would need scale 9/8), or
+    a block that is not the kept square of its size, raises."""
+    with pytest.raises(ValueError, match="no scaled IDCT of size 9"):
+        jp.idct_plain(torch.zeros((1, 8, 8), dtype=torch.int32), torch.ones((8, 8)), 9)
+    with pytest.raises(ValueError, match="size 4 takes 7 x 7"):
+        jp.idct_plain(torch.zeros((1, 8, 8), dtype=torch.int32), torch.ones((8, 8)), 4)
+    assert [jp.kept(s) for s in jp.IDCT_SIZES] == [1, 5, 3, 7, 5, 6, 7, 8, 8, 8, 8]
+    assert jp.kept_index(2) == (0, 1, 3, 5, 7) and jp.kept_index(4) == (0, 1, 2, 3, 5, 6, 7)
 
 
 def test_kernel_wrappers_take_the_plain_versions_on_cpu_tensors(jpegs, monkeypatch):
@@ -225,7 +330,7 @@ def test_kernel_wrappers_take_the_plain_versions_on_cpu_tensors(jpegs, monkeypat
 
 
 def _stripe_cases():
-    return [(name, scale) for name in NAMES for scale in (8, 5)] + [("grid_2x2", 8), ("grid_2x2", 5)]
+    return [(name, scale) for name in NAMES for scale in SCALES] + [("grid_2x2", n) for n in SCALES]
 
 
 @pytest.mark.parametrize("name,scale", _stripe_cases())
@@ -248,7 +353,7 @@ def test_stripe_blocks_are_all_a_cta_reads(jpegs, name, scale):
     th, tw = (eff, eff) if grid else (h, w)
     shape = (len(tiles), th, tw, 3)
     want = jp.decode_batch_plain(image.coef, qt, comps, imgs, tt, torch.empty(shape, dtype=torch.uint8))
-    stripes, band_rows = jp.decode_grid(len(tiles), th, tw)
+    stripes, band_rows = jp.decode_grid(len(tiles), th, tw, lay)
     cs = comps.tolist()
     rng = np.random.default_rng(scale * 100 + len(name))
     checked = 0
@@ -269,7 +374,8 @@ def test_stripe_blocks_are_all_a_cta_reads(jpegs, name, scale):
                     xa = tile[2] + stripe * jp.STRIPE_W
                     first = xa >> 1 if fancy_h else xa // hf
                     width = c1 * s - (c0 * s - ((c0 * s - first) & 15))
-                    assert width <= jp._ring_row_bytes(fancy_h, hf, s) <= jp.RING_PITCH - jp.RING_SLACK
+                    room = jp.RING_PITCH - (jp.RING_SLACK if fancy_h else 0)
+                    assert width <= jp._ring_row_bytes(fancy_h, hf, s) <= room
                     blocks = keep[coef_off:coef_off + bw * bh * k * k].view(bh, bw, k * k)
                     blocks[r0:r1, c0:c1] = True
                 assert not keep.all() or stripes == 1 and th <= band_rows
@@ -291,13 +397,60 @@ def test_describe_batch_refuses_a_ring_row_past_the_pitch(jpegs, monkeypatch):
     image = native_loader.entropy_decode(jpegs[0]["q90_420"], 5)
     tiles = [(jp.TILE_DECODED, 0, 0, 0)]
     jp.describe_batch([image.meta], [0], tiles)
-    monkeypatch.setattr(jp, "RING_PITCH", 160)
-    with pytest.raises(ValueError, match="155 bytes of a ring row"):
+    monkeypatch.setattr(jp, "RING_PITCH", 152)
+    with pytest.raises(ValueError, match="155 bytes of a ring row; the kernel's rows hold 152"):
         jp.describe_batch([image.meta], [0], tiles)
     monkeypatch.undo()
     grey = native_loader.entropy_decode(jpegs[0]["gray"], 5)
-    monkeypatch.setattr(jp, "RING_PITCH", 160)
+    monkeypatch.setattr(jp, "RING_PITCH", 152)
     jp.describe_batch([grey.meta], [0], tiles)  # 5x5 luma: 150 bytes at most
+
+
+def test_ring_rows_take_the_14x14_chroma_and_slack_only_for_2x(jpegs, monkeypatch):
+    """At 7/8, 4:2:0 chroma takes 14x14 blocks at full width: 11 blocks
+    and a 15 byte pad, 169 bytes, within the 176 of a ring row. Only a 2x
+    horizontal upsampler reads RING_SLACK bytes past its last sample: 8x8
+    blocks upsampled h2v1 take up to 95 bytes and need 103."""
+    tiles = [(jp.TILE_DECODED, 0, 0, 0)]
+    image = native_loader.entropy_decode(jpegs[0]["q90_420"], 7)
+    assert [c.size for c in image.components] == [7, 14, 14] and jp.RING_PITCH == 176
+    jp.describe_batch([image.meta], [0], tiles)
+    monkeypatch.setattr(jp, "RING_PITCH", 168)
+    with pytest.raises(ValueError, match="169 bytes of a ring row; the kernel's rows hold 168"):
+        jp.describe_batch([image.meta], [0], tiles)
+    # one component of 8x8 blocks upsampled h2v1 (mode, factors, downsampled size)
+    image = [1, 0, 256, 64, 0, jp.UP_H2V1, 2, 1, 128, 64]
+    monkeypatch.setattr(jp, "RING_PITCH", 103)
+    jp._check_ring([8], image)
+    monkeypatch.setattr(jp, "RING_PITCH", 102)
+    with pytest.raises(ValueError, match="95 bytes of a ring row; the kernel's rows hold 94"):
+        jp._check_ring([8], image)
+    monkeypatch.setattr(jp, "RING_PITCH", 95)
+    jp._check_ring([8], [1, 0, 128, 64, 0, jp.UP_BOX, 2, 1, 64, 64])  # boxed 2x: 87 bytes, no slack
+
+
+@pytest.mark.parametrize("slots, scale, unit, grid", [(129, 8, 16, (8, 320)), (129, 5, 10, (5, 160)),
+                                                      (9, 8, 16, (8, 80)), (129, 4, 8, (4, 64)),
+                                                      (129, 1, 2, (1, 4)), (129, 7, 14, (7, 182)),
+                                                      (129, 3, 6, (3, 36))])
+def test_decode_grid_bands_step_80_rows_at_8_8_and_5_8(slots, scale, unit, grid):
+    """Batches of 4:2:0 tiles (b128 and b8, and the zero slot): at 8/8 and
+    5/8 bands step BAND_ROWS (1024 px tiles at b128 in 320-row bands, as
+    before the other scales), at the other scales the MCU height."""
+    tile = 128 * scale
+    lay = jp.BatchLayout(n_comps=3, n_images=1, n_slots=slots, plane_bytes=0, band_unit=unit, scale=scale)
+    assert jp.decode_grid(slots, tile, tile, lay) == grid
+    assert grid[1] % (jp.BAND_ROWS if scale in jp.BAND_ROWS_SCALES else unit) == 0
+
+
+def test_describe_batch_takes_one_scale(jpegs):
+    """The kernel is built per scale: a batch's layout names its one
+    scale, and images at two scales are refused before any launch."""
+    at = {n: native_loader.entropy_decode(jpegs[0]["q90_420"], n) for n in (8, 3)}
+    for n, image in at.items():
+        assert jp.describe_batch([image.meta] * 2, [0, 0], [])[1].scale == n
+    with pytest.raises(ValueError, match=r"one scale; its images are at \[3, 8\]"):
+        jp.describe_batch([at[8].meta, at[3].meta], [0, 0], [])
 
 
 def test_failed_nvcc_build_raises_with_its_output(tmp_path, monkeypatch):

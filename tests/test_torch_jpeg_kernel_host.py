@@ -67,7 +67,8 @@ using std::min;
 
 LAUNCHER = r"""
 extern "C" void host_decode(const void* coef, const void* qt, const void* comps, const void* images,
-                            const void* tiles, int n_slots, int th, int tw, int band_rows, void* out) {
+                            const void* tiles, int n_slots, int th, int tw, int band_rows, int scale, void* out) {
+  const KernelFn kernel = kernel_for(scale);
   const int gx = (tw + STRIPE_W - 1) / STRIPE_W, gz = (th + band_rows - 1) / band_rows;
   for (int z = 0; z < gz; ++z)
     for (int y = 0; y < n_slots; ++y)
@@ -84,8 +85,8 @@ extern "C" void host_decode(const void* coef, const void* qt, const void* comps,
             blockIdx.x = x;
             blockIdx.y = y;
             blockIdx.z = z;
-            jpeg_decode_kernel((const int16_t*)coef, (const int*)qt, (const int*)comps, (const int*)images,
-                               (const int*)tiles, th, tw, band_rows, (uint8_t*)out);
+            kernel((const int16_t*)coef, (const int*)qt, (const int*)comps, (const int*)images,
+                   (const int*)tiles, th, tw, band_rows, (uint8_t*)out);
           });
         for (auto& t : threads) t.join();
       }
@@ -103,6 +104,7 @@ CASES = (
     ("tiny_420", (3, 2), dict(quality=90)),               # box upsampling
 )
 NAMES = [c[0] for c in CASES]
+SCALES = tuple(range(1, 9))
 
 
 @pytest.fixture(scope="module")
@@ -119,7 +121,7 @@ def host_kernel(tmp_path_factory):
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     lib = ctypes.CDLL(str(so))
-    lib.host_decode.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.host_decode.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.host_decode.restype = None
     lib.aq_jpeg_stripe_blocks.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.aq_jpeg_stripe_blocks.restype = ctypes.c_int
@@ -152,27 +154,29 @@ def _batch(images, eff, caller=False):
         tiles.append((jp.TILE_CALLER, 0, 0, 0))
     packed, lay = jp.describe_batch([im.meta for im in images], offs, tiles)
     th, tw = (eff, eff) if eff else (images[0].out_height, images[0].out_width)
-    return jp.unpack_batch(torch.from_numpy(packed), lay), tiles, th, tw
+    return jp.unpack_batch(torch.from_numpy(packed), lay), lay, tiles, th, tw
 
 
 def _decode_both(lib, images, eff, band_rows=None, caller=False):
     """(kernel on the host, plain) outputs of one batch (``_batch``); both
     outputs start as 7s."""
-    (qt, comps, imgs, tt), tiles, th, tw = _batch(images, eff, caller)
+    (qt, comps, imgs, tt), lay, tiles, th, tw = _batch(images, eff, caller)
     coef = torch.cat([im.coef for im in images]).contiguous()
     out = torch.full((len(tiles), th, tw, 3), 7, dtype=torch.uint8)
     want = jp.decode_batch_plain(coef, qt, comps, imgs, tt, out.clone())
-    rows = band_rows or jp.decode_grid(len(tiles), th, tw)[1]
+    rows = band_rows or jp.decode_grid(len(tiles), th, tw, lay)[1]
     lib.host_decode(coef.data_ptr(), qt.data_ptr(), comps.data_ptr(), imgs.data_ptr(), tt.data_ptr(), len(tiles),
-                    th, tw, rows, out.data_ptr())
+                    th, tw, rows, lay.scale, out.data_ptr())
     return out, want
 
 
-@pytest.mark.parametrize("scale", [8, 5])
+@pytest.mark.parametrize("scale", SCALES)
 @pytest.mark.parametrize("name", NAMES)
 def test_kernel_source_equals_plain_on_whole_images(host_kernel, name, scale):
-    """Each image whole, in the wrapper's bands and in bands of 8 rows
-    (steps cut short at the band's edges, context rows recomputed)."""
+    """Each image whole at every N/8 (every IDCT size: 7/8 puts 4:2:0
+    chroma through the 14x14 and a ring row's widest stripe), in the
+    wrapper's bands and in bands of 8 rows (steps cut short at the band's
+    edges, context rows recomputed)."""
     lib, paths = host_kernel
     image = native_loader.entropy_decode(paths[name], scale)
     for band_rows in (None, 8):
@@ -180,7 +184,7 @@ def test_kernel_source_equals_plain_on_whole_images(host_kernel, name, scale):
         assert torch.equal(got, want), (band_rows, int((got != want).sum()))
 
 
-@pytest.mark.parametrize("scale,eff", [(8, 32), (8, 20), (5, 20)])
+@pytest.mark.parametrize("scale,eff", [(8, 32), (8, 20), (5, 20), (7, 28)])
 def test_kernel_source_equals_plain_on_a_tile_grid(host_kernel, scale, eff):
     """All cases in one batch on a grid of ``eff`` px tiles, with a zero
     slot and a caller slot, which stays untouched. At 8/8, 20 px origins
@@ -208,7 +212,7 @@ def test_kernel_source_equals_plain_at_an_odd_tile_origin(host_kernel, tmp_path)
     assert torch.equal(got, want), int((got != want).sum())
 
 
-@pytest.mark.parametrize("scale", [8, 5])
+@pytest.mark.parametrize("scale", SCALES)
 def test_stripe_blocks_are_the_kernels(host_kernel, scale):
     """``jpeg_plain.stripe_blocks`` (whose blocks the CPU stripe test shows
     are all a CTA's pixels read) names the blocks the kernel's own set-up
@@ -219,9 +223,9 @@ def test_stripe_blocks_are_the_kernels(host_kernel, scale):
     batches = [([im], 0) for im in images] + [(images, eff) for eff in (32, 20)]
     checked = 0
     for batch, eff in batches:
-        (qt, comps, imgs, tt), tiles, th, tw = _batch(batch, eff, caller=True)
+        (qt, comps, imgs, tt), lay, tiles, th, tw = _batch(batch, eff, caller=True)
         cs, ims = comps.tolist(), imgs.tolist()
-        stripes, wrapper_rows = jp.decode_grid(len(tiles), th, tw)
+        stripes, wrapper_rows = jp.decode_grid(len(tiles), th, tw, lay)
         for band_rows in (wrapper_rows, 8):
             for slot, tile in enumerate(tiles):
                 for stripe in range(stripes):

@@ -13,9 +13,6 @@ resize the port runs. The port's own device loader (data/native_loader.py)
 is held against the JAX native loader in tests/test_torch_native_loader.py.
 """
 
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 from PIL import Image
@@ -26,8 +23,8 @@ from aquaculture_tpu.config import DetectConfig as JaxDetectConfig
 from aquaculture_tpu_torch.config import DetectConfig
 from aquaculture_tpu_torch.data import loader as tloader
 from aquaculture_tpu_torch.pipeline import detect_files
+from torch_jax_native import jax_native_loader
 
-REPO = Path(__file__).resolve().parent.parent
 
 
 def _spec_key(s):
@@ -108,17 +105,11 @@ def test_detect_files_refuses_what_jax_refuses(rasters, img, kw):
 @pytest.fixture(scope="module")
 def jax_native():
     """The JAX package's native loader over native/libaquatile.so, built
-    with make if it is missing (as tests/test_native.py does)."""
-    if not (REPO / "native" / "libaquatile.so").exists():
-        try:
-            subprocess.run(["make", "-C", str(REPO / "native")], check=True, capture_output=True)
-        except (subprocess.CalledProcessError, FileNotFoundError):
-            pytest.skip("native toolchain unavailable")
-    from aquaculture_tpu.data import native_loader
-
-    if not native_loader.available():
-        pytest.skip("libaquatile.so failed to load")
-    return native_loader
+    with make if it is missing (``torch_jax_native.jax_native_loader``)."""
+    jn = jax_native_loader()
+    if jn is None:
+        pytest.skip("libaquatile.so does not build or load here")
+    return jn
 
 
 def _by_spec(batches):
@@ -149,10 +140,13 @@ def test_python_loader_equals_jax_native_loader_on_tiff(jax_native, rasters, tmp
 
 
 def test_detect_files_names_the_python_loader(rasters):
+    """use_native=False serves decode-at-scale through the Python loader
+    (by default a JPEG takes the device loader at every N/8) and
+    ``stats.loader`` names it."""
     from aquaculture_tpu_torch.models.weights import load_jax_params
     from aquaculture_tpu_torch.models.yolov5 import yolov5_init
 
     model = load_jax_params(*yolov5_init("n", num_classes=2))
     *_, stats = detect_files([rasters["jpg"]], model, DetectConfig(img_size=128, conf_threshold=1e-5),
-                             batch_size=1, device="cpu", decode_scale=True)
+                             batch_size=1, device="cpu", decode_scale=True, use_native=False)
     assert stats.loader == "python" and stats.tiles == 1 and stats.detections > 0

@@ -5,21 +5,27 @@ On the CPU the loader runs the host entropy decode and the plain versions
 of its kernels, so its tiles can be held to libjpeg-turbo's byte for byte
 (tolerance 0): the same tile keys and bytes as the JAX package's
 ``native_tile_batches`` on a mixed corpus (1024 and 2048 px JPEG rasters,
-a TIFF, a TIFF named .jpg, a corrupt .jpg), at full size and at 5/8
-(640 px from 1024). The JAX loader's tile order varies from run to run, so
-the comparison is by tile key; the port's order is the Python loader's.
-Also: files routed and counted by content (TIFF and progressive JPEG to
-PIL, the corrupt file skipped), routed rasters no larger than a slot
-zero-padded into it at 8/8 and 5/8, 3/8 refused with a pointer to the
-ROADMAP, an early close that does not hang, ``detect_files(use_native=True)``
+progressive ones, a TIFF, a TIFF named .jpg, a corrupt .jpg), at full size
+and at every N/8 of the tile; ``decode_image_scaled`` and the tile
+batches at every N/8 for each sampling, restart intervals and an odd size,
+and for progressive (spectral selection alone, and with successive
+approximation) and multi-scan sequential files. The JAX loader's tile
+order varies from run to run, so the comparison is by tile key; the
+port's order is the Python loader's. Also: files routed and counted by
+content (TIFF, 4:1:1 and a progressive JPEG whose scans stop short to
+PIL, the corrupt file skipped; arithmetic, CMYK, 12-bit and lossless
+files against the JAX loader), routed rasters no larger than a slot
+zero-padded into it, an early close that does not hang,
+``detect_files(use_native=True)`` and ``detect_files(decode_scale=True)``
 against the JAX package's, and the accuracy harness on the device loader.
 """
 
-import subprocess
+import struct
 import threading
 import time
 from pathlib import Path
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -28,6 +34,7 @@ from PIL import Image
 from aquaculture_tpu_torch.config import DetectConfig
 from aquaculture_tpu_torch.data import jpeg_cuda, loader as tloader, native_loader
 from aquaculture_tpu_torch.pipeline import PipelineStats, detect_files
+from torch_jax_native import jax_native_loader, libjpeg_writer, write_jpeg
 
 REPO = Path(__file__).resolve().parent.parent
 PREFIX = "ORTHOIMAGERY.ORTHOPHOTOS2019"
@@ -45,10 +52,10 @@ def aerial(rng, h, w):
 def corpus(tmp_path_factory):
     """Tile-codec-named files: JPEG rasters of 2048 (4:2:0) and 1024 px
     (4:4:4, restart intervals), a 1000 x 750 JPEG, a TIFF, a TIFF named
-    .jpg, a corrupt .jpg, a 1000 x 750 TIFF and, apart, progressive JPEGs of
-    1024 and 1000 x 750 px; and the JAX native
-    loader (built with make as tests/test_native.py builds it; None if that
-    build fails)."""
+    .jpg, a corrupt .jpg, a 1000 x 750 TIFF, progressive JPEGs of 1024 and
+    1000 x 750 px and, apart, a 1000 x 750 4:1:1 JPEG (the entropy decoder
+    takes sampling factors 1 and 2 only); and the JAX native loader
+    (``jax_native_loader``: None if it does not build here)."""
     d = tmp_path_factory.mktemp("corpus")
     rng = np.random.default_rng(5)
     files = {}
@@ -67,22 +74,20 @@ def corpus(tmp_path_factory):
     save("progressive", "7_0_0.jpg", 1024, 1024, quality=90, progressive=True)
     save("small_tiff", "9_0_0.tif", 750, 1000)
     save("small_progressive", "10_0_0.jpg", 750, 1000, quality=90, progressive=True)
+    p411 = d / f"{PREFIX}_11_0_0.jpg"
+    cv2.imwrite(str(p411), aerial(rng, 750, 1000), [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
+    files["small_411"] = str(p411)
     corrupt = d / f"{PREFIX}_8_0_0.jpg"
     # a JFIF header and then no marker: neither decoder finds a frame
     junk = np.random.default_rng(0).integers(0, 255, 4000, dtype=np.uint8).tobytes()  # no 0xFF byte
     corrupt.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00" + junk)
     files["corrupt"] = str(corrupt)
-    jax_native = None
-    if not (REPO / "native" / "libaquatile.so").exists():
-        subprocess.run(["make", "-C", str(REPO / "native")], capture_output=True)
-    if (REPO / "native" / "libaquatile.so").exists():
-        from aquaculture_tpu.data import native_loader as jn
-
-        jax_native = jn if jn.available() else None
-    return files, jax_native
+    return files, jax_native_loader()
 
 
-MIXED = ("raster", "tile444", "restart", "small", "tiff", "tiff_as_jpg", "corrupt", "small_tiff")
+MIXED = ("raster", "tile444", "restart", "small", "tiff", "tiff_as_jpg", "corrupt", "small_tiff", "progressive",
+         "small_progressive")
 
 
 def _key(s):
@@ -99,7 +104,7 @@ def _by_key(batches):
     return out
 
 
-@pytest.mark.parametrize("out_tile", [0, 640])
+@pytest.mark.parametrize("out_tile", [0, 128, 256, 384, 512, 640, 768, 896])
 def test_native_tile_batches_equal_jax_native_loader(corpus, out_tile):
     files, jn = corpus
     if jn is None:
@@ -110,7 +115,7 @@ def test_native_tile_batches_equal_jax_native_loader(corpus, out_tile):
                                                      device="cpu", counts=counts))
     got = _by_key(batches)
     want = _by_key(jn.native_tile_batches(paths, batch_size=3, tile=1024, out_tile=out_tile))
-    assert sorted(got) == sorted(want) and len(got) == 4 + 1 + 1 + 1 + 2 + 1 + 1
+    assert sorted(got) == sorted(want) and len(got) == 4 + 1 + 1 + 1 + 2 + 1 + 1 + 1 + 1
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     eff = out_tile or 1024
@@ -119,16 +124,17 @@ def test_native_tile_batches_equal_jax_native_loader(corpus, out_tile):
     assert [_key(s)[1:4] for b in batches for s in b.specs if s][:5] == [
         (1, 0, 0), (1, 0, 1024), (1, 1024, 0), (1, 1024, 1024), (2, 1024, 0)]
     tail = batches[-1]
-    assert tail.valid.tolist() == [True, True, False] and (tail.images[2:] == 0).all()
-    assert counts == {"device": 4, "pil": 0 if out_tile else 3, "pil_resize": 3 if out_tile else 0, "skipped": 1}
+    assert tail.valid.tolist() == [True, False, False] and (tail.images[1:] == 0).all()
+    assert counts == {"device": 6, "pil": 0 if out_tile else 3, "pil_resize": 3 if out_tile else 0, "skipped": 1}
 
 
 @pytest.mark.parametrize("out_tile", [0, 640])
 def test_routed_rasters_no_larger_than_a_slot_are_zero_padded(corpus, out_tile):
-    """A TIFF and a progressive JPEG of 1000 x 750 (625 x 469 at 5/8) fill
-    one zero-padded slot each, as in the Python loader's batches."""
+    """A TIFF and a 4:1:1 JPEG of 1000 x 750 (625 x 469 at 5/8), both
+    through PIL, fill one zero-padded slot each, as in the Python loader's
+    batches."""
     files, _ = corpus
-    paths = [files["small_tiff"], files["small_progressive"]]
+    paths = [files["small_tiff"], files["small_411"]]
     counts = {}
     got = list(native_loader.native_tile_batches(paths, batch_size=2, tile=1024, out_tile=out_tile,
                                                  device="cpu", counts=counts))
@@ -154,49 +160,274 @@ def test_full_size_tiles_equal_the_python_loader(corpus):
         np.testing.assert_array_equal(g.valid, w.valid)
 
 
-def test_progressive_jpeg_is_routed_to_pil_and_counted(corpus):
-    files, jn = corpus
-    path = files["progressive"]
-    assert native_loader.probe(path)[0] == native_loader.KIND_OTHER_JPEG  # SOF2, from the header
+def _unfinished_progressive(path: str, out: Path) -> str:
+    """The first five scans of a PIL progressive JPEG (jpeg_simple_progression:
+    DC and AC bands with their low bits still to come), then EOI: an
+    interrupted progressive download."""
+    data = Path(path).read_bytes()
+    sos = [i for i in range(len(data) - 1) if data[i] == 0xFF and data[i + 1] == 0xDA]
+    out.write_bytes(data[:sos[5]] + b"\xff\xd9")
+    return str(out)
+
+
+def test_progressive_jpeg_is_routed_to_pil_and_counted(corpus, tmp_path):
+    """A progressive JPEG whose scans leave AC coefficients 1..9 short of
+    their last bits: libjpeg smooths such blocks (jdcoefct.c), so the
+    markers route it to PIL (kind OTHER_JPEG, with the frame's size), and
+    it is counted there. The JAX package's libjpeg-turbo smooths with
+    another version's filter than PIL's (ROADMAP.md, section 3), so only
+    the PIL route's bytes are held here."""
+    files, _ = corpus
+    path = _unfinished_progressive(files["progressive"], tmp_path / f"{PREFIX}_12_0_0.jpg")
+    meta = native_loader.probe(path)
+    assert meta[0] == native_loader.KIND_OTHER_JPEG and meta[1:3].tolist() == [1024, 1024]
     counts = {}
     (batch,) = native_loader.native_tile_batches([path, files["corrupt"]], batch_size=2, tile=1024,
                                                  device="cpu", counts=counts)
     assert counts == {"device": 0, "pil": 1, "pil_resize": 0, "skipped": 1}
     np.testing.assert_array_equal(batch.images[0].numpy(), np.asarray(Image.open(path).convert("RGB")))
-    if jn is not None:
-        np.testing.assert_array_equal(batch.images[0].numpy(), jn.decode_image(path))
     assert native_loader.decode_image(files["corrupt"], "cpu") is None
+
+
+def test_progressive_sizes_reach_the_metadata(corpus):
+    """A progressive JPEG's frame size is read from its SOF2, so
+    decode_image_scaled takes libjpeg's scale: 640 px from 1024 at target
+    640, not the full size."""
+    files, jn = corpus
+    path = files["progressive"]
+    meta = native_loader.probe(path)
+    assert meta[0] == native_loader.KIND_BASELINE and meta[1:3].tolist() == [1024, 1024]
+    got = native_loader.decode_image_scaled(path, 640, "cpu")
+    assert tuple(got.shape) == (640, 640, 3)
+    if jn is not None:
+        np.testing.assert_array_equal(got.numpy(), jn.decode_image_scaled(path, 640))
 
 
 def test_decode_image_equals_jax(corpus):
     files, jn = corpus
     if jn is None:
         pytest.skip("native/libaquatile.so does not build here")
-    for key in ("raster", "small", "tiff"):
+    for key in ("raster", "small", "tiff", "progressive", "small_progressive"):
         np.testing.assert_array_equal(native_loader.decode_image(files[key], "cpu").numpy(),
                                       jn.decode_image(files[key]))
-    for key, target in (("tile444", 640), ("small", 625), ("tiff", 640)):
+    for key, target in (("tile444", 640), ("small", 625), ("tiff", 640), ("tile444", 384),
+                        ("small_progressive", 250), ("progressive", 896)):
         np.testing.assert_array_equal(native_loader.decode_image_scaled(files[key], target, "cpu").numpy(),
                                       jn.decode_image_scaled(files[key], target))
 
 
-def test_scale_3_8_raises_and_detect_files_takes_the_python_loader(corpus):
-    files, _ = corpus
-    with pytest.raises(ValueError, match="3/8 is still to port.*ROADMAP"):
-        native_loader.native_tile_batches([files["tile444"]], batch_size=1, tile=1024, out_tile=384, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        native_loader.decode_image_scaled(files["tile444"], 384, "cpu")
-    assert not native_loader.supports_scale(384, 1024) and native_loader.supports_scale(640, 1024)
+@pytest.mark.parametrize("img", [384, 512])
+def test_detect_files_decode_scale_takes_the_device_loader(corpus, img):
+    """detect_files(decode_scale=True) at 3/8 and 4/8 of 1024 px tiles
+    takes the device loader by default, as the JAX package takes its
+    native loader: its tiles are the JAX native loader's, and its rows
+    the JAX package's detect_files (f32, the n model at seed 7) within
+    the f32 serving programs' tolerance (boxes within a pixel after
+    truncation, confidences 1e-5)."""
+    from aquaculture_tpu.config import DetectConfig as JaxDetectConfig
+    from aquaculture_tpu.models.yolov5 import yolov5_init as jax_init
+    from aquaculture_tpu.pipeline import detect_files as jax_detect_files
     from aquaculture_tpu_torch.models.weights import load_jax_params
     from aquaculture_tpu_torch.models.yolov5 import yolov5_init
 
-    model = load_jax_params(*yolov5_init("n", num_classes=2))
-    *_, stats = detect_files([files["tile444"]], model, DetectConfig(img_size=384, conf_threshold=1e-5),
-                             batch_size=1, device="cpu", decode_scale=True)
-    assert stats.loader == "python" and stats.tiles == 1 and stats.files == {}
+    files, jn = corpus
+    if jn is None:
+        pytest.skip("native/libaquatile.so does not build here")
+    paths = [files["raster"], files["progressive"]]
+    got = _by_key(native_loader.native_tile_batches(paths, batch_size=5, tile=1024, out_tile=img, device="cpu"))
+    want = _by_key(jn.native_tile_batches(paths, batch_size=5, tile=1024, out_tile=img))
+    assert sorted(got) == sorted(want) and len(got) == 5
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    jmodel, jparams = jax_init("n", num_classes=5, seed=7)
+    model, params = yolov5_init("n", num_classes=5, seed=7)
+    load_jax_params(model, params)
+    kw = dict(img_size=img, conf_threshold=3e-5, max_detections=50, dtype="float32")
+    jb, jc, jk, jspecs, jstats = jax_detect_files(paths, jmodel, jmodel.fuse(jparams), JaxDetectConfig(**kw),
+                                                  batch_size=5, decode_scale=True)
+    jpeg_cuda.decode_launches = 0
+    tb, tc, tk, tspecs, stats = detect_files(paths, model, DetectConfig(**kw), batch_size=5, device="cpu",
+                                             decode_scale=True)
+    assert stats.loader == "device" and stats.tiles == 5 and jstats.tiles == 5
+    assert stats.files == {"device": 2, "pil": 0, "pil_resize": 0, "skipped": 0}
+    assert jpeg_cuda.decode_launches == 0  # the CPU path never touches the kernel
+
+    def rows(b, c, k, specs):
+        order = sorted(range(len(c)), key=lambda i: (_key(specs[i]), -c[i], tuple(b[i])))
+        return [(_key(specs[i]), b[i], c[i], k[i]) for i in order]
+
+    g, w = rows(tb, tc, tk, tspecs), rows(jb, jc, jk, jspecs)
+    assert len(g) == len(w) > 0
+    for (gs, gb, gc, gk), (ws, wb, wc, wk) in zip(g, w):
+        assert gs == ws and gk == wk
+        assert np.abs(gb - wb).max() <= 1 and abs(gc - wc) <= 1e-5
     if not torch.cuda.is_available():  # no CPU fallback for a CUDA request
         with pytest.raises(RuntimeError, match="device='cpu'"):
             native_loader.native_tile_batches([files["tile444"]], device="cuda")
+
+
+# (name, (height, width), PIL save options, "gray", "440" through OpenCV, or
+# (libjpeg writer mode, restart rows, luma sampling; None for grey))
+SCALE_CASES = (
+    ("420", (512, 1024), dict(quality=90)),
+    ("422", (512, 1024), dict(quality=90, subsampling=1)),
+    ("440", (512, 1024), "440"),
+    ("444", (512, 1024), dict(quality=85, subsampling=0)),
+    ("gray", (512, 1024), "gray"),
+    ("restart", (512, 1024), dict(quality=90, restart_marker_blocks=11)),
+    ("1000x750", (750, 1000), dict(quality=90)),
+    ("progressive", (512, 1024), dict(quality=90, progressive=True)),
+    ("spectral", (512, 1024), ("spectral", 0, (2, 2))),
+    ("spectral_422_restart", (512, 1024), ("spectral", 1, (2, 1))),
+    ("multiscan", (512, 1024), ("multiscan", 0, (2, 2))),
+    ("multiscan_gray", (512, 1024), ("multiscan", 0, None)),
+)
+EVERY_SCALE = ("420", "422", "440", "444", "gray", "restart", "1000x750")
+PROGRESSIVE = ("progressive", "spectral", "spectral_422_restart", "multiscan", "multiscan_gray")
+
+
+@pytest.fixture(scope="module")
+def scale_corpus(tmp_path_factory):
+    """One JPEG per case of ``SCALE_CASES``: 1024 x 512 rasters (two 512 px
+    tiles) and a 1000 x 750 one; the progressive and multi-scan files
+    through libjpeg's own encoder (``torch_jax_native.WRITER``; absent if
+    it does not build here); and the JAX native loader."""
+    d = tmp_path_factory.mktemp("scales")
+    rng = np.random.default_rng(15)
+    writer = libjpeg_writer(d)
+    files = {}
+    for i, (name, (h, w), how) in enumerate(SCALE_CASES):
+        img = aerial(rng, h, w)
+        p = d / f"{PREFIX}_{i + 1}_0_0.jpg"
+        if how == "gray":
+            Image.fromarray(img[..., 1]).save(p, quality=90)
+        elif how == "440":
+            cv2.imwrite(str(p), img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
+        elif isinstance(how, tuple):
+            if writer is None:
+                continue
+            mode, restart_rows, luma = how
+            write_jpeg(writer, img if luma else img[..., 1], p, mode, 90, restart_rows, luma or (1, 1))
+        else:
+            Image.fromarray(img).save(p, **how)
+        files[name] = str(p)
+    return files, jax_native_loader()
+
+
+def _scale_case(scale_corpus, name):
+    files, jn = scale_corpus
+    if jn is None:
+        pytest.skip("native/libaquatile.so does not build here")
+    if name not in files:
+        pytest.skip("the libjpeg writer does not build here")
+    return files[name], jn
+
+
+def _equal_jax_at(path, jn, scale):
+    """decode_image_scaled and native_tile_batches at scale/8 against the
+    JAX native loader: tiles of 512 px (1024 for the 1000 x 750 raster),
+    out_tile its scale/8."""
+    w, h = Image.open(path).size
+    if scale == 8:
+        got, want = native_loader.decode_image(path, "cpu").numpy(), jn.decode_image(path)
+    else:
+        target = max(w, h) * scale // 8
+        got = native_loader.decode_image_scaled(path, target, "cpu").numpy()
+        want = jn.decode_image_scaled(path, target)
+    assert got.shape == want.shape == (-(-h * scale // 8), -(-w * scale // 8), 3)
+    np.testing.assert_array_equal(got, want)
+    tile = 1024 if w == 1000 else 512
+    out_tile = 0 if scale == 8 else tile * scale // 8
+    counts = {}
+    got = _by_key(native_loader.native_tile_batches([path], batch_size=2, tile=tile, out_tile=out_tile, device="cpu",
+                                                    counts=counts))
+    want = _by_key(jn.native_tile_batches([path], batch_size=2, tile=tile, out_tile=out_tile))
+    assert sorted(got) == sorted(want) and len(got) == (1 if w == 1000 else 2)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    assert counts["device"] == 1
+
+
+@pytest.mark.parametrize("scale", range(1, 8))
+@pytest.mark.parametrize("name", EVERY_SCALE)
+def test_every_scale_equals_jax_native_loader(scale_corpus, name, scale):
+    """Each sampling, restart intervals and an odd size at every proper
+    N/8: the whole image (``decode_image_scaled``) and the tile batches
+    equal the JAX native loader's, byte for byte."""
+    _equal_jax_at(*_scale_case(scale_corpus, name), scale)
+
+
+@pytest.mark.parametrize("scale", [8, 5, 4])
+@pytest.mark.parametrize("name", PROGRESSIVE)
+def test_progressive_and_multi_scan_equal_jax_native_loader(scale_corpus, name, scale):
+    """Progressive JPEG by spectral selection alone (4:2:0, and 4:2:2 with
+    a restart interval) and with successive approximation (PIL's
+    progressive=True), and sequential JPEG in one scan per component, go
+    through the entropy decoder and the kernel's plain version, equal to
+    the JAX native loader at 8/8, 5/8 and 4/8."""
+    path, jn = _scale_case(scale_corpus, name)
+    meta = native_loader.probe(path)
+    assert meta[0] == native_loader.KIND_BASELINE
+    assert meta[12] == (0xC0 if name.startswith("multiscan") else 0xC2)
+    _equal_jax_at(path, jn, scale)
+
+
+def _hand_made(kind: str, path: Path) -> str:
+    """An 8 x 8 grey JPEG of flat 128, written byte by byte: "12bit"
+    (extended sequential at 12 bits) or "lossless" (SOF3, predictor 1),
+    every difference coded as category 0 by a one-code Huffman table."""
+    def seg(m, body):
+        return b"\xff" + bytes([m]) + struct.pack(">H", len(body) + 2) + body
+
+    dc = seg(0xC4, bytes([0x00, 1] + [0] * 15 + [0]))
+    if kind == "12bit":
+        body = (seg(0xDB, bytes([0] + [1] * 64)) + dc + seg(0xC4, bytes([0x10, 1] + [0] * 15 + [0])) +
+                seg(0xC1, bytes([12]) + struct.pack(">HH", 8, 8) + bytes([1, 1, 0x11, 0])) +
+                seg(0xDA, bytes([1, 1, 0x00, 0, 63, 0])) + b"\x00")
+    else:
+        body = (dc + seg(0xC3, bytes([8]) + struct.pack(">HH", 8, 8) + bytes([1, 1, 0x11, 0])) +
+                seg(0xDA, bytes([1, 1, 0x00, 1, 0, 0])) + b"\x00" * 8)
+    path.write_bytes(b"\xff\xd8" + body + b"\xff\xd9")
+    return str(path)
+
+
+def test_other_jpeg_processes_keep_their_route(corpus, tmp_path):
+    """Arithmetic coding, CMYK, 12-bit and lossless JPEG: the markers give
+    kind OTHER_JPEG and the frame's size, and the file goes to PIL. Against
+    the JAX native loader (libjpeg-turbo 2.1 here; ROADMAP.md, section 3
+    records the differences): arithmetic equal at 8/8; CMYK and lossless
+    skipped by the JAX loader, decoded by PIL in the port; 12-bit read by
+    neither (the port's PIL route raises where the JAX loader skips)."""
+    from PIL import UnidentifiedImageError
+
+    files, jn = corpus
+    writer = libjpeg_writer(tmp_path)
+    img = aerial(np.random.default_rng(4), 96, 128)
+    paths = {"12bit": _hand_made("12bit", tmp_path / "p12.jpg"),
+             "lossless": _hand_made("lossless", tmp_path / "ll.jpg")}
+    Image.fromarray(np.concatenate([img, img[..., :1]], -1), "CMYK").save(tmp_path / "cmyk.jpg", quality=90)
+    paths["cmyk"] = str(tmp_path / "cmyk.jpg")
+    if writer is not None:
+        paths["arith"] = write_jpeg(writer, img, tmp_path / "arith.jpg", "arith")
+    sizes = {"12bit": [8, 8], "lossless": [8, 8], "cmyk": [128, 96], "arith": [128, 96]}
+    sofs = {"12bit": 0xC1, "lossless": 0xC3, "cmyk": 0xC0, "arith": 0xC9}
+    for name, path in paths.items():
+        meta = native_loader.probe(path)
+        assert meta[0] == native_loader.KIND_OTHER_JPEG and meta[1:3].tolist() == sizes[name], name
+        assert meta[12] == sofs[name], name
+    with pytest.raises(UnidentifiedImageError):
+        native_loader.decode_image(paths["12bit"], "cpu")
+    assert (native_loader.decode_image(paths["lossless"], "cpu") == 128).all()
+    np.testing.assert_array_equal(native_loader.decode_image(paths["cmyk"], "cpu").numpy(),
+                                  np.asarray(Image.open(paths["cmyk"]).convert("RGB")))
+    if jn is None:
+        return
+    for name in ("12bit", "lossless", "cmyk"):
+        assert jn.decode_image(paths[name]) is None, name
+    if "arith" in paths:
+        np.testing.assert_array_equal(native_loader.decode_image(paths["arith"], "cpu").numpy(),
+                                      jn.decode_image(paths["arith"]))
 
 
 def test_early_close_does_not_hang(corpus):
