@@ -12,7 +12,9 @@
 // scaled size (jpeg_idct_islow for 8x8; jidctred.c's 1x1, 2x2 and 4x4;
 // jidctint.c's 3x3, 5x5, 6x6, 7x7 and the 10x10, 12x12 and 14x14 that
 // 4:2:0 chroma takes at 5/8, 6/8 and 7/8), libjpeg's range-limit table,
-// jdsample.c's fancy upsampling, jdcolor.c's fixed-point tables. All of
+// jdsample.c's fancy upsampling and its box upsampling by 1 to 4 (the
+// integral factors of sampling factors 1..4), jdcolor.c's fixed-point
+// YCbCr tables, its grey replication and its RGB copy. All of
 // it is integer, so any split across threads gives the same bytes. The
 // plain version is data/jpeg_plain.py's decode_batch_plain; chip_smoke.py
 // holds the kernel against it with torch.equal.
@@ -66,8 +68,9 @@
 // Descriptors, all int32 (data/jpeg_plain.py builds them):
 //   comps  (8 per component of each image): coef_off, plane_off, blocks_w,
 //          blocks_h, K, S, qt_off, plane_w (plane_* serve the plain version)
-//   images (20 per image): ncomp, comp_base, out_w, out_h, color, then per
-//          component: mode, h factor, v factor, downsampled w, downsampled h
+//   images (20 per image): ncomp, comp_base, out_w, out_h, color (0 grey,
+//          1 YCbCr, 2 RGB), then per component: mode, h factor, v factor,
+//          downsampled w, downsampled h
 //   tiles  (4 per batch slot): kind (0 zero, 1 decoded, 2 left to the
 //          caller), image, x and y origin in decoded pixels
 
@@ -105,6 +108,7 @@ static_assert(WS_ROWS * WS_PITCH <= WS_STRIDE, "pass 1 writes WS_ROWS rows at a 
 constexpr int RUN = 16;              // output pixels per colour-pass item
 
 enum { UP_FULL = 0, UP_H2V1, UP_H1V2, UP_H2V2, UP_BOX };
+enum { COLOR_GREY = 0, COLOR_YCC, COLOR_RGB };
 
 #define FIX(x) ((int)((x) * (1 << CONST_BITS) + 0.5))
 
@@ -833,16 +837,23 @@ __device__ __forceinline__ void put_byte(uint32_t* w, int k, int v) { w[k >> 2] 
 // [0, n_in) inside the image, [n_in, n) zero. The colour pass's slow path
 // (the image's right edge, odd origins, rows off the 16-byte grid, layouts
 // without a run path); kept out of line so that it is compiled once.
-__device__ __noinline__ void pixels_one_by_one(const Comp* comp, const uint8_t* rings, int ncomp, int X, int Y,
-                                               int n_in, int n, uint8_t* p) {
+__device__ __noinline__ void pixels_one_by_one(const Comp* comp, const uint8_t* rings, int ncomp, int color, int X,
+                                               int Y, int n_in, int n, uint8_t* p) {
   const Ring g0 = ring_of(comp[0], rings);
   for (int i = 0; i < n; ++i) {
     int r = 0, g = 0, b = 0;
     if (i < n_in) {
       r = g = b = sample(comp[0], g0, X + i, Y);
-      if (ncomp == 3)
-        ycc_rgb(r, sample(comp[1], ring_of(comp[1], rings + RING_ROWS * RING_PITCH), X + i, Y),
-                sample(comp[2], ring_of(comp[2], rings + 2 * RING_ROWS * RING_PITCH), X + i, Y), r, g, b);
+      if (ncomp == 3) {
+        const int c1 = sample(comp[1], ring_of(comp[1], rings + RING_ROWS * RING_PITCH), X + i, Y);
+        const int c2 = sample(comp[2], ring_of(comp[2], rings + 2 * RING_ROWS * RING_PITCH), X + i, Y);
+        if (color == COLOR_RGB) {  // jdcolor.c's rgb_rgb_convert: the components as they are
+          g = c1;
+          b = c2;
+        } else {
+          ycc_rgb(r, c1, c2, r, g, b);
+        }
+      }
     }
     p[3 * i] = uint8_t(r);
     p[3 * i + 1] = uint8_t(g);
@@ -851,15 +862,16 @@ __device__ __noinline__ void pixels_one_by_one(const Comp* comp, const uint8_t* 
 }
 
 // The colour pass over output rows [r0, r1) of the image, RUN pixels a
-// thread: LAYOUT -1 for grey, else the chroma's mode under full-size luma
-// (-2: any other layout, pixel by pixel). A run that is whole, inside the
+// thread: LAYOUT -1 for grey, else the chroma's mode under full-size YCbCr
+// luma (-2: any other layout or colour, pixel by pixel). A run that is whole, inside the
 // image, on an even column, on the rings' 16-byte grid (each ring's c0
 // puts the stripe's runs there) and on the output's takes the run path and
 // three 16-byte stores; others go pixel by pixel.
 template <int LAYOUT>
 __device__ __forceinline__ void colour_pass(const Comp* comp, const uint8_t* rings, const Ring& g0, const Ring& g1,
-                                            const Ring& g2, int ncomp, int r0, int r1, int runs, unsigned runs_magic,
-                                            int x_lo, int x_hi, int xe, int tx, int ty, int tw, uint8_t* o) {
+                                            const Ring& g2, int ncomp, int color, int r0, int r1, int runs,
+                                            unsigned runs_magic, int x_lo, int x_hi, int xe, int tx, int ty, int tw,
+                                            uint8_t* o) {
   for (int i = threadIdx.x; i < (r1 - r0) * runs; i += THREADS) {
     const int q = div_magic(i, runs, runs_magic);
     const int Y = r0 + q, x = x_lo + (i - q * runs) * RUN;
@@ -892,7 +904,7 @@ __device__ __forceinline__ void colour_pass(const Comp* comp, const uint8_t* rin
       q4[1] = make_uint4(w[4], w[5], w[6], w[7]);
       q4[2] = make_uint4(w[8], w[9], w[10], w[11]);
     } else {
-      pixels_one_by_one(comp, rings, ncomp, X, Y, n_in, n, p);
+      pixels_one_by_one(comp, rings, ncomp, color, X, Y, n_in, n, p);
     }
   }
 }
@@ -908,9 +920,10 @@ __device__ __forceinline__ void zero_run(uint8_t* p, int n) {
 }
 
 // grid: (stripes, slots, bands); THREADS threads. One instantiation per
-// scale N/8 holds only that scale's IDCTs: N x N, and 2N x 2N for a
-// chroma that needs no upsampling (a kernel that carried all eleven sizes
-// ran 8-10% slower at 8/8 and 5/8 for its code alone).
+// scale N/8 holds only that scale's IDCTs: N x N, 2N x 2N for a chroma
+// that needs no upsampling, and below 4/8 4N x 4N for one sampled 4 x 4
+// below the luma (a kernel that carried all eleven sizes ran 8-10% slower
+// at 8/8 and 5/8 for its code alone).
 template <int N>
 __global__ void __launch_bounds__(THREADS, 4)
 jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt, const int* __restrict__ comps,
@@ -943,7 +956,7 @@ jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt,
   }
   if (ye == y_lo) return;
 
-  const int ncomp = im[0];
+  const int ncomp = im[0], color = im[4];
   const int Xa = tx + x_lo, Xb = tx + xe, Ya = ty + y_lo, Yb = ty + ye;
   if (tid == 0) {
     int mh = 0;
@@ -981,11 +994,12 @@ jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt,
     g1 = ring_of(comp[1], ring[1]);
     g2 = ring_of(comp[2], ring[2]);
   }
-  // the colour pass's layout: grey, or full-size luma with both chromas
-  // in one mode; anything else pixel by pixel
+  // the colour pass's layout: grey, or full-size YCbCr luma with both
+  // chromas in one mode; anything else (RGB-coded files too) pixel by pixel
   int layout = -2;
   if (ncomp == 1 && comp[0].mode == UP_FULL) layout = -1;
-  if (ncomp == 3 && comp[0].mode == UP_FULL && comp[1].mode == comp[2].mode && comp[1].mode != UP_BOX)
+  if (ncomp == 3 && color == COLOR_YCC && comp[0].mode == UP_FULL && comp[1].mode == comp[2].mode &&
+      comp[1].mode != UP_BOX)
     layout = comp[1].mode;
   const int lane8 = tid & 7, group = tid >> 3;
   const unsigned gmask = 0xFFu << (tid & 24);
@@ -1030,6 +1044,8 @@ jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt,
             idct_group<N>(in, qs[c], ws, dst, lane8, gmask);
           } else if (N < 8 && s_ == 2 * N) {
             idct_group<(N < 8 ? 2 * N : N)>(in, qs[c], ws, dst, lane8, gmask);
+          } else if (N < 4 && s_ == 4 * N) {  // a component sampled 4 x 4 below another's
+            idct_group<(N < 4 ? 4 * N : N)>(in, qs[c], ws, dst, lane8, gmask);
           } else {
             __trap();  // describe_batch gives a batch one scale
           }
@@ -1041,7 +1057,7 @@ jpeg_decode_kernel(const int16_t* __restrict__ coef, const int* __restrict__ qt,
     // colour: this step's output rows inside [Ya, Yb)
     const int r0 = max(m * step, Ya), r1 = min((m + 1) * step, Yb);
 #define AQ_COLOUR(L) \
-  colour_pass<L>(comp, ring[0], g0, g1, g2, ncomp, r0, r1, runs, runs_magic, x_lo, x_hi, xe, tx, ty, tw, o)
+  colour_pass<L>(comp, ring[0], g0, g1, g2, ncomp, color, r0, r1, runs, runs_magic, x_lo, x_hi, xe, tx, ty, tw, o)
 #ifndef AQ_AB_IDCT_ONLY  // scripts/jpeg_decode_ab.py --cuts: no colour pass runs
     switch (layout) {
       case -1: AQ_COLOUR(-1); break;

@@ -1,31 +1,40 @@
-// Host half of the port's JPEG decoder: marker parsing and Huffman entropy
-// decode, on a thread pool, into de-zigzagged, still-quantised int16
-// coefficients.
+// Host half of the port's JPEG decoder: marker parsing and entropy decode,
+// on a thread pool, into de-zigzagged, still-quantised int16 coefficients.
 //
 // Counterpart of the JPEG half of the JAX package's tileloader.cc, split another
 // way: the serial part (the entropy decode) stays on host threads here, and
-// the parallel part (dequantisation, IDCT, chroma upsampling, YCbCr->RGB and
-// the tile grid) runs in csrc/jpeg_decode.cu on the card, or in
-// data/jpeg_plain.py on the CPU. No libjpeg: the bitstream is parsed here.
+// the parallel part (dequantisation, IDCT, chroma upsampling, colour
+// conversion and the tile grid) runs in csrc/jpeg_decode.cu on the card, or
+// in data/jpeg_plain.py on the CPU. No libjpeg: the bitstream is parsed here.
 //
-// Decodes 8-bit Huffman-coded frames with 1 or 3 components (YCbCr by
-// libjpeg's rules), sampling factors 1 or 2, restart intervals throughout:
-// - sequential (SOF0/SOF1) in one interleaved scan, straight into each
+// Takes every JPEG that libjpeg-turbo 2.1.5 decodes to RGB: 8-bit frames of
+// 1 component (grey) or 3 (YCbCr, or RGB by jdapimin.c's colour-space
+// guess), sampling factors 1..4 in integral ratios, restart intervals
+// throughout, Huffman (jdhuff.c, jdphuff.c; for sequential files the
+// standard tables where the file defines none, as jstdhuff.c installs
+// them) or arithmetic coding
+// (jdarith.c, with the DAC marker's conditioning):
+// - sequential (SOF0/SOF1/SOF9) in one interleaved scan, straight into each
 //   block's kept coefficients;
-// - progressive (SOF2: jdphuff.c's DC first, DC refinement, AC first with
-//   its EOB runs and AC refinement with its correction bits) and sequential
-//   in several scans (a first scan without every component), into whole
-//   8x8 blocks scan by scan (libjpeg's pre-zeroed coefficient buffer: a
-//   non-interleaved scan covers only its component's own blocks, and the
-//   MCU-padding blocks keep what interleaved scans gave them), each block
-//   then cut to its kept coefficients.
-// Every other JPEG process (lossless, arithmetic, hierarchical, 12-bit,
-// CMYK, RGB-coded) is recognised from its markers and reported as
-// KIND_OTHER_JPEG with the frame's size, so that the caller routes it to
-// another decoder; so is a progressive file whose scans leave one of the
-// first nine AC coefficients of a component unfinished, where libjpeg
-// smooths the blocks (jdcoefct.c's block smoothing). TIFF is KIND_TIFF;
-// anything else, or markers that do not parse, KIND_UNREADABLE.
+// - progressive (SOF2/SOF10: DC first, DC refinement, AC first, AC
+//   refinement) and sequential in several scans (a first scan without every
+//   component), into whole 8x8 blocks scan by scan (libjpeg's pre-zeroed
+//   coefficient buffer: a non-interleaved scan covers only its component's
+//   own blocks, and the MCU-padding blocks keep what interleaved scans gave
+//   them); a progressive file whose scans leave AC coefficients 1..9 short
+//   of their last bits is then smoothed as jdcoefct.c's
+//   decompress_smooth_data smooths it; each block is then cut to its kept
+//   coefficients.
+// Data that ends early (a marker or the file's end inside a scan) is read as
+// libjpeg reads it: the Huffman decoders finish the MCU on zero bits and
+// leave the rest of the restart interval as it was, the arithmetic decoder
+// reads zeros on. A JPEG that libjpeg refuses (precision other than 8,
+// another component count, lossless or hierarchical processes, sampling
+// factors past 4 or in a fractional ratio, more than 10 blocks in an MCU)
+// is KIND_REFUSED, with the frame's size; markers that do not parse as
+// libjpeg parses them, and anything that is neither JPEG nor TIFF,
+// KIND_UNREADABLE. The caller skips both, as the JAX package's loader skips
+// a file its libjpeg refuses. TIFF is KIND_TIFF.
 //
 // At scale N/8 every coefficient is still parsed, but each block keeps only
 // the K x K square that its scaled IDCT reads (kept_index): the DC for the
@@ -56,7 +65,7 @@
 namespace {
 
 // KIND_BASELINE: the entropy decoder takes the file (any process above)
-enum Kind { KIND_BASELINE = 0, KIND_OTHER_JPEG = 1, KIND_TIFF = 2, KIND_UNREADABLE = 3, KIND_END = 4 };
+enum Kind { KIND_BASELINE = 0, KIND_REFUSED = 1, KIND_TIFF = 2, KIND_UNREADABLE = 3, KIND_END = 4 };
 
 // Per-image metadata, one int32 array (mirrored in data/native_loader.py).
 constexpr int META_INTS = 256;
@@ -66,8 +75,11 @@ enum MetaField {
 };
 constexpr int COMP_BASE = 16, COMP_INTS = 80, COMP_QT = 16;
 enum CompField { C_H = 0, C_V, C_S, C_K, C_BW, C_BH, C_OFF, C_DW, C_DH };
+enum Color { COLOR_GREY = 0, COLOR_YCC = 1, COLOR_RGB = 2 };
 
 constexpr int kLook = 10;
+constexpr int kMaxDimension = 65500;  // libjpeg's JPEG_MAX_DIMENSION
+constexpr int kArithTables = 16;      // NUM_ARITH_TBLS
 
 // natural (row-major) index of the k-th zigzag coefficient; 16 extra
 // entries catch a corrupt run past the end, as libjpeg's table does
@@ -80,6 +92,7 @@ const int kNatural[64 + 16] = {
 
 struct Huff {
   bool present = false;
+  bool bad = false;  // defined, but libjpeg's jpeg_make_d_derived_tbl refuses it
   uint8_t huffval[256];
   int32_t maxcode[18];
   int32_t valoffset[18];
@@ -103,8 +116,9 @@ struct Header {
   int width = 0, height = 0, ncomp = 0, max_h = 1, max_v = 1, precision = 8;
   int restart_interval = 0, sof = 0;
   bool saw_sof = false, saw_sos = false;
-  bool progressive = false;
+  bool progressive = false, arith = false;
   bool multi_scan = false;  // progressive, or sequential with a first scan short of a component
+  bool rgb = false;         // three components coded as RGB (jdapimin.c's guess)
   Comp comp[4];
   uint16_t qt[4][64];  // natural order, as last defined
   bool qt_present[4] = {false, false, false, false};
@@ -113,25 +127,34 @@ struct Header {
   uint16_t latched[4][64] = {};
   bool is_latched[4] = {false, false, false, false};
   Huff dc[4], ac[4];
+  // the arithmetic conditioning of each table (DAC; SOI's defaults)
+  uint8_t dc_l[kArithTables], dc_u[kArithTables], ac_k[kArithTables];
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   Scan scan;              // the scan whose header was read last
   size_t scan_start = 0;  // where its entropy-coded data starts
+
+  Header() {
+    std::fill(dc_l, dc_l + kArithTables, 0);
+    std::fill(dc_u, dc_u + kArithTables, 1);
+    std::fill(ac_k, ac_k + kArithTables, 5);
+  }
 };
 
 inline int extend(int v, int s) { return s == 0 ? 0 : (v < (1 << (s - 1)) ? v - (1 << s) + 1 : v); }
 
-bool build_huff(const uint8_t* counts, const uint8_t* vals, int nvals, bool is_ac, Huff* h) {
+// A Huffman table from its DHT counts and values. A table whose codes
+// overflow their lengths, or a DC table with a symbol past 15, is marked
+// bad: libjpeg refuses it when a scan first uses it, not when it is defined.
+void build_huff(const uint8_t* counts, const uint8_t* vals, int nvals, bool is_ac, Huff* h) {
+  h->present = true;
+  h->bad = true;
   int huffsize[257];
   int huffcode[257];
   int p = 0;
   for (int l = 1; l <= 16; ++l)
-    for (int i = 0; i < counts[l - 1]; ++i) {
-      if (p >= 256) return false;
-      huffsize[p++] = l;
-    }
+    for (int i = 0; i < counts[l - 1]; ++i) huffsize[p++] = l;
   huffsize[p] = 0;
-  if (p != nvals) return false;
   int code = 0, si = huffsize[0];
   p = 0;
   while (huffsize[p]) {
@@ -139,7 +162,7 @@ bool build_huff(const uint8_t* counts, const uint8_t* vals, int nvals, bool is_a
       huffcode[p++] = code;
       ++code;
     }
-    if (code >= (1 << si)) return false;
+    if (code >= (1 << si)) return;
     code <<= 1;
     ++si;
   }
@@ -156,7 +179,7 @@ bool build_huff(const uint8_t* counts, const uint8_t* vals, int nvals, bool is_a
   h->maxcode[17] = 0xFFFFF;
   if (!is_ac)
     for (int i = 0; i < nvals; ++i)
-      if (vals[i] > 15) return false;  // a DC category past 15 (libjpeg: bad table)
+      if (vals[i] > 15) return;  // a DC category past 15
   std::memcpy(h->huffval, vals, nvals);
   std::memset(h->look, 0, sizeof(h->look));
   std::memset(h->fast_ac, 0, sizeof(h->fast_ac));
@@ -177,8 +200,43 @@ bool build_huff(const uint8_t* counts, const uint8_t* vals, int nvals, bool is_a
       h->fast_ac[peek] = extend(extra, s) * 256 + (r << 4) + (l + s);
     }
   }
-  h->present = true;
-  return true;
+  h->bad = false;
+}
+
+// The tables of T.81 K.3 (jstdhuff.c): counts per code length, then values.
+const uint8_t kStdDcLuma[16 + 12] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0,
+                                     0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdDcChroma[16 + 12] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0,
+                                       0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcLuma[16 + 162] = {
+    0,    2,    1,    3,    3,    2,    4,    3,    5,    5,    4,    4,    0,    0,    1,    0x7d,
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
+    0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
+    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
+    0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
+    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa};
+const uint8_t kStdAcChroma[16 + 162] = {
+    0,    2,    1,    2,    4,    4,    3,    4,    7,    5,    4,    4,    0,    1,    2,    0x77,
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
+    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
+    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
+    0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa};
+
+void std_huff(const uint8_t* t, int nvals, bool is_ac, Huff* h) {
+  if (!h->present) build_huff(t, t + 16, nvals, is_ac, h);
 }
 
 inline int seg_len(const uint8_t* d, size_t n, size_t pos) {
@@ -192,12 +250,12 @@ int parse_sos(const uint8_t* s, int slen, Header* h) {
   if (slen < 1) return KIND_UNREADABLE;
   Scan& sc = h->scan;
   int ns = s[0];
-  if (ns < 1 || ns > 4 || slen < 1 + 2 * ns + 3) return KIND_UNREADABLE;
+  if (ns < 1 || ns > 4 || slen != 1 + 2 * ns + 3) return KIND_UNREADABLE;
   sc.ncomp = ns;
   for (int i = 0; i < ns; ++i) {
     int cid = s[1 + 2 * i], tables = s[2 + 2 * i];
     int ci = -1;
-    for (int c = 0; c < h->ncomp; ++c)
+    for (int c = h->ncomp - 1; c >= 0; --c)
       if (h->comp[c].id == cid) ci = c;
     if (ci < 0) return KIND_UNREADABLE;
     for (int j = 0; j < i; ++j)
@@ -205,7 +263,6 @@ int parse_sos(const uint8_t* s, int slen, Header* h) {
     sc.comp[i] = ci;
     h->comp[ci].td = tables >> 4;
     h->comp[ci].ta = tables & 15;
-    if (h->comp[ci].td > 3 || h->comp[ci].ta > 3) return KIND_UNREADABLE;
   }
   sc.ss = s[1 + 2 * ns];
   sc.se = s[2 + 2 * ns];
@@ -214,12 +271,46 @@ int parse_sos(const uint8_t* s, int slen, Header* h) {
   return KIND_BASELINE;
 }
 
+// An SOF0/1/2/9/10 segment: the frame, and whether libjpeg-turbo decodes it
+// to RGB (jdinput.c's initial_setup, jdsample.c's integral ratios,
+// jdcolor.c's conversions). Returns a Kind.
+int parse_sof(int m, const uint8_t* s, int slen, Header* h) {
+  if (h->saw_sof || slen < 6) return KIND_UNREADABLE;
+  h->saw_sof = true;
+  h->sof = m;
+  h->progressive = m == 0xC2 || m == 0xCA;
+  h->arith = m == 0xC9 || m == 0xCA;
+  h->precision = s[0];
+  h->height = (s[1] << 8) | s[2];
+  h->width = (s[3] << 8) | s[4];
+  h->ncomp = s[5];
+  if (h->width <= 0 || h->height <= 0 || h->ncomp <= 0) return KIND_REFUSED;  // JERR_EMPTY_IMAGE (DNL)
+  if (slen != 6 + 3 * h->ncomp) return KIND_UNREADABLE;
+  if (h->precision != 8 || h->width > kMaxDimension || h->height > kMaxDimension) return KIND_REFUSED;
+  if (h->ncomp != 1 && h->ncomp != 3) return KIND_REFUSED;  // CMYK, YCCK, 2 or 4+: no RGB conversion
+  h->max_h = h->max_v = 1;
+  for (int c = 0; c < h->ncomp; ++c) {
+    Comp& cp = h->comp[c];
+    cp.id = s[6 + 3 * c];
+    cp.h = s[7 + 3 * c] >> 4;
+    cp.v = s[7 + 3 * c] & 15;
+    cp.tq = s[8 + 3 * c];
+    if (cp.h < 1 || cp.h > 4 || cp.v < 1 || cp.v > 4) return KIND_REFUSED;  // JERR_BAD_SAMPLING
+    h->max_h = std::max(h->max_h, cp.h);
+    h->max_v = std::max(h->max_v, cp.v);
+  }
+  for (int c = 0; c < h->ncomp; ++c)
+    if (h->max_h % h->comp[c].h || h->max_v % h->comp[c].v) return KIND_REFUSED;  // JERR_FRACT_SAMPLE_NOTIMPL
+  return KIND_BASELINE;
+}
+
 // Parse markers from *at (2 for the first call: past SOI) up to the next
 // SOS, whose header goes into h->scan, with *at and h->scan_start at its
 // entropy-coded data (skipped by the search for the next marker, which
 // passes stuffed bytes and RSTn): returns KIND_BASELINE, or KIND_END at EOI
 // or the end of the data after a scan, or the Kind that ends the file's
-// route (another JPEG process, markers that do not parse).
+// route (a process libjpeg refuses, markers it does not parse: jdmarker.c's
+// read_markers).
 int read_markers(const uint8_t* d, size_t n, size_t* at, Header* h) {
   const int end = h->saw_sos ? KIND_END : KIND_UNREADABLE;
   size_t pos = *at;
@@ -233,70 +324,63 @@ int read_markers(const uint8_t* d, size_t n, size_t* at, Header* h) {
     int m = d[pos++];
     if (m == 0x00 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // stuffed byte, TEM, RSTn
     if (m == 0xD9) return end;                                           // EOI
+    const bool skipped = (m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC;  // APPn, COM, DNL
     int len = seg_len(d, n, pos);
-    if (len < 2 || pos + size_t(len) > n) return end;
+    if (len < 0) return skipped ? end : KIND_UNREADABLE;  // a length cut short reads the fake EOI
+    if (len < 2) {
+      if (!skipped) return KIND_UNREADABLE;
+      pos += 2;  // libjpeg skips a negative remainder as nothing
+      continue;
+    }
     const uint8_t* s = d + pos + 2;
     int slen = len - 2;
+    std::vector<uint8_t> padded;
+    if (pos + size_t(len) > n) {
+      // past the end of the data, libjpeg's memory source feeds a fake EOI
+      // (FF D9) again and again: a segment reads those bytes, a skipped
+      // one ends there
+      if (skipped) return end;
+      padded.resize(size_t(slen));
+      const size_t have = n > pos + 2 ? n - pos - 2 : 0;
+      for (size_t i = 0; i < padded.size(); ++i) padded[i] = i < have ? s[i] : ((i - have) % 2 ? 0xD9 : 0xFF);
+      s = padded.data();
+    }
     switch (m) {
-      case 0xC0:
-      case 0xC1:
-      case 0xC2: {
-        if (h->saw_sof || slen < 6) return KIND_UNREADABLE;
-        h->saw_sof = true;
-        h->sof = m;
-        h->progressive = m == 0xC2;
-        h->precision = s[0];
-        h->height = (s[1] << 8) | s[2];
-        h->width = (s[3] << 8) | s[4];
-        h->ncomp = s[5];
-        if (h->precision != 8) return KIND_OTHER_JPEG;
-        if (h->ncomp != 1 && h->ncomp != 3) return KIND_OTHER_JPEG;
-        if (slen < 6 + 3 * h->ncomp) return KIND_UNREADABLE;
-        if (h->width <= 0 || h->height <= 0) return KIND_OTHER_JPEG;  // DNL
-        h->max_h = h->max_v = 1;
-        for (int c = 0; c < h->ncomp; ++c) {
-          Comp& cp = h->comp[c];
-          cp.id = s[6 + 3 * c];
-          cp.h = s[7 + 3 * c] >> 4;
-          cp.v = s[7 + 3 * c] & 15;
-          cp.tq = s[8 + 3 * c];
-          if (cp.h < 1 || cp.h > 2 || cp.v < 1 || cp.v > 2) return KIND_OTHER_JPEG;
-          if (cp.tq > 3) return KIND_UNREADABLE;
-          h->max_h = std::max(h->max_h, cp.h);
-          h->max_v = std::max(h->max_v, cp.v);
-        }
+      case 0xC0: case 0xC1: case 0xC2: case 0xC9: case 0xCA: {
+        int kind = parse_sof(m, s, slen, h);
+        if (kind != KIND_BASELINE) return kind;
         break;
       }
-      case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9:
-      case 0xCA: case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-        // lossless, hierarchical, arithmetic: the frame's size for the caller
-        if (h->saw_sof || slen < 5) return KIND_UNREADABLE;
+      case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC8:
+      case 0xCB: case 0xCD: case 0xCE: case 0xCF:
+        // lossless, hierarchical, JPG: JERR_SOF_UNSUPPORTED (the frame's size for the caller)
+        if (h->saw_sof) return KIND_UNREADABLE;
         h->sof = m;
-        h->precision = s[0];
-        h->height = (s[1] << 8) | s[2];
-        h->width = (s[3] << 8) | s[4];
-        return KIND_OTHER_JPEG;
+        if (slen >= 5) {
+          h->precision = s[0];
+          h->height = (s[1] << 8) | s[2];
+          h->width = (s[3] << 8) | s[4];
+        }
+        return KIND_REFUSED;
       case 0xC4: {  // DHT
         int q = 0;
-        while (q < slen) {
-          if (q + 17 > slen) return KIND_UNREADABLE;
+        while (slen - q > 16) {
           int tc = s[q] >> 4, th = s[q] & 15;
-          if (tc > 1 || th > 3) return KIND_UNREADABLE;
           int nv = 0;
           for (int i = 0; i < 16; ++i) nv += s[q + 1 + i];
-          if (nv > 256 || q + 17 + nv > slen) return KIND_UNREADABLE;
-          if (!build_huff(s + q + 1, s + q + 17, nv, tc == 1, tc ? &h->ac[th] : &h->dc[th]))
-            return KIND_UNREADABLE;
+          if (nv > 256 || q + 17 + nv > slen || tc > 1 || th > 3) return KIND_UNREADABLE;
+          build_huff(s + q + 1, s + q + 17, nv, tc == 1, tc ? &h->ac[th] : &h->dc[th]);
           q += 17 + nv;
         }
+        if (q != slen) return KIND_UNREADABLE;
         break;
       }
-      case 0xDB: {  // DQT
+      case 0xDB: {  // DQT: any nonzero precision nibble reads 16-bit values
         int q = 0;
         while (q < slen) {
           int pq = s[q] >> 4, tq = s[q] & 15;
-          if (tq > 3 || pq > 1) return KIND_UNREADABLE;
-          int need = 1 + 64 * (pq + 1);
+          if (tq > 3) return KIND_UNREADABLE;
+          int need = pq ? 129 : 65;
           if (q + need > slen) return KIND_UNREADABLE;
           for (int k = 0; k < 64; ++k)
             h->qt[tq][kNatural[k]] =
@@ -306,12 +390,27 @@ int read_markers(const uint8_t* d, size_t n, size_t* at, Header* h) {
         }
         break;
       }
+      case 0xCC: {  // DAC: arithmetic conditioning per table
+        if (slen % 2) return KIND_UNREADABLE;
+        for (int q = 0; q < slen; q += 2) {
+          int index = s[q], val = s[q + 1];
+          if (index >= 2 * kArithTables) return KIND_UNREADABLE;
+          if (index >= kArithTables) {
+            h->ac_k[index - kArithTables] = uint8_t(val);
+          } else {
+            h->dc_l[index] = uint8_t(val & 15);
+            h->dc_u[index] = uint8_t(val >> 4);
+            if (h->dc_l[index] > h->dc_u[index]) return KIND_UNREADABLE;
+          }
+        }
+        break;
+      }
       case 0xDD:  // DRI
-        if (slen < 2) return KIND_UNREADABLE;
+        if (slen != 2) return KIND_UNREADABLE;
         h->restart_interval = (s[0] << 8) | s[1];
         break;
-      case 0xE0:
-        if (slen >= 5 && std::memcmp(s, "JFIF\0", 5) == 0) h->jfif = true;
+      case 0xE0:  // jdmarker.c's examine_app0 reads 14 bytes
+        if (slen >= 14 && std::memcmp(s, "JFIF\0", 5) == 0) h->jfif = true;
         break;
       case 0xEE:
         if (slen >= 12 && std::memcmp(s, "Adobe", 5) == 0) {
@@ -324,19 +423,21 @@ int read_markers(const uint8_t* d, size_t n, size_t* at, Header* h) {
         int kind = parse_sos(s, slen, h);
         if (kind != KIND_BASELINE) return kind;
         h->saw_sos = true;
-        *at = h->scan_start = pos + len;
+        *at = h->scan_start = std::min(pos + len, n);
         return KIND_BASELINE;
       }
       default:
-        break;  // APPn, COM, DNL, ...: skipped by length
+        if (!skipped) return KIND_UNREADABLE;  // SOI again, DHP, EXP, JPGn, RESn: JERR_UNKNOWN_MARKER
+        break;
     }
     pos += len;
   }
 }
 
-// The scan in h->scan against the frame's process (jdhuff.c's and
-// jdphuff.c's start_pass checks), its tables present; latches the
-// quantisation table of each component at its first scan. Returns a Kind.
+// The scan in h->scan against the frame's process (jdinput.c's
+// per_scan_setup, jdhuff.c's, jdphuff.c's and jdarith.c's start_pass
+// checks), its tables present; latches the quantisation table of each
+// component at its first scan. Returns a Kind.
 int check_scan(Header* h) {
   const Scan& sc = h->scan;
   int blocks = 0;
@@ -345,26 +446,27 @@ int check_scan(Header* h) {
     const Comp& cp = h->comp[c];
     blocks += cp.h * cp.v;
     if (!h->is_latched[c]) {
-      if (!h->qt_present[cp.tq]) return KIND_UNREADABLE;
+      if (cp.tq > 3 || !h->qt_present[cp.tq]) return KIND_UNREADABLE;
       std::memcpy(h->latched[c], h->qt[cp.tq], sizeof(h->latched[c]));
       h->is_latched[c] = true;
     }
   }
   if (sc.ncomp > 1 && blocks > 10) return KIND_UNREADABLE;  // libjpeg's D_MAX_BLOCKS_IN_MCU
-  bool need_dc, need_ac;
-  if (!h->progressive) {
-    if (sc.ss != 0 || sc.se != 63 || sc.ah != 0 || sc.al != 0) return KIND_OTHER_JPEG;
-    need_dc = need_ac = true;
-  } else {
+  bool need_dc = true, need_ac = true;
+  if (h->progressive) {
     bool bad = sc.ss == 0 ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ncomp != 1);
     if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
     if (sc.al > 13 || bad) return KIND_UNREADABLE;  // libjpeg: JERR_BAD_PROGRESSION
     need_dc = sc.ss == 0 && sc.ah == 0;
     need_ac = sc.ss > 0;
   }
+  // (a sequential scan's Ss, Se, Ah, Al are only warned about; libjpeg
+  // decodes the whole block)
+  if (h->arith) return KIND_BASELINE;  // every arithmetic table index (0..15) has its statistics
   for (int i = 0; i < sc.ncomp; ++i) {
     const Comp& cp = h->comp[sc.comp[i]];
-    if ((need_dc && !h->dc[cp.td].present) || (need_ac && !h->ac[cp.ta].present)) return KIND_UNREADABLE;
+    if (need_dc && (cp.td > 3 || !h->dc[cp.td].present || h->dc[cp.td].bad)) return KIND_UNREADABLE;
+    if (need_ac && (cp.ta > 3 || !h->ac[cp.ta].present || h->ac[cp.ta].bad)) return KIND_UNREADABLE;
   }
   return KIND_BASELINE;
 }
@@ -379,13 +481,19 @@ int parse_header(const uint8_t* d, size_t n, Header* h) {
   int kind = read_markers(d, n, &pos, h);
   if (kind != KIND_BASELINE) return kind;
   if (h->ncomp == 3) {
-    // libjpeg's colour-space guess (jdapimin.c default_decompress_parms):
-    // RGB-coded files are another process here
-    bool rgb;
-    if (h->jfif) rgb = false;
-    else if (h->adobe) rgb = h->adobe_transform == 0;
-    else rgb = h->comp[0].id == 82 && h->comp[1].id == 71 && h->comp[2].id == 66;
-    if (rgb) return KIND_OTHER_JPEG;
+    // libjpeg's colour-space guess (jdapimin.c default_decompress_parms)
+    if (h->jfif) h->rgb = false;
+    else if (h->adobe) h->rgb = h->adobe_transform == 0;
+    else h->rgb = h->comp[0].id == 82 && h->comp[1].id == 71 && h->comp[2].id == 66;
+  }
+  if (!h->arith && !h->progressive) {
+    // jdhuff.c's jinit_huff_decoder (sequential only; jdphuff.c has no
+    // such step): the standard tables where the file defined none
+    // (motion-JPEG frames), before the first scan
+    std_huff(kStdDcLuma, 12, false, &h->dc[0]);
+    std_huff(kStdAcLuma, 162, true, &h->ac[0]);
+    std_huff(kStdDcChroma, 12, false, &h->dc[1]);
+    std_huff(kStdAcChroma, 162, true, &h->ac[1]);
   }
   h->multi_scan = h->progressive || h->scan.ncomp != h->ncomp;
   return check_scan(h);
@@ -445,7 +553,7 @@ bool fill_meta(const Header& h, int scale_n, int32_t* meta) {
   meta[M_OUT_W] = ceil_div(long(h.width) * scale_n, 8);
   meta[M_OUT_H] = ceil_div(long(h.height) * scale_n, 8);
   meta[M_SCALE] = scale_n;
-  meta[M_COLOR] = h.ncomp == 3 ? 1 : 0;
+  meta[M_COLOR] = h.ncomp == 1 ? COLOR_GREY : h.rgb ? COLOR_RGB : COLOR_YCC;
   meta[M_RESTART] = h.restart_interval;
   meta[M_SOF] = h.sof;
   long off = 0;
@@ -475,11 +583,14 @@ bool fill_meta(const Header& h, int scale_n, int32_t* meta) {
   return true;
 }
 
+// ---------------------------------------------------------------- Huffman
+
 struct BitReader {
   const uint8_t* p;
   const uint8_t* end;
   uint64_t buf = 0;
   int bits = 0;
+  int fake = 0;         // zero bits fed past the marker
   bool marker = false;  // reached a marker (or the end): zeros follow, as libjpeg feeds them
 
   inline void fill() {
@@ -517,10 +628,13 @@ struct BitReader {
           marker = true;
         }
       }
+      if (marker) fake += 8;
       buf = (buf << 8) | c;
       bits += 8;
     }
   }
+  // The decoder has read a bit past the data (libjpeg's insufficient_data).
+  inline bool out_of_data() const { return bits < fake; }
   inline int get(int s) {
     int v = int((buf >> (bits - s)) & ((1u << s) - 1));
     bits -= s;
@@ -552,9 +666,11 @@ struct BitReader {
     return 0;
   }
   // Restart: drop the buffered bits, find the marker and pass an RSTn.
-  void restart() {
+  // Returns whether it passed one (libjpeg then reads data again).
+  bool restart() {
     buf = 0;
     bits = 0;
+    fake = 0;
     if (!marker) {
       while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF)) ++p;
     }
@@ -562,9 +678,10 @@ struct BitReader {
     if (p + 1 < end && p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7) {
       p += 2;
       marker = false;
-    } else if (p + 1 >= end) {
-      marker = true;
+      return true;
     }
+    if (p + 1 >= end) marker = true;
+    return false;
   }
 };
 
@@ -673,24 +790,277 @@ inline void ac_refine(BitReader& br, const Huff& ac, const Scan& sc, unsigned& e
   }
 }
 
-// Walk a scan's MCUs from h.scan_start, calling block(i, by, bx) for each
-// block (i its component's place in the scan) after each MCU's restart
-// handling (reset() drops the predictions and the EOB run). A
-// non-interleaved scan covers its component's own blocks; an interleaved
-// one the MCU grid.
-template <class Block, class Reset>
-void walk_mcus(BitReader& br, const Header& h, Block block, Reset reset) {
+// ---------------------------------------------------------------- arithmetic
+
+// T.81 Table D.2 in jaricom.c's layout: Qe_Value << 16 | Next_Index_MPS << 8
+// | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 bin.
+const int32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719, 0x006f081c,
+    0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024,
+    0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c,
+    0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843,
+    0x261f2944, 0x1f332a45, 0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d,
+    0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b, 0x0bb64f4d, 0x0a40304d,
+    0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a, 0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756,
+    0x557059d8, 0x4ca95a5f, 0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b,
+    0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+
+// jdarith.c's decoder state: the C and A registers, the bit counter ct (-16
+// before the first two bytes, -1 after a decoding error, which stops the
+// decoders but DC refinement until the next restart), and the statistics
+// bins of each table (reset per scan and restart), the DC predictions and
+// contexts of each scan component, the fixed 0.5 bin.
+struct ArithReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool marker = false;  // reached a marker or the end: zeros follow (legal in arithmetic coding)
+  uint8_t dc_stats[kArithTables][64];
+  uint8_t ac_stats[kArithTables][256];
+  int last_dc[4] = {0, 0, 0, 0}, dc_context[4] = {0, 0, 0, 0};
+  uint8_t fixed_bin = 113;
+
+  inline int next_byte() {
+    if (marker || p >= end) {
+      marker = true;
+      return 0;
+    }
+    int data = *p++;
+    if (data == 0xFF) {
+      while (p < end && *p == 0xFF) ++p;
+      if (p < end && *p == 0) {
+        ++p;
+      } else {
+        marker = true;
+        --p;  // at an 0xFF before the marker code
+        data = 0;
+      }
+    }
+    return data;
+  }
+  // arith_decode: one binary decision in the bin st (0 or 1).
+  inline int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes: a is 0x10000 after the shift
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAriTab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  inline bool out_of_data() const { return false; }  // libjpeg never flags it for arithmetic data
+  // process_restart's reading half: pass the RSTn, restart the registers.
+  bool restart() {
+    c = a = 0;
+    ct = -16;
+    if (!marker) {
+      while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF)) ++p;
+    }
+    while (p + 1 < end && p[0] == 0xFF && p[1] == 0xFF) ++p;
+    if (p + 1 < end && p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7) {
+      p += 2;
+      marker = false;
+      return true;
+    }
+    marker = true;
+    return false;
+  }
+  // The statistics of the scan's components (start_pass and process_restart).
+  void reset(const Header& h) {
+    const Scan& sc = h.scan;
+    for (int i = 0; i < sc.ncomp; ++i) {
+      const Comp& cp = h.comp[sc.comp[i]];
+      if (!h.progressive || (sc.ss == 0 && sc.ah == 0)) {
+        std::memset(dc_stats[cp.td], 0, sizeof(dc_stats[cp.td]));
+        last_dc[i] = dc_context[i] = 0;
+      }
+      if (!h.progressive || sc.ss) std::memset(ac_stats[cp.ta], 0, sizeof(ac_stats[cp.ta]));
+    }
+  }
+};
+
+// A DC difference (Figures F.19-F.24) of scan component ci into its
+// prediction. False on a magnitude overflow (ct = -1).
+inline bool arith_dc(ArithReader& ar, const Header& h, int tbl, int ci) {
+  uint8_t* st = ar.dc_stats[tbl] + ar.dc_context[ci];
+  if (ar.decode(st) == 0) {
+    ar.dc_context[ci] = 0;
+    return true;
+  }
+  const int sign = ar.decode(st + 1);
+  st += 2 + sign;
+  int m = ar.decode(st);
+  if (m != 0) {
+    st = ar.dc_stats[tbl] + 20;
+    while (ar.decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ar.ct = -1;
+        return false;
+      }
+      st += 1;
+    }
+  }
+  if (m < ((1 << h.dc_l[tbl]) >> 1)) ar.dc_context[ci] = 0;
+  else if (m > ((1 << h.dc_u[tbl]) >> 1)) ar.dc_context[ci] = 12 + sign * 4;
+  else ar.dc_context[ci] = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (ar.decode(st)) v |= m;
+  v += 1;
+  if (sign) v = -v;
+  ar.last_dc[ci] = (ar.last_dc[ci] + v) & 0xffff;
+  return true;
+}
+
+// AC coefficients ss..se (Figure F.20) into blk, each shifted by al.
+inline void arith_ac(ArithReader& ar, const Header& h, int tbl, int ss, int se, int al, int16_t* blk) {
+  for (int k = ss; k <= se; k++) {
+    uint8_t* st = ar.ac_stats[tbl] + 3 * (k - 1);
+    if (ar.decode(st)) break;  // EOB
+    while (ar.decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se) {
+        ar.ct = -1;  // spectral overflow
+        return;
+      }
+    }
+    const int sign = ar.decode(&ar.fixed_bin);
+    st += 2;
+    int m = ar.decode(st);
+    if (m != 0) {
+      if (ar.decode(st)) {
+        m <<= 1;
+        st = ar.ac_stats[tbl] + (k <= h.ac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;  // magnitude overflow
+            return;
+          }
+          st += 1;
+        }
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    blk[kNatural[k]] = int16_t(uint32_t(v) << al);
+  }
+}
+
+// One sequential block (jdarith.c's decode_mcu), scan component ci.
+inline void arith_sequential(ArithReader& ar, const Header& h, const Comp& cp, int ci, int16_t* blk) {
+  if (ar.ct == -1) return;
+  if (!arith_dc(ar, h, cp.td, ci)) return;
+  blk[0] = int16_t(ar.last_dc[ci]);
+  arith_ac(ar, h, cp.ta, 1, 63, 0, blk);
+}
+
+// jdarith.c's progressive decoders.
+inline void arith_dc_first(ArithReader& ar, const Header& h, const Comp& cp, int ci, int al, int16_t* blk) {
+  if (ar.ct == -1) return;
+  if (!arith_dc(ar, h, cp.td, ci)) return;
+  blk[0] = int16_t(uint32_t(ar.last_dc[ci]) << al);
+}
+
+inline void arith_dc_refine(ArithReader& ar, int al, int16_t* blk) {
+  if (ar.decode(&ar.fixed_bin)) blk[0] = int16_t(blk[0] | (1 << al));
+}
+
+inline void arith_ac_refine(ArithReader& ar, int tbl, const Scan& sc, int16_t* blk) {
+  if (ar.ct == -1) return;
+  const int p1 = 1 << sc.al, m1 = -p1;
+  int kex = sc.se;
+  for (; kex > 0; kex--)
+    if (blk[kNatural[kex]]) break;
+  for (int k = sc.ss; k <= sc.se; k++) {
+    uint8_t* st = ar.ac_stats[tbl] + 3 * (k - 1);
+    if (k > kex && ar.decode(st)) break;  // EOB
+    for (;;) {
+      int16_t* c = blk + kNatural[k];
+      if (*c) {  // previously nonzero: a correction bit
+        if (ar.decode(st + 2)) *c = int16_t(*c < 0 ? *c + m1 : *c + p1);
+        break;
+      }
+      if (ar.decode(st + 1)) {  // newly nonzero
+        *c = int16_t(ar.decode(&ar.fixed_bin) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > sc.se) {
+        ar.ct = -1;  // spectral overflow
+        return;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- scans
+
+// Walk a scan's MCUs from h.scan_start, calling block(i, by, bx, decode)
+// for each block (i its component's place in the scan) after each MCU's
+// restart handling (reset() drops the predictions, EOB run and statistics).
+// Once the reader has read past the data, the rest of the restart interval
+// is called with decode false (jdhuff.c's insufficient_data: libjpeg leaves
+// those MCUs as they were). A non-interleaved scan covers its component's
+// own blocks; an interleaved one the MCU grid. Returns the last iMCU row
+// started with data left (jdcoefct.c's last_good_iMCU_row).
+template <class Reader, class Block, class Reset>
+int walk_mcus(Reader& br, const Header& h, Block block, Reset reset) {
   const Scan& sc = h.scan;
   int restarts_to_go = h.restart_interval;
-  auto mcu_start = [&]() {
+  bool insufficient = false;
+  int last_good = 0;
+  auto mcu_start = [&](int imcu_row) {
     if (h.restart_interval) {
       if (restarts_to_go == 0) {
-        br.restart();
+        if (br.restart()) insufficient = false;
         reset();
         restarts_to_go = h.restart_interval;
       }
       --restarts_to_go;
     }
+    if (!insufficient) last_good = imcu_row;
+    return !insufficient;
   };
   if (sc.ncomp == 1) {
     const int c = sc.comp[0];
@@ -698,111 +1068,349 @@ void walk_mcus(BitReader& br, const Header& h, Block block, Reset reset) {
     const int bw = ceil_div(long(h.width) * cp.h, 8L * h.max_h), bh = ceil_div(long(h.height) * cp.v, 8L * h.max_v);
     for (int by = 0; by < bh; ++by)
       for (int bx = 0; bx < bw; ++bx) {
-        mcu_start();
-        block(0, by, bx);
+        const bool decode = mcu_start(by / cp.v);
+        block(0, by, bx, decode);
+        if (decode && br.out_of_data()) insufficient = true;
       }
   } else {
     const int mcux = ceil_div(h.width, 8 * h.max_h), mcuy = ceil_div(h.height, 8 * h.max_v);
     for (int my = 0; my < mcuy; ++my)
       for (int mx = 0; mx < mcux; ++mx) {
-        mcu_start();
+        const bool decode = mcu_start(my);
         for (int i = 0; i < sc.ncomp; ++i) {
           const Comp& cp = h.comp[sc.comp[i]];
           for (int v = 0; v < cp.v; ++v)
-            for (int u = 0; u < cp.h; ++u) block(i, my * cp.v + v, mx * cp.h + u);
+            for (int u = 0; u < cp.h; ++u) block(i, my * cp.v + v, mx * cp.h + u, decode);
         }
+        if (decode && br.out_of_data()) insufficient = true;
       }
   }
+  return last_good;
+}
+
+// One scan of a sequential file's blocks, each by out(c, by, bx) (a
+// natural-order block, zeroed for the direct path, the whole-block buffer
+// for several scans) and done(c, by, bx) after it; returns where the reader
+// stopped, for the markers that follow.
+template <class Out, class Done>
+size_t sequential_scan(const uint8_t* d, size_t n, const Header& h, Out out, Done done) {
+  const Scan& sc = h.scan;
+  if (h.arith) {
+    ArithReader ar;
+    ar.p = d + h.scan_start;
+    ar.end = d + n;
+    ar.reset(h);
+    walk_mcus(
+        ar, h,
+        [&](int i, int by, int bx, bool decode) {
+          const int c = sc.comp[i];
+          int16_t* blk = out(c, by, bx);
+          if (decode) arith_sequential(ar, h, h.comp[c], i, blk);
+          done(c, by, bx);
+        },
+        [&]() { ar.reset(h); });
+    return size_t(ar.p - d);
+  }
+  BitReader br;
+  br.p = d + h.scan_start;
+  br.end = d + n;
+  int pred[3] = {0, 0, 0};
+  walk_mcus(
+      br, h,
+      [&](int i, int by, int bx, bool decode) {
+        const int c = sc.comp[i];
+        const Comp& cp = h.comp[c];
+        int16_t* blk = out(c, by, bx);
+        if (decode) sequential_block(br, h.dc[cp.td], h.ac[cp.ta], pred[c], blk);
+        done(c, by, bx);
+      },
+      [&]() { pred[0] = pred[1] = pred[2] = 0; });
+  return size_t(br.p - d);
 }
 
 // Entropy-decode a one-scan image into coef (meta's layout): a block kept
 // whole straight into its place, any other into a scratch block, then its
-// kept square out. Data that ends early decodes as zeros, as libjpeg does
-// after its "premature end" warning.
-void decode_scan(const uint8_t* d, size_t n, const Header& h, const int32_t* meta, int16_t* coef) {
-  BitReader br;
-  br.p = d + h.scan_start;
-  br.end = d + n;
+// kept square out. Then the markers after the scan, as
+// jpeg_finish_decompress reads them: another scan, or markers that do not
+// parse, make libjpeg refuse the file. Returns a Kind.
+int decode_scan(const uint8_t* d, size_t n, Header* h, const int32_t* meta, int16_t* coef) {
   Cut cut[3];
   int BW[3], KK[3];
   int16_t* base[3];
-  for (int c = 0; c < h.ncomp; ++c) {
+  for (int c = 0; c < h->ncomp; ++c) {
     const int32_t* m = meta + COMP_BASE + COMP_INTS * c;
     cut[c] = Cut(m[C_S]);
     KK[c] = m[C_K] * m[C_K];
     BW[c] = m[C_BW];
     base[c] = coef + m[C_OFF];
   }
-  int pred[3] = {0, 0, 0};
   alignas(16) int16_t blk[64];
-  walk_mcus(
-      br, h,
-      [&](int i, int by, int bx) {
-        const int c = h.scan.comp[i];
-        const Comp& cp = h.comp[c];
-        int16_t* out = base[c] + (long(by) * BW[c] + bx) * KK[c];
-        int16_t* dst = KK[c] == 64 ? out : blk;
-        std::memset(dst, 0, sizeof(blk));
-        sequential_block(br, h.dc[cp.td], h.ac[cp.ta], pred[c], dst);
-        if (dst == blk) cut_block(blk, cut[c], out);
-      },
-      [&]() { pred[0] = pred[1] = pred[2] = 0; });
+  size_t pos;
+  if (h->arith) {
+    int16_t* dst = blk;
+    pos = sequential_scan(
+        d, n, *h,
+        [&](int c, int by, int bx) {
+          int16_t* out = base[c] + (long(by) * BW[c] + bx) * KK[c];
+          dst = KK[c] == 64 ? out : blk;
+          std::memset(dst, 0, sizeof(blk));
+          return dst;
+        },
+        [&](int c, int by, int bx) {
+          if (dst == blk) cut_block(blk, cut[c], base[c] + (long(by) * BW[c] + bx) * KK[c]);
+        });
+  } else {  // the hot path: the Huffman decoder inline
+    BitReader br;
+    br.p = d + h->scan_start;
+    br.end = d + n;
+    int pred[3] = {0, 0, 0};
+    const Header& hh = *h;
+    walk_mcus(
+        br, hh,
+        [&](int i, int by, int bx, bool decode) {
+          const int c = hh.scan.comp[i];
+          const Comp& cp = hh.comp[c];
+          int16_t* out = base[c] + (long(by) * BW[c] + bx) * KK[c];
+          int16_t* dst = KK[c] == 64 ? out : blk;
+          std::memset(dst, 0, sizeof(blk));
+          if (decode) sequential_block(br, hh.dc[cp.td], hh.ac[cp.ta], pred[c], dst);
+          if (dst == blk) cut_block(blk, cut[c], out);
+        },
+        [&]() { pred[0] = pred[1] = pred[2] = 0; });
+    pos = size_t(br.p - d);
+  }
+  const int kind = read_markers(d, n, &pos, h);
+  return kind == KIND_END ? KIND_BASELINE : kind == KIND_BASELINE ? KIND_UNREADABLE : kind;
+}
+
+// The progression status of a progressive file (jdphuff.c's and
+// jdarith.c's coef_bits): per component and coefficient (zigzag order) the
+// Al of the last scan that coded it, -1 before any; prev, the status before
+// the component's last scan (for coefficients 1..9 and that scan's band);
+// the scans read; the last iMCU row the last scan started with data left.
+struct Progress {
+  int cur[3][64];
+  int prev[3][64];
+  int scans = 0;
+  int last_good = 0;
+  Progress() {
+    std::fill(&cur[0][0], &cur[0][0] + 3 * 64, -1);
+    std::fill(&prev[0][0], &prev[0][0] + 3 * 64, 0);
+  }
+  void start(const Scan& sc) {
+    ++scans;
+    for (int i = 0; i < sc.ncomp; ++i) {
+      const int c = sc.comp[i];
+      for (int k = std::min(sc.ss, 1); k <= std::max(sc.se, 9); ++k) prev[c][k] = scans > 1 ? cur[c][k] : 0;
+      for (int k = sc.ss; k <= sc.se; ++k) cur[c][k] = sc.al;
+    }
+  }
+};
+
+// One estimate of jdcoefct.c's block smoothing: num / (q << 8), rounded,
+// clamped below 2^al where al > 0, as a JCOEF.
+inline int16_t smooth_pred(int64_t num, int64_t q, int al) {
+  int pred = int(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return int16_t(num >= 0 ? pred : -pred);
+}
+
+// libjpeg-turbo 2.1.5's block smoothing (jdcoefct.c's smoothing_ok and
+// decompress_smooth_data) over the whole blocks of a progressive image:
+// where a component's coefficients 1..9 are not all known to full
+// precision, each block's still-zero ones among them are estimated from the
+// DC values of its 5 x 5 neighbourhood (and, where no AC data came at all,
+// the DC too), with the neighbourhood clamped at the image's edges as
+// libjpeg clamps its sliding window. Rows past the last iMCU row that the
+// last scan reached with data take the status before that scan.
+void smooth_blocks(const Header& h, const Progress& pg, int16_t* const base[3], const int bw[3], const int bh[3]) {
+  static const int kQPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // natural order of zigzag 0..9
+  int latch[3][10], prev_latch[3][10];
+  bool useful = false;
+  for (int c = 0; c < h.ncomp; ++c) {
+    if (!h.is_latched[c]) return;
+    for (int k = 0; k < 10; ++k)
+      if (h.latched[c][kQPos[k]] == 0) return;
+    if (pg.cur[c][0] < 0) return;
+    latch[c][0] = prev_latch[c][0] = pg.cur[c][0];
+    for (int k = 1; k < 10; ++k) {
+      prev_latch[c][k] = pg.scans > 1 ? pg.prev[c][k] : -1;
+      latch[c][k] = pg.cur[c][k];
+      if (latch[c][k] != 0) useful = true;
+    }
+  }
+  if (!useful) return;
+  const int total = ceil_div(h.height, 8 * h.max_v);  // iMCU rows
+  std::vector<int> dcs;
+  for (int c = 0; c < h.ncomp; ++c) {
+    const Comp& cp = h.comp[c];
+    const int wb = ceil_div(ceil_div(long(h.width) * cp.h, h.max_h), 8);   // width_in_blocks
+    const int hb = ceil_div(ceil_div(long(h.height) * cp.v, h.max_v), 8);  // height_in_blocks
+    const int v = cp.v, W = bw[c];
+    dcs.assign(size_t(W) * bh[c], 0);
+    for (size_t b = 0; b < dcs.size(); ++b) dcs[b] = base[c][b * 64];
+    // a block row past the buffer is libjpeg's pre-zeroed padding
+    auto dc = [&](int row, int col) { return row < bh[c] ? dcs[size_t(row) * W + col] : 0; };
+    const uint16_t* q = h.latched[c];
+    const int64_t Q00 = q[0], Q01 = q[1], Q10 = q[8], Q20 = q[16], Q11 = q[9], Q02 = q[2];
+    const int64_t Q03 = q[3], Q12 = q[10], Q21 = q[17], Q30 = q[24];
+    for (int L = 0; L < total; ++L) {
+      const int* bits = L > pg.last_good ? prev_latch[c] : latch[c];
+      bool change_dc = true;
+      for (int k = 1; k < 10; ++k) change_dc = change_dc && bits[k] == -1;
+      int b = v;  // block rows of this iMCU row
+      if (L == total - 1) {
+        b = hb % v;
+        if (b == 0) b = v;
+      }
+      for (int r = 0; r < b; ++r) {
+        // the window's rows, clamped by iMCU row as libjpeg clamps them
+        const int cur = L * v + r;
+        const int prev = r > 0 || L > 0 ? cur - 1 : cur;
+        const int pprev = r > 1 || L > 1 ? cur - 2 : prev;
+        const int next = r < b - 1 || L < total - 1 ? cur + 1 : cur;
+        const int nnext = r < b - 2 || L + 1 < total - 1 ? cur + 2 : next;
+        const int rows[5] = {pprev, prev, cur, next, nnext};
+        int D[5][5];  // D[i][j]: libjpeg's DC(5i + j + 1)
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) D[i][j] = dc(rows[i], 0);
+        const int last_col = wb - 1;
+        for (int col = 0; col <= last_col; ++col) {
+          if (col == 0 && col < last_col)
+            for (int i = 0; i < 5; ++i) D[i][3] = dc(rows[i], 1);
+          if (col + 1 < last_col)
+            for (int i = 0; i < 5; ++i) D[i][4] = dc(rows[i], col + 2);
+          const int64_t DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2], DC04 = D[0][3], DC05 = D[0][4];
+          const int64_t DC06 = D[1][0], DC07 = D[1][1], DC08 = D[1][2], DC09 = D[1][3], DC10 = D[1][4];
+          const int64_t DC11 = D[2][0], DC12 = D[2][1], DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4];
+          const int64_t DC16 = D[3][0], DC17 = D[3][1], DC18 = D[3][2], DC19 = D[3][3], DC20 = D[3][4];
+          const int64_t DC21 = D[4][0], DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3], DC25 = D[4][4];
+          int16_t* w = base[c] + (size_t(cur) * W + col) * 64;
+          int al;
+          if ((al = bits[1]) != 0 && w[1] == 0)
+            w[1] = smooth_pred(Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                                                   3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 -
+                                                   3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                                                   DC24 + DC25)
+                                                : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)),
+                               Q01, al);
+          if ((al = bits[2]) != 0 && w[8] == 0)
+            w[8] = smooth_pred(Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 +
+                                                   38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 -
+                                                   13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                                : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)),
+                               Q10, al);
+          if ((al = bits[3]) != 0 && w[16] == 0)
+            w[16] = smooth_pred(Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                                                    5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                                                 : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)),
+                                Q20, al);
+          if ((al = bits[4]) != 0 && w[9] == 0)
+            w[9] = smooth_pred(Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 -
+                                                   DC25)
+                                                : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 +
+                                                   DC04 - DC06 + 10 * DC07 - 10 * DC09)),
+                               Q11, al);
+          if ((al = bits[5]) != 0 && w[2] == 0)
+            w[2] = smooth_pred(Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                                                   7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                                                : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)),
+                               Q02, al);
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && w[3] == 0)
+              w[3] = smooth_pred(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19), Q03, al);
+            if ((al = bits[7]) != 0 && w[10] == 0)
+              w[10] = smooth_pred(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19), Q12, al);
+            if ((al = bits[8]) != 0 && w[17] == 0)
+              w[17] = smooth_pred(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19), Q21, al);
+            if ((al = bits[9]) != 0 && w[24] == 0)
+              w[24] = smooth_pred(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19), Q30, al);
+            w[0] = smooth_pred(Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 + 6 * DC07 +
+                                      42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 + 152 * DC13 +
+                                      42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 -
+                                      6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25),
+                               Q00, 0);
+          }
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) D[i][j] = D[i][j + 1];
+        }
+      }
+    }
+  }
 }
 
 // Walk every scan of a multi-scan image, from the one in h->scan on: given
 // full (each component's blocks_w x blocks_h blocks of 64 coefficients,
-// natural order, zeroed) each scan is decoded into it; given nullptr only
-// the markers are read. Returns KIND_BASELINE, or the Kind a later scan gives
-// the file: a progressive one whose scans leave one of a component's AC
-// coefficients 1..9 unfinished is KIND_OTHER_JPEG, as libjpeg smooths its
-// blocks (jdcoefct.c's smoothing_ok).
+// natural order, zeroed) each scan is decoded into it, and a progressive
+// image's blocks are smoothed after the last; given nullptr only the
+// markers are read. Returns KIND_BASELINE, or the Kind a later scan gives
+// the file.
 int walk_scans(const uint8_t* d, size_t n, Header* h, int16_t* full) {
-  int coef_bits[3][64];
-  std::fill(&coef_bits[0][0], &coef_bits[0][0] + 3 * 64, -1);
+  Progress pg;
   int16_t* base[3] = {full, full, full};
-  int bw[3] = {0, 0, 0};
+  int bw[3] = {0, 0, 0}, bh[3] = {0, 0, 0};
   for (int c = 0; c < h->ncomp; ++c) {
     bw[c] = blocks_w(*h, c);
-    if (full != nullptr && c + 1 < h->ncomp) base[c + 1] = base[c] + long(bw[c]) * blocks_h(*h, c) * 64;
+    bh[c] = blocks_h(*h, c);
+    if (full != nullptr && c + 1 < h->ncomp) base[c + 1] = base[c] + long(bw[c]) * bh[c] * 64;
   }
   size_t pos = h->scan_start;
   while (true) {
     const Scan& sc = h->scan;
-    for (int i = 0; i < sc.ncomp; ++i)
-      for (int k = sc.ss; k <= sc.se; ++k) coef_bits[sc.comp[i]][k] = sc.al;
+    if (h->progressive) pg.start(sc);
     if (full != nullptr) {
-      BitReader br;
-      br.p = d + h->scan_start;
-      br.end = d + n;
-      int pred[3] = {0, 0, 0};
-      unsigned eobrun = 0;
       const Header& hh = *h;
-      walk_mcus(
-          br, hh,
-          [&](int i, int by, int bx) {
-            const int c = sc.comp[i];
-            const Comp& cp = hh.comp[c];
-            int16_t* blk = base[c] + (long(by) * bw[c] + bx) * 64;
-            if (!hh.progressive) sequential_block(br, hh.dc[cp.td], hh.ac[cp.ta], pred[c], blk);
-            else if (sc.ss == 0 && sc.ah == 0) dc_first(br, hh.dc[cp.td], sc.al, pred[c], blk);
-            else if (sc.ss == 0) dc_refine(br, sc.al, blk);
-            else if (sc.ah == 0) ac_first(br, hh.ac[cp.ta], sc, eobrun, blk);
-            else ac_refine(br, hh.ac[cp.ta], sc, eobrun, blk);
-          },
-          [&]() {
-            pred[0] = pred[1] = pred[2] = 0;
-            eobrun = 0;
-          });
+      auto at = [&](int c, int by, int bx) { return base[c] + (long(by) * bw[c] + bx) * 64; };
+      if (!hh.progressive) {
+        sequential_scan(d, n, hh, at, [](int, int, int) {});
+      } else if (hh.arith) {
+        ArithReader ar;
+        ar.p = d + hh.scan_start;
+        ar.end = d + n;
+        ar.reset(hh);
+        pg.last_good = walk_mcus(
+            ar, hh,
+            [&](int i, int by, int bx, bool) {
+              const int c = sc.comp[i];
+              const Comp& cp = hh.comp[c];
+              int16_t* blk = at(c, by, bx);
+              if (sc.ss == 0 && sc.ah == 0) arith_dc_first(ar, hh, cp, i, sc.al, blk);
+              else if (sc.ss == 0) arith_dc_refine(ar, sc.al, blk);
+              else if (sc.ah == 0) {
+                if (ar.ct != -1) arith_ac(ar, hh, cp.ta, sc.ss, sc.se, sc.al, blk);
+              } else arith_ac_refine(ar, cp.ta, sc, blk);
+            },
+            [&]() { ar.reset(hh); });
+      } else {
+        BitReader br;
+        br.p = d + hh.scan_start;
+        br.end = d + n;
+        int pred[3] = {0, 0, 0};
+        unsigned eobrun = 0;
+        pg.last_good = walk_mcus(
+            br, hh,
+            [&](int i, int by, int bx, bool decode) {
+              const int c = sc.comp[i];
+              const Comp& cp = hh.comp[c];
+              int16_t* blk = at(c, by, bx);
+              if (!decode) return;
+              if (sc.ss == 0 && sc.ah == 0) dc_first(br, hh.dc[cp.td], sc.al, pred[c], blk);
+              else if (sc.ss == 0) dc_refine(br, sc.al, blk);
+              else if (sc.ah == 0) ac_first(br, hh.ac[cp.ta], sc, eobrun, blk);
+              else ac_refine(br, hh.ac[cp.ta], sc, eobrun, blk);
+            },
+            [&]() {
+              pred[0] = pred[1] = pred[2] = 0;
+              eobrun = 0;
+            });
+      }
     }
     int kind = read_markers(d, n, &pos, h);
     if (kind == KIND_END) break;
     if (kind == KIND_BASELINE) kind = check_scan(h);
     if (kind != KIND_BASELINE) return kind;
   }
-  if (h->progressive)
-    for (int c = 0; c < h->ncomp; ++c)
-      for (int k = 1; k <= 9; ++k)
-        if (coef_bits[c][k] != 0) return KIND_OTHER_JPEG;
+  if (full != nullptr && h->progressive) smooth_blocks(*h, pg, base, bw, bh);
   return KIND_BASELINE;
 }
 
@@ -849,26 +1457,28 @@ int decode_multi_scan(const uint8_t* d, size_t n, const int32_t* meta, int16_t* 
 }
 
 // Probe (coef == nullptr) or decode one in-memory file. Returns the Kind,
-// or -2 if cap (int16 units) is too small for the coefficients.
+// or -2 if cap (int16 units) is too small for the coefficients. A one-scan
+// file's markers after its scan are read by the decode, not the probe.
 int decode_bytes(const uint8_t* d, size_t n, int scale_n, int32_t* meta, int16_t* coef, long cap) {
   Header* h = new Header();
   int kind = parse_header(d, n, h);
   if (kind == KIND_BASELINE && h->multi_scan) kind = walk_scans(d, n, h, nullptr);
-  if (kind == KIND_BASELINE && !fill_meta(*h, scale_n, meta)) kind = KIND_OTHER_JPEG;
-  if (kind != KIND_BASELINE) {
-    std::memset(meta, 0, sizeof(int32_t) * META_INTS);
-    if (kind == KIND_OTHER_JPEG) {
-      meta[M_WIDTH] = h->width;
-      meta[M_HEIGHT] = h->height;
-      meta[M_SOF] = h->sof;
-    }
-  } else if (coef != nullptr) {
+  if (kind == KIND_BASELINE && !fill_meta(*h, scale_n, meta)) kind = KIND_REFUSED;  // past 2^31 coefficients
+  if (kind == KIND_BASELINE && coef != nullptr) {
     if (cap < meta[M_COEFS]) {
       kind = -2;
     } else if (h->multi_scan) {
       kind = decode_multi_scan(d, n, meta, coef);
     } else {
-      decode_scan(d, n, *h, meta, coef);
+      kind = decode_scan(d, n, h, meta, coef);
+    }
+  }
+  if (kind != KIND_BASELINE && kind != -2) {
+    std::memset(meta, 0, sizeof(int32_t) * META_INTS);
+    if (kind == KIND_REFUSED) {
+      meta[M_WIDTH] = h->width;
+      meta[M_HEIGHT] = h->height;
+      meta[M_SOF] = h->sof;
     }
   }
   meta[M_KIND] = kind;
@@ -915,6 +1525,7 @@ struct Loader {
           rec->coef.resize(size_t(rec->meta[M_COEFS]));
           kind = decode_bytes(data.data(), data.size(), scale_n, rec->meta, rec->coef.data(),
                               long(rec->coef.size()));
+          if (kind != KIND_BASELINE) rec->coef.clear();
         }
       }
       std::lock_guard<std::mutex> lk(mu);

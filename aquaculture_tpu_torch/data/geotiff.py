@@ -124,6 +124,60 @@ def read_image(path: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
+TAG_ORIENTATION = 274
+TAG_EXTRA_SAMPLES = 338
+EXTRASAMPLE_UNASSALPHA = 2
+# PIL's orientation fix-up (its EXIF transpose at load) undone: 2 mirror,
+# 3 turn half round, 4 upside down, 5 transpose, 6 rotate 270, 7
+# transverse, 8 rotate 90
+_UNDO_PIL_ORIENTATION = {
+    2: lambda a: a[:, ::-1],
+    3: lambda a: a[::-1, ::-1],
+    4: lambda a: a[::-1],
+    5: lambda a: a.transpose(1, 0, 2),
+    6: lambda a: np.rot90(a, 1),
+    7: lambda a: np.rot90(a, 2).transpose(1, 0, 2),
+    8: lambda a: np.rot90(a, -1),
+}
+# libtiff's TIFFReadRGBAImageOriented(..., ORIENTATION_TOPLEFT) on the
+# stored rows: tif_getimage.c's setorientation flips and never transposes,
+# so 5-8 read as 1-4
+_LIBTIFF_ORIENTATION = {**{o: _UNDO_PIL_ORIENTATION[o] for o in (2, 3, 4)}, 5: lambda a: a,
+                        **{o: _UNDO_PIL_ORIENTATION[o - 4] for o in (6, 7, 8)}}
+
+
+def read_tiff_rgba(path: str) -> np.ndarray:
+    """A TIFF's (H, W, 3) uint8 pixels as libtiff's RGBA interface gives
+    them (``TIFFReadRGBAImageOriented(..., ORIENTATION_TOPLEFT)``, the JAX
+    package's tileloader.cc), from PIL's decode and the file's tags:
+    - unassociated alpha (ExtraSamples 2) premultiplied, (c * a + 127) // 255
+      (tif_getimage.c's UaToAa table); other alpha as stored;
+    - 16-bit grey reduced to its high byte (put16bitbwtile);
+    - orientations 5-8 as libtiff lays them out: the stored rows flipped as
+      for 1-4 (5 as stored, 6 mirrored, 7 turned half round, 8 upside
+      down), where PIL transposes them.
+    Anything else as ``read_image`` gives it."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        orientation = im.tag_v2.get(TAG_ORIENTATION, 1)
+        unassociated = tuple(im.tag_v2.get(TAG_EXTRA_SAMPLES, ()))[:1] == (EXTRASAMPLE_UNASSALPHA,)
+        im.load()
+        applied = TAG_ORIENTATION not in im.tag_v2  # PIL drops the tag once it has applied it
+        if im.mode == "RGBA" and unassociated:
+            rgba = np.asarray(im).astype(np.uint32)
+            arr = ((rgba[..., :3] * rgba[..., 3:] + 127) // 255).astype(np.uint8)
+        elif im.mode.startswith("I;16"):
+            arr = np.repeat((np.asarray(im).astype(np.uint16) >> 8).astype(np.uint8)[..., None], 3, -1)
+        else:
+            arr = np.asarray(im.convert("RGB"))
+    if orientation in _LIBTIFF_ORIENTATION:
+        if applied:
+            arr = _UNDO_PIL_ORIENTATION[orientation](arr)
+        arr = _LIBTIFF_ORIENTATION[orientation](arr)
+    return np.array(arr, order="C")  # a writable copy, as read_image's callers get
+
+
 def read_image_bytes(data: bytes) -> np.ndarray:
     """Decode an in-memory image blob (the store streaming path) to (H, W, C)
     uint8 with the decoder of ``read_image``, so a store corpus and a file

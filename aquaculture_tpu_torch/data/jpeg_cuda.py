@@ -2,8 +2,9 @@
 
 ``csrc/jpeg_decode.cu`` holds one kernel for ``sm_90a``,
 ``jpeg_decode_kernel``: dequantisation + libjpeg-turbo's integer IDCT at
-each component's scaled size, fancy chroma upsampling, YCbCr->RGB, the crop
-and the tile grid, fused, into the (B, TH, TW, 3) uint8 batch, with the
+each component's scaled size, chroma upsampling (fancy, or a box of 1 to 4
+a side), the conversion to RGB (YCbCr, grey, or RGB-coded components
+copied), the crop and the tile grid, fused, into the (B, TH, TW, 3) uint8 batch, with the
 component planes kept in shared memory (never in device memory); one
 instantiation per scale N/8 (N = 1..8) holds that scale's IDCTs. It is not
 a port of a TPU kernel: the JAX package decodes JPEG on host threads with

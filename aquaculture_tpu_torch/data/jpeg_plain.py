@@ -21,8 +21,9 @@ The arithmetic is libjpeg-turbo's, reproduced exactly, not approximated:
   signed, plus 128, clamped to 0..255);
 - jdsample.c's "fancy" (triangle-filter) h2v1, h1v2 and h2v2 upsampling,
   with its edge replication, and the box upsampling it falls back to
-  (always at 1/8);
-- jdcolor.c's 16-bit fixed-point YCbCr->RGB tables with ONE_HALF rounding.
+  (always at 1/8, and for the integral factors 3 and 4);
+- jdcolor.c's 16-bit fixed-point YCbCr->RGB tables with ONE_HALF rounding,
+  its grey replication, and its copy of RGB-coded components.
 The kernel runs them fused, stripe by stripe (``stripe_blocks`` gives the
 blocks one of its CTAs reads); ``decode_batch_plain`` is its plain version,
 the IDCT into whole planes (``idct_batch_plain``) followed by the colour
@@ -48,7 +49,11 @@ M_KIND, M_WIDTH, M_HEIGHT, M_NCOMP, M_MAX_H, M_MAX_V, M_OUT_W, M_OUT_H = range(8
 M_SCALE, M_COLOR, M_RESTART, M_COEFS, M_SOF = range(8, 13)
 MC_BASE, MC_INTS, MC_QT = 16, 80, 16   # one component's fields in the metadata
 C_H, C_V, C_S, C_K, C_BW, C_BH, C_OFF, C_DW, C_DH = range(9)
-KIND_BASELINE, KIND_OTHER_JPEG, KIND_TIFF, KIND_UNREADABLE = range(4)
+# KIND_BASELINE: the entropy decoder takes the file (any JPEG process that
+# libjpeg-turbo decodes); KIND_REFUSED: a JPEG that libjpeg-turbo refuses;
+# KIND_UNREADABLE: neither JPEG nor TIFF, or markers that do not parse
+KIND_BASELINE, KIND_REFUSED, KIND_TIFF, KIND_UNREADABLE = range(4)
+COLOR_GREY, COLOR_YCC, COLOR_RGB = range(3)   # M_COLOR: jdcolor.c's conversion to RGB
 
 # Upsampling modes of one component (shared with csrc/jpeg_decode.cu).
 UP_FULL, UP_H2V1, UP_H1V2, UP_H2V2, UP_BOX = range(5)
@@ -552,7 +557,7 @@ def ycc_to_rgb_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> tor
 #   comps  (8 per component of each image): coef_off, plane_off, blocks_w,
 #          blocks_h, K, S, qt_off, plane_w
 #   images (20 per image): ncomp, first comp, out_w, out_h, colour (0 grey,
-#          1 YCbCr), then per component: mode, h factor, v factor,
+#          1 YCbCr, 2 RGB), then per component: mode, h factor, v factor,
 #          downsampled width, downsampled height
 #   tiles  (4 per slot): kind (TILE_ZERO, TILE_DECODED, TILE_CALLER),
 #          image, x and y origin in decoded pixels
@@ -769,8 +774,10 @@ def image_rgb_plain(planes: torch.Tensor, comps: torch.Tensor, image: Sequence[i
         mode, hf, vf, dw, dh = image[5 + 5 * c:10 + 5 * c]
         plane = planes[plane_off:plane_off + bh * s * pw].reshape(bh * s, pw)[:dh, :dw].to(torch.int32)
         out.append(upsample_plain(plane, mode, hf, vf)[:h, :w])
-    if color == 0:
+    if color == COLOR_GREY:
         return out[0].to(torch.uint8).unsqueeze(-1).expand(h, w, 3).contiguous()
+    if color == COLOR_RGB:  # jdcolor.c's rgb_rgb_convert: the components as they are
+        return torch.stack(out, -1).to(torch.uint8)
     return ycc_to_rgb_plain(*out)
 
 

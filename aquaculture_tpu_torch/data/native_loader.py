@@ -6,8 +6,8 @@ the C++ tileloader.cc beside it, split another way. The JAX package decodes whol
 JPEGs on a C++ thread pool with libjpeg-turbo; the port's hosts have no
 libjpeg, and on a card the parallel half belongs on the card:
 - ``csrc/jpeg_entropy.cc`` (g++, ctypes) parses the markers and
-  Huffman-decodes each JPEG (baseline or extended sequential, in one scan
-  or several, and progressive) on a thread pool into de-zigzagged,
+  entropy-decodes each JPEG (sequential in one scan or several, and
+  progressive, Huffman or arithmetic) on a thread pool into de-zigzagged,
   still-quantised int16 coefficients (at scale only the coefficients each
   block's scaled IDCT reads), ahead of the consumer and handed out in path
   order;
@@ -23,15 +23,18 @@ The pixels are libjpeg-turbo's, byte for byte, at every N/8 from 1/8 to
 DCT-domain scaled IDCT, not a resize), as the JAX package's native loader
 gives them.
 
-Files are routed by content, from their markers, never by catching an
-error: the JPEG processes above go to the card; TIFF and the JPEG
-processes the entropy decoder does not speak (lossless, arithmetic,
-12-bit, CMYK, RGB-coded, and a progressive file whose scans leave
-coefficients unfinished, which libjpeg smooths) decode on a host thread
-pool through PIL (``data/geotiff.read_image``; at scale through the Python
-loader's PIL resize, as the JAX module routes non-JPEG files); a file that
-is neither, or whose markers do not parse, is skipped. ``counts`` says how
-many files took each route: "device", "pil", "pil_resize", "skipped".
+Files are routed by content, from their markers and tags, never by
+catching an error: every JPEG that libjpeg-turbo 2.1.5 decodes (baseline,
+extended, progressive and multi-scan sequential, Huffman or arithmetic,
+grey, YCbCr or RGB-coded, sampling factors 1..4) goes to the card; a
+TIFF decodes on a host thread pool through PIL with libtiff's RGBA
+semantics (``data/geotiff.read_tiff_rgba``; at scale the Python loader's
+PIL resize, as the JAX module routes non-JPEG files); a JPEG that libjpeg
+refuses (12-bit, CMYK, lossless, hierarchical, fractional sampling), a
+file that is neither JPEG nor TIFF, or one whose markers do not parse is
+skipped, as the JAX package's loader skips it. ``counts`` says how many
+files took each route: "device", "pil" and "pil_resize" (TIFF only),
+"skipped".
 
 Tile order is deterministic: files in path order, each raster's tiles
 x-major (the JAX native loader's order varies from run to run). The grid is
@@ -54,12 +57,12 @@ import torch
 from aquaculture_tpu_torch.config import IM_WIDTH, resolve_device
 from aquaculture_tpu_torch.data import jpeg_cuda
 from aquaculture_tpu_torch.data.filenames import TileSpec, decode_tile_name
-from aquaculture_tpu_torch.data.geotiff import read_image
+from aquaculture_tpu_torch.data.geotiff import read_image, read_tiff_rgba
 from aquaculture_tpu_torch.data.jpeg_plain import (
-    KIND_BASELINE, KIND_OTHER_JPEG, KIND_TIFF, KIND_UNREADABLE, M_COEFS, M_HEIGHT, M_KIND,
+    KIND_BASELINE, KIND_REFUSED, KIND_TIFF, KIND_UNREADABLE, M_COEFS, M_HEIGHT, M_KIND,
     M_OUT_H, M_OUT_W, M_WIDTH, META_INTS, TILE_CALLER, TILE_DECODED, TILE_ZERO,
     EntropyImage, describe_batch, kept, reconstruct_plain, tile_grid, unpack_batch)
-from aquaculture_tpu_torch.data.loader import TileBatch, _emit_tiles, resize_to_scale
+from aquaculture_tpu_torch.data.loader import TileBatch, _emit_tiles
 from aquaculture_tpu_torch.geo import native_boolean
 
 SOURCE = os.path.join(native_boolean._CSRC, "jpeg_entropy.cc")
@@ -129,7 +132,8 @@ def probe(path: str, scale_n: int = 8) -> np.ndarray:
 def entropy_decode(path: str, scale_n: int = 8) -> Optional[EntropyImage]:
     """The host half alone: the coefficients and metadata of a JPEG the
     entropy decoder takes (M_KIND KIND_BASELINE) at scale_n/8, None for
-    any other file."""
+    any other file (and for a one-scan JPEG whose markers after its scan
+    libjpeg refuses, which only the decode reads)."""
     lib = build()
     meta = probe(path, scale_n)
     if meta[M_KIND] != KIND_BASELINE:
@@ -155,14 +159,15 @@ def _reconstruct(image: EntropyImage, dev: torch.device) -> torch.Tensor:
 
 def decode_image(path: str, device="cuda") -> Optional[torch.Tensor]:
     """Decode one JPEG or TIFF at full size -> (H, W, 3) uint8 on
-    ``device``; None if the file is neither or does not parse."""
+    ``device`` (a TIFF as libtiff's RGBA interface gives it); None for a
+    file the loader skips."""
     dev = resolve_device(device)
     image = entropy_decode(path, 8)
     if image is not None:
         return _reconstruct(image, dev)
-    if probe(path)[M_KIND] == KIND_UNREADABLE:
+    if probe(path)[M_KIND] != KIND_TIFF:
         return None
-    return torch.from_numpy(np.array(read_image(path))).to(dev)
+    return torch.from_numpy(read_tiff_rgba(path)).to(dev)
 
 
 def scale_for(width: int, height: int, target: int) -> int:
@@ -177,20 +182,17 @@ def scale_for(width: int, height: int, target: int) -> int:
 def decode_image_scaled(path: str, target: int, device="cuda") -> Optional[torch.Tensor]:
     """Decode with a DCT-domain downscale: a JPEG at the largest N/8 scale
     whose longer side stays >= target (``scale_for``), on the card (or
-    its plain version on the CPU). A JPEG the entropy decoder does not take
-    goes to the PIL resize to libjpeg's ceil(d * N / 8); TIFF decodes at
-    full size, as in the JAX package. None if the file does not parse."""
+    its plain version on the CPU); a TIFF at full size, as in the JAX
+    package. None for a file the loader skips."""
     dev = resolve_device(device)
     meta = probe(path)
     kind = meta[M_KIND]
-    if kind == KIND_UNREADABLE:
-        return None
     if kind == KIND_TIFF:
         return decode_image(path, dev)
-    n = scale_for(int(meta[M_WIDTH]), int(meta[M_HEIGHT]), target)
-    if kind == KIND_OTHER_JPEG:
-        return torch.from_numpy(np.array(resize_to_scale(read_image(path), n))).to(dev)
-    return _reconstruct(entropy_decode(path, n), dev)
+    if kind != KIND_BASELINE:
+        return None
+    image = entropy_decode(path, scale_for(int(meta[M_WIDTH]), int(meta[M_HEIGHT]), target))
+    return None if image is None else _reconstruct(image, dev)
 
 
 # ---------------------------------------------------------------- batches
@@ -338,15 +340,15 @@ class _Batcher:
 
 
 def _routed_tiles(path: str, base: TileSpec, tile: int, out_tile: int) -> list:
-    """(pixels, spec) of each tile of a file the entropy decoder does not
-    take, through PIL, each zero-padded to the batch's slot: at full size on
-    the device loader's grid, at scale the Python loader's PIL-resize twin
-    (its ``_emit_tiles``, which leaves a raster no larger than a slot whole)."""
-    arr = read_image(path)
+    """(pixels, spec) of each tile of a TIFF, through PIL, each zero-padded
+    to the batch's slot: at full size libtiff's RGBA pixels on the device
+    loader's grid, at scale the Python loader's PIL-resize twin (its
+    ``_emit_tiles``, which leaves a raster no larger than a slot whole)."""
     eff = out_tile or tile
     if out_tile:
-        tiles = _emit_tiles(arr, base, tile, 0, out_tile)
+        tiles = _emit_tiles(read_image(path), base, tile, 0, out_tile)
     else:
+        arr = read_tiff_rgba(path)
         tiles = ((arr[y:y + tile, x:x + tile], _tile_spec(base, x, y, tile, tile))
                  for x, y in tile_grid(arr.shape[1], arr.shape[0], tile))
     out = []
@@ -376,7 +378,7 @@ def native_tile_batches(
     ``data.loader.tile_batches``, with ``images`` already on ``device``.
 
     n_threads: the entropy decoder's threads (0 = cores capped at 8), and
-    as many PIL threads for routed files; queue_depth: files decoded ahead
+    as many PIL threads for TIFFs; queue_depth: files decoded ahead
     of the consumer. out_tile > 0 decodes at out_tile/tile (5/8: 640 px
     tiles from 1024 px ones) with offsets in source pixels; an out_tile
     that is not a proper N/8 fraction of tile raises ValueError here,
@@ -408,13 +410,13 @@ def _batches(lib, paths, batch_size, tile, out_tile, scale_n, n_threads, depth, 
     try:
         while lib.aq_jpeg_loader_peek(handle, meta.ctypes.data, ctypes.byref(pidx)) == 1:
             i = pidx.value
-            # start PIL on the routed files the workers have read ahead
+            # start PIL on the TIFFs the workers have read ahead
             scanned = max(scanned, i)
             while scanned < min(i + depth, len(paths)):
                 kind = lib.aq_jpeg_loader_kind(handle, scanned)
                 if kind < 0:
                     break
-                if kind in (KIND_OTHER_JPEG, KIND_TIFF):
+                if kind == KIND_TIFF:
                     routed[scanned] = pool.submit(_routed_tiles, paths[scanned], base_specs[scanned],
                                                   tile, out_tile)
                 scanned += 1
@@ -427,7 +429,7 @@ def _batches(lib, paths, batch_size, tile, out_tile, scale_n, n_threads, depth, 
                     yield from batcher.add((st, x, y), _tile_spec(base_specs[i], x, y, tile, eff))
                 continue
             lib.aq_jpeg_loader_pop(handle, None, 0)
-            if kind == KIND_UNREADABLE:
+            if kind in (KIND_REFUSED, KIND_UNREADABLE):
                 counts["skipped"] += 1
                 continue
             fut = routed.pop(i, None) or pool.submit(_routed_tiles, paths[i], base_specs[i], tile, out_tile)

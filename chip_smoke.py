@@ -24,10 +24,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      the land filter on the host) at full width (mt at 640, 32 tiles over 4
      download boxes, two of them overlapping, with land; more than 2,000
      rows reach the hybrid land filter), with the counters zeroed around
-     it, printing each stage's rows and host seconds; then the committed
-     trained fixture over its rendered 12-tile world, once on the card and once on
-     the CPU, in bf16 through cli.pipeline (deviation reported) and in f32
-     through run_pipeline (held to the golden bar);
+     it, printing each stage's rows and host seconds; then, after 4c, the
+     committed trained fixture over its rendered 12-tile world, once on the
+     card and once on the CPU, in bf16 through cli.pipeline (deviation
+     reported) and in f32 through run_pipeline (held to the golden bar).
+     The CPU runs, the accuracy table's CPU half and phase 10's CPU side
+     run in one spawned worker (CPU_REFERENCE_THREADS torch threads),
+     started when the world is rendered, beside the card's phases;
   4c. the serving options: the ``p6`` phase drives cli.pipeline on m6 at
      1280 px with 4b's full-width geometry; cli.detect runs once with
      --augment --multi-label and once with --decode-scale (mt at 640), and
@@ -108,9 +111,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      manifest deleted and the run repeated by two new processes (the same
      output, rank 1 serving exactly that chunk's tiles); one f32 n step at
      160 px under a one-rank NCCL sharded_train_step against the plain card
-     step (TF32 off). The processes start after 4b and import while the
-     card-vs-CPU and accuracy checks run; phase 6 times the m/640/b16 bf16
-     step under the one-rank mesh beside the plain step;
+     step (TF32 off). The processes start before 4b's pipeline runs and
+     import while they and the card-vs-CPU checks run (the accuracy table
+     follows the pod phase); phase 6 times the m/640/b16 bf16 step under
+     the one-rank mesh beside the plain step;
  10. after 8, ``facilities_tonnage``: the tonnage world, a cut of phase 8's
      evaluation world (its detections and labels west of 3.25 E) with an
      image box for each tile and survey year (two years overlap inside the
@@ -155,11 +159,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      plots only where matplotlib imports).
  13. after 5, ``feed``, the device loader: its fused kernel equal to its
      plain version (torch.equal) on JPEGs at q75, q90 and q95 4:2:0,
-     4:4:4, 4:2:2, 4:4:0, greyscale, 1000 x 750, restart intervals, a
-     progressive one and a 2048 px raster, at 8/8 and 5/8, alone and in
-     one batch on the tile grid, and the card's 8/8 images equal to PIL's
-     decode on this host byte for byte; at 1/8, 2/8, 3/8, 4/8, 6/8 and 7/8
-     all but the raster in one batch on the grid; detect_files through
+     4:4:4, 4:2:2, 4:4:0, 4:1:1, luma 3x1 and 1x4, greyscale, RGB-coded,
+     1000 x 750, restart intervals, progressive, arithmetic (sequential
+     with restarts, progressive), interrupted progressive files (smoothed)
+     and a 2048 px raster, at 8/8 and 5/8, alone and in one batch on the
+     tile grid, and the card's 8/8 images equal to PIL's decode on this
+     host byte for byte (but PIL_DIFFERS); at 1/8, 2/8, 3/8, 4/8, 6/8 and
+     7/8 all but the raster in one batch on the grid; a corpus of good
+     tiles, a TIFF and the 12-bit, lossless and CMYK JPEGs that libjpeg
+     refuses through native_tile_batches on the card (3 skipped, no
+     exception, the TIFF alone under PIL, tiles equal to the plain path's
+     on the CPU, at 8/8 and 5/8); detect_files through
      both loaders (full-decode rows equal, the kernel once per batch), and
      at --img 512 (4/8) through the device loader by default (each kernel
      once per batch, the card's tiles equal to the CPU plain path's); then
@@ -826,19 +836,12 @@ def _match_golden(got, want) -> dict:
             "best_iou_p05_p50": [float(q) for q in np.percentile(best, [5, 50])] if best else None}
 
 
-def drive_pipeline_trained_card_vs_cpu(d: str, img_dir: str) -> dict:
-    """The committed trained fixture (n, 2 classes) at 160 px on its
-    rendered 12-tile world (seed 0, in ``d``: the accuracy phase's), with
-    land over part of it, once on the
-    card and once on the CPU:
-
-    - ``cli.pipeline`` as users run it (bf16): launches, land branch and
-      output checked; how far the card's rows are from the CPU's is
-      reported, not held to the golden bar, because at 160 px one pixel of
-      the model is 6.4 px of the tile and bf16 rounds activations after
-      cuDNN's and the CPU's different summation orders;
-    - ``run_pipeline`` in f32 with TF32 off: the two GeoJSONs hold the same
-      rows at the golden bar."""
+def trained_fixture_run(d: str, img_dir: str, dtype: str, device: str) -> dict:
+    """One run of the committed trained fixture (n, 2 classes) at 160 px on
+    its rendered world in ``d`` (land from ``start_cpu_references``): bf16
+    through ``cli.pipeline`` as users run it, f32 through ``run_pipeline``
+    with TF32 off; launches, land branch and output checked. Returns the
+    run's report and its GeoJSON's path."""
     import torch
 
     from aquaculture_tpu_torch import frame as gf
@@ -850,42 +853,60 @@ def drive_pipeline_trained_card_vs_cpu(d: str, img_dir: str) -> dict:
     from aquaculture_tpu_torch.pipeline import run_pipeline
 
     boxes_csv, land = os.path.join(d, "wanted_bboxes.csv"), os.path.join(d, "land.geojson")
-    write_land(land, -100.0, 3700.0, 1100.0, 2500.0, seed=3)
-    args = ["--source", img_dir, "--download-bboxes", boxes_csv, "--land", land,
-            "--weights", FIXTURE, "--img", "160", "--conf", "0.05"]
-    paths = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
-    f32 = DetectConfig(img_size=160, conf_threshold=0.05, dtype="float32")
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    out = os.path.join(d, f"det_{dtype}_{device}.geojson")
+    nms_cuda.launches = 0
+    if dtype == "bfloat16":
+        det, stats = cli_pipeline.main(["--source", img_dir, "--download-bboxes", boxes_csv, "--land", land,
+                                        "--weights", FIXTURE, "--img", "160", "--conf", "0.05", "--out", out,
+                                        "--device", device])
+    else:
+        paths = sorted(os.path.join(img_dir, f) for f in os.listdir(img_dir))
+        f32 = DetectConfig(img_size=160, conf_threshold=0.05, dtype="float32")
+        prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            det, stats = run_pipeline(paths, load_model(FIXTURE, "n", 2), load_download_bboxes(boxes_csv),
+                                      f32, land=gf.read_file(land), device=device)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        det.to_file(out)
+    launches = nms_cuda.launches
+    if launches != (stats.batches if device == "cuda" else 0):
+        fail(f"trained fixture, {dtype} on {device}: {launches} suppression launches for {stats.batches} batches")
+    if stats.land_filter != "exact" or not stats.stage_rows["land_filter"] < stats.stage_rows["areas"]:
+        fail(f"trained fixture, {dtype} on {device}: land filter {stats.land_filter!r}, rows {stats.stage_rows}")
+    check_geojson(out, det, n_classes=2)
+    return {"out": out, "report": {"rows": len(det), "launches": launches, **_stage_report(stats)},
+            "tiles": stats.tiles}
+
+
+def drive_pipeline_trained_card_vs_cpu(d: str, img_dir: str, cpu_runs) -> dict:
+    """The committed trained fixture (n, 2 classes) at 160 px on its
+    rendered 12-tile world (seed 0, in ``d``: the accuracy phase's), with
+    land over part of it, once on the card (here) and once on the CPU
+    (``cpu_runs``: each dtype's ``trained_fixture_run`` future, from the
+    CPU reference worker):
+
+    - ``cli.pipeline`` as users run it (bf16): launches, land branch and
+      output checked; how far the card's rows are from the CPU's is
+      reported, not held to the golden bar, because at 160 px one pixel of
+      the model is 6.4 px of the tile and bf16 rounds activations after
+      cuDNN's and the CPU's different summation orders;
+    - ``run_pipeline`` in f32 with TF32 off: the two GeoJSONs hold the same
+      rows at the golden bar."""
+    from aquaculture_tpu_torch import frame as gf
+
     runs, frames = {}, {}
     for dtype in ("bfloat16", "float32"):
         for device in ("cuda", "cpu"):
-            out = os.path.join(d, f"det_{dtype}_{device}.geojson")
-            nms_cuda.launches = 0
-            if dtype == "bfloat16":
-                det, stats = cli_pipeline.main(args + ["--out", out, "--device", device])
-            else:
-                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-                try:
-                    det, stats = run_pipeline(paths, load_model(FIXTURE, "n", 2), load_download_bboxes(boxes_csv),
-                                              f32, land=gf.read_file(land), device=device)
-                finally:
-                    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
-                det.to_file(out)
-            launches = nms_cuda.launches
-            if launches != (stats.batches if device == "cuda" else 0):
-                fail(f"trained fixture, {dtype} on {device}: {launches} suppression launches "
-                     f"for {stats.batches} batches")
-            if stats.land_filter != "exact" or not stats.stage_rows["land_filter"] < stats.stage_rows["areas"]:
-                fail(f"trained fixture, {dtype} on {device}: land filter {stats.land_filter!r}, "
-                     f"rows {stats.stage_rows}")
-            check_geojson(out, det, n_classes=2)
-            frames[dtype, device] = gf.read_file(out)
-            runs[f"{dtype}_{device}"] = {"rows": len(det), "launches": launches, **_stage_report(stats)}
+            run = trained_fixture_run(d, img_dir, dtype, "cuda") if device == "cuda" else cpu_runs[dtype].result()
+            frames[dtype, device] = gf.read_file(run["out"])
+            runs[f"{dtype}_{device}"] = run["report"]
     bf16 = _match_golden(frames["bfloat16", "cuda"], frames["bfloat16", "cpu"])
     match = _match_golden(frames["float32", "cuda"], frames["float32", "cpu"])
     if match["rows"][0] != match["rows"][1] or match["unmatched"] or match["rows"][0] < 50:
         fail(f"trained fixture f32 card vs CPU (TF32 off) misses the golden bar: {match}")
-    return {"variant": "n", "img": 160, "tiles": len(paths), "weights": "tests/data/demo_ckpt_n160",
+    return {"variant": "n", "img": 160, "tiles": run["tiles"], "weights": "tests/data/demo_ckpt_n160",
             "f32_card_vs_cpu_golden_bar": match, "bf16_card_vs_cpu": bf16, "runs": runs}
 
 
@@ -1148,7 +1169,7 @@ def time_serving_and_kernel(dev, card: str, tiles, variant: str = "mt", shapes=T
         print(json.dumps({"metric": "stages_ms", "variant": variant, "dtype": serving, "img": img, "batch": b,
                           "conf": 1e-5, **stages, "card": card}), flush=True)
         if profile:
-            prof = profile_step(lambda: model(x), n=2)
+            prof = profile_step(lambda: model(x), n=1)
             prof["idle_share"] = max(0.0, 1 - prof["device_busy_ms_per_step"] / stages["forward"])
             out["forward_profile"] = prof
             print(json.dumps({"metric": "forward_profile", "variant": variant, "dtype": serving, "img": img,
@@ -1489,7 +1510,7 @@ def time_train_step(dev, card: str, batch: dict, variant: str = TRAIN_VARIANT, i
                       "share_of_bf16_dense_peak": rate / BF16_FLOP_PER_S,
                       "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
         if name == "plain":
-            prof = profile_step(lambda: step(state, on_card), n=2)
+            prof = profile_step(lambda: step(state, on_card), n=1)
             rows[name]["profile"] = {**prof, "idle_share": max(0.0, 1 - prof["device_busy_ms_per_step"] / ms)}
         print(json.dumps({"metric": "train_step", "variant": variant, "img": img, "batch": b,
                           "dtype": "bfloat16", "option": name, **rows[name], "card": card}), flush=True)
@@ -1679,37 +1700,80 @@ def check_int8_forward_card_vs_cpu(dev, img: int = 160) -> dict:
             "codes_differing": flips, "worst_code_diff": worst, "head_max_rel_err": head}
 
 
-def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str) -> dict:
-    """serving_accuracy_table for the trained fixture on its rendered
-    12-image world (seed 0; tests/test_accuracy.py's) at 160 px, every row,
-    on the card (TF32 off, so that the f32 row is f32) through the device
-    loader and on the CPU through the Python loader: the f32 rows agree, and
-    every card row holds tests/test_accuracy.py's bounds against the card's
-    bf16 row."""
+def accuracy_configs() -> tuple:
+    """The accuracy table's rows: every serving configuration and topk512."""
+    from aquaculture_tpu_torch.eval.accuracy import SERVING_CONFIGS
+
+    return SERVING_CONFIGS + ("topk512",)
+
+
+def accuracy_table(img_dir: str, lab_dir: str, device: str) -> dict:
+    """serving_accuracy_table of the trained fixture at 160 px, every row of
+    ``accuracy_configs``, on ``device`` (TF32 off, so that the f32 row is f32):
+    through the device loader on the card, the Python loader on the CPU;
+    with the kernels' launches counted in this process."""
     import torch
 
     from aquaculture_tpu_torch.data import jpeg_cuda
-    from aquaculture_tpu_torch.eval.accuracy import SERVING_CONFIGS, serving_accuracy_table
+    from aquaculture_tpu_torch.eval.accuracy import serving_accuracy_table
     from aquaculture_tpu_torch.ops import int8_conv, nms_cuda
 
-    configs = SERVING_CONFIGS + ("topk512",)
-    tables = {}
+    nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
+    jpeg_cuda.decode_launches = 0
     prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    for device in ("cpu", "cuda"):
-        nms_cuda.launches = int8_conv.mm_calls = int8_conv.plain_calls = 0
-        jpeg_cuda.decode_launches = 0
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        t0 = time.perf_counter()
-        try:
-            rows = serving_accuracy_table(img_dir, lab_dir, FIXTURE, img_size=160, configs=configs,
-                                          device=device, use_native=device == "cuda")
-        finally:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
-        tables[device] = {"rows": {r.name: {"map50": r.map50, "map": r.map} for r in rows},
-                          "seconds": time.perf_counter() - t0, "launches": nms_cuda.launches,
-                          "jpeg_launches": jpeg_cuda.decode_launches}
-        if device == "cuda":
-            tables[device]["int8_conv_calls"] = check_int8_routes("accuracy table", True)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    try:
+        rows = serving_accuracy_table(img_dir, lab_dir, FIXTURE, img_size=160, configs=accuracy_configs(),
+                                      device=device, use_native=device == "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    table = {"rows": {r.name: {"map50": r.map50, "map": r.map} for r in rows},
+             "seconds": time.perf_counter() - t0, "launches": nms_cuda.launches,
+             "jpeg_launches": jpeg_cuda.decode_launches}
+    if device == "cuda":
+        table["int8_conv_calls"] = check_int8_routes("accuracy table", True)
+    return table
+
+
+def _cpu_reference_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+
+
+# the CPU reference worker's torch threads: the card phases beside it keep
+# the rest of the host's cores
+CPU_REFERENCE_THREADS = 4
+
+
+def start_cpu_references(d: str, img_dir: str, lab_dir: str) -> dict:
+    """The CPU halves of the trained fixture's pipeline runs and of the
+    accuracy table, in a spawned worker that imports and runs them while
+    the card's phases run (the card halves stay in this process): each
+    dtype's ``trained_fixture_run`` and the CPU ``accuracy_table``, as
+    futures, and the worker's executor under "pool" (phase 10 gives it its
+    CPU side too)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    write_land(os.path.join(d, "land.geojson"), -100.0, 3700.0, 1100.0, 2500.0, seed=3)  # over part of the world
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_cpu_reference_worker_init)
+    return {"pool": pool, "bfloat16": pool.submit(trained_fixture_run, d, img_dir, "bfloat16", "cpu"),
+            "float32": pool.submit(trained_fixture_run, d, img_dir, "float32", "cpu"),
+            "accuracy": pool.submit(accuracy_table, img_dir, lab_dir, "cpu")}
+
+
+def run_accuracy_phase(dev, card: str, img_dir: str, lab_dir: str, cpu_table) -> dict:
+    """The accuracy table for the trained fixture on its rendered 12-image
+    world (seed 0; tests/test_accuracy.py's) at 160 px, every row, on the
+    card through the device loader (here) and on the CPU through the Python
+    loader (``cpu_table``, the CPU reference worker's future): the f32 rows
+    agree, and every card row holds tests/test_accuracy.py's bounds against
+    the card's bf16 row."""
+    configs = accuracy_configs()
+    tables = {"cuda": accuracy_table(img_dir, lab_dir, "cuda"), "cpu": cpu_table.result()}
     card, cpu = tables["cuda"]["rows"], tables["cpu"]["rows"]
     # two batches of 8 tiles per row, one launch each, on the card only
     if tables["cuda"]["launches"] != 2 * len(configs) or tables["cpu"]["launches"]:
@@ -1916,8 +1980,8 @@ def one_rank_mesh(dev):
 def start_pod_phase(d: str, tile_dir: str, n_tiles: int) -> dict:
     """The pod phase's inputs (the main path's tiles as a local store under
     ``tiles/``, one download box per 4 tiles) and the processes of both its
-    runs, started now: they import and wait for their go files, so their
-    start-up overlaps checks that time nothing (card vs CPU, accuracy).
+    runs, started now: they import and wait for their go files while the
+    pipeline phases and the card-vs-CPU checks run.
     Every process is killed at exit if it is still running."""
     root = os.path.dirname(tile_dir)  # the store's keys: tiles/<name>
     boxes_csv = os.path.join(d, "pod_boxes.csv")
@@ -2654,14 +2718,15 @@ def check_bootstrap_lattice(dev, card: str) -> dict:
             "degenerate_max_sd": float(dest["tonnage_sd"].max()), "card": card}
 
 
-def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
+def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple, cpu_pool) -> dict:
     """Phase 10: cli.facilities then cli.tonnage on the card, on the tonnage
-    world cut from the evaluation world, then the same in-process calls
-    with --device cpu (cli.tonnage at K = TONNAGE_K_CPU). The facility
-    frames must be equal card vs CPU, each pass's tonnage mean within 4
-    standard errors of the CPU's, and a second card run with the same seed
-    identical; then the bootstrap at the paper's scale. (A worker process
-    for the CPU side would spend longer importing than the side takes.)"""
+    world cut from the evaluation world, and the same calls with --device
+    cpu (cli.tonnage at K = TONNAGE_K_CPU) in ``cpu_pool``, the CPU
+    reference worker (imported long before: a worker spawned for this side
+    would spend longer importing than the side takes). The facility frames
+    must be equal card vs CPU, each pass's tonnage mean within 4 standard
+    errors of the CPU's, and a second card run with the same seed
+    identical; then the bootstrap at the paper's scale."""
     from aquaculture_tpu_torch.cli import facilities as cli_facilities
     from aquaculture_tpu_torch.cli import tonnage as cli_tonnage
     from aquaculture_tpu_torch.geo import boolean, native_boolean
@@ -2676,6 +2741,7 @@ def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
 
     paths = write_tonnage_world(d, world=world)
     stamp("world")
+    cpu_side = cpu_pool.submit(facilities_tonnage_cpu, paths, d)
     pkl = os.path.join(d, "facility_cuda.pkl")
     out = {}
     native_boolean.sweeps = 0
@@ -2705,7 +2771,7 @@ def run_facilities_tonnage_phase(dev, card: str, d: str, world: tuple) -> dict:
                                                    TONNAGE_K_CLI, "cuda")))
         runs.append(time.perf_counter() - t0)
     stamp("cli_tonnage_card_x2")
-    tables, est_cpu, fac_cpu_s, ton_cpu_s = facilities_tonnage_cpu(paths, d)
+    tables, est_cpu, fac_cpu_s, ton_cpu_s = cpu_side.result()
     stamp("cpu_reference")
     est, est2 = runs[0], runs[2]
     if list(mine) != list(tables) or not all(mine[k].equals(tables[k]) for k in tables):
@@ -3277,9 +3343,11 @@ FEED_PATHS = 1280    # 10 batches of 128 per timed device-loader run
 FEED_PY_PATHS = 384  # 3 batches per timed Python-loader run (4x slower)
 FEED_HOST_FILES = 16  # host decode timing: files per thread
 FEED_ROWS_TILES = 16
-# (name, (height, width), PIL save options, "gray", or "440" for 4:4:0
-# through OpenCV): the samplings, qualities, partial MCUs, restart
-# intervals, a progressive file and a raster of 2 x 2 tiles
+# (name, (height, width), PIL save options, "gray", "440" or "411" for
+# 4:4:0 or 4:1:1 through OpenCV, or "fixture": a file of FEED_FIXTURES): the
+# samplings, qualities, partial MCUs, restart intervals, a progressive file,
+# a raster of 2 x 2 tiles, an RGB-coded file, luma sampled 4x1, 3x1 and 1x4,
+# arithmetic coding, and interrupted progressive files (smoothed)
 FEED_CASES = (
     ("q75_420", (1024, 1024), dict(quality=75)),
     ("q90_420", (1024, 1024), dict(quality=90)),
@@ -3292,7 +3360,26 @@ FEED_CASES = (
     ("restart", (1024, 1024), dict(quality=90, restart_marker_blocks=7)),
     ("progressive", (1024, 1024), dict(quality=90, progressive=True)),
     ("raster_2048", (2048, 2048), dict(quality=90)),
+    ("rgb", (1024, 1024), dict(quality=90, keep_rgb=True)),
+    ("q90_411", (1024, 1024), "411"),
+    ("luma31", (256, 384), "fixture"),
+    ("luma14", (256, 384), "fixture"),
+    ("arith_restart", (256, 384), "fixture"),
+    ("arith_progressive", (256, 384), "fixture"),
+    ("interrupted", (256, 384), "fixture"),
+    ("interrupted_ac", (256, 384), "fixture"),
+    ("dc_only", (256, 384), "fixture"),
 )
+# Files this machine has no libjpeg to write: tests/data/torch_jpeg/, as
+# tests/torch_jax_native.py's write_feed_fixtures wrote them (libjpeg-turbo
+# 2.1.5's encoder; 384 x 256, quality 90): arithmetic sequential with a
+# restart every MCU row and progressive, progressive files whose scans stop
+# short of the last bits of the DC and AC, of the AC alone, or after the DC
+# scan, and luma sampled 3x1 and 1x4
+FEED_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "torch_jpeg")
+# the cases PIL's libjpeg-turbo decodes otherwise than the JAX package's
+# 2.1.5: 3.x smooths interrupted progressive files with another filter
+PIL_DIFFERS = ("interrupted", "interrupted_ac", "dc_only")
 # the scales besides 8/8 and 5/8: libjpeg's 1x1, 2x2, 3x3, 4x4, 6x6 and
 # 7x7 IDCTs, and 4:2:0 chroma through the 4x4 .. 14x14
 OTHER_SCALES = (1, 2, 3, 4, 6, 7)
@@ -3324,15 +3411,18 @@ def write_feed_files(d: str) -> tuple:
     rng = np.random.default_rng(13)
     cases = {}
     for name, (h, w), kw in FEED_CASES:
-        img = aerial_image(rng, h, w)
         p = os.path.join(d, f"case_{name}.jpg")
+        if kw == "fixture":
+            cases[name] = os.path.join(FEED_FIXTURES, f"{name}.jpg")
+            continue
+        img = aerial_image(rng, h, w)
         if kw == "gray":
             Image.fromarray(img[..., 1]).save(p, quality=90)
-        elif kw == "440":
+        elif kw in ("440", "411"):
             import cv2
 
-            cv2.imwrite(p, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                            cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
+            factor = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440 if kw == "440" else cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411
+            cv2.imwrite(p, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])
         else:
             Image.fromarray(img).save(p, **kw)
         cases[name] = p
@@ -3410,25 +3500,25 @@ def check_jpeg_exactness(cases: dict, dev) -> dict:
     """Every case at 8/8 and 5/8, alone (the whole image) and all in one
     batch on their tile grids, and the 2048 px raster at 5/8 in 625 px
     tiles, kernel == plain; at 8/8 the card's whole image also equals
-    PIL's decode on this host, byte for byte. At each of OTHER_SCALES the
-    cases but the 2048 px raster, progressive included, in one batch on
-    their grids of 128 N px tiles, kernel == plain."""
-    from PIL import Image
+    PIL's decode on this host, byte for byte, but for PIL_DIFFERS. At each
+    of OTHER_SCALES the cases but the 2048 px raster in one batch on their
+    grids of 128 N px tiles, kernel == plain."""
+    from PIL import Image, features
 
-    out = {}
+    out = {"pil_libjpeg_turbo": features.version("libjpeg_turbo"), "pil_not_compared": list(PIL_DIFFERS)}
     for scale, eff in ((8, 1024), (5, 640)):
         images = dict(zip(cases, entropy_decode_all(list(cases.values()), scale)))
         for name, im in images.items():
             if im is None:
                 fail(f"the entropy decoder refused case {name}")
             got = jpeg_kernel_vs_plain([im], 0, dev, f"{name} at {scale}/8")["out"][0]
-            if scale == 8:
+            if scale == 8 and name not in PIL_DIFFERS:
                 pil = np.asarray(Image.open(cases[name]).convert("RGB"))
                 if got.shape != pil.shape or not np.array_equal(got.cpu().numpy(), pil):
                     fail(f"the card's 8/8 decode of {name} != PIL's")
         batch = jpeg_kernel_vs_plain(list(images.values()), eff, dev, f"all cases at {scale}/8 on the grid")
         out[f"{scale}/8"] = {"cases": len(images), "slots": batch["slots"], "kernel_equals_plain": True,
-                             "equal_pil": scale == 8}
+                             "equal_pil": len(images) - len(PIL_DIFFERS) if scale == 8 else 0}
         if scale == 5:
             # 1000 px tiles at 5/8: stripes start 3 past a 10x10 chroma
             # block (625 + 128), the widest ring row
@@ -3441,7 +3531,68 @@ def check_jpeg_exactness(cases: dict, dev) -> dict:
             fail(f"the entropy decoder refused a case at {scale}/8")
         batch = jpeg_kernel_vs_plain(images, 128 * scale, dev, f"the cases at {scale}/8 on the grid")
         out[f"{scale}/8"] = {"cases": len(images), "slots": batch["slots"], "kernel_equals_plain": True,
-                             "equal_pil": False}
+                             "equal_pil": 0}
+    return out
+
+
+def write_refused_jpegs(d: str) -> list:
+    """JPEGs that libjpeg-turbo 2.1.5 refuses: an 8 x 8 flat grey file at
+    12 bits (SOF1) and one lossless (SOF3), written byte by byte, every
+    difference coded as category 0 by a one-code Huffman table; and a CMYK
+    one through PIL."""
+    import struct
+
+    from PIL import Image
+
+    def seg(m: int, body: bytes) -> bytes:
+        return b"\xff" + bytes([m]) + struct.pack(">H", len(body) + 2) + body
+
+    dc = seg(0xC4, bytes([0x00, 1] + [0] * 15 + [0]))
+    p12 = (seg(0xDB, bytes([0] + [1] * 64)) + dc + seg(0xC4, bytes([0x10, 1] + [0] * 15 + [0])) +
+           seg(0xC1, bytes([12]) + struct.pack(">HH", 8, 8) + bytes([1, 1, 0x11, 0])) +
+           seg(0xDA, bytes([1, 1, 0x00, 0, 63, 0])) + b"\x00")
+    lossless = (dc + seg(0xC3, bytes([8]) + struct.pack(">HH", 8, 8) + bytes([1, 1, 0x11, 0])) +
+                seg(0xDA, bytes([1, 1, 0x00, 1, 0, 0])) + b"\x00" * 8)
+    paths = []
+    for i, body in enumerate((p12, lossless)):
+        paths.append(os.path.join(d, f"refused_{i}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(b"\xff\xd8" + body + b"\xff\xd9")
+    paths.append(os.path.join(d, "refused_cmyk.jpg"))
+    cmyk = aerial_image(np.random.default_rng(14), 256, 256)
+    Image.fromarray(np.concatenate([cmyk, cmyk[..., :1]], -1), "CMYK").save(paths[-1], quality=90)
+    return paths
+
+
+def check_feed_routing(dev, d: str, distinct: list) -> dict:
+    """native_tile_batches on the card over a corpus of 3 good 1024 px
+    tiles, a TIFF and the JPEGs libjpeg refuses (12-bit, lossless, CMYK):
+    no exception, 3 skipped, the TIFF alone under PIL (no JPEG there), the
+    good tiles and the TIFF served, equal to the loader's plain path on the
+    CPU; at 5/8 too."""
+    import torch
+    from PIL import Image
+
+    from aquaculture_tpu_torch.data import native_loader
+
+    tiff = os.path.join(d, "routing.tif")
+    Image.fromarray(aerial_image(np.random.default_rng(15), 1024, 1024)).save(tiff)
+    paths = [distinct[0], *write_refused_jpegs(d), distinct[1], tiff, distinct[2]]
+    out = {"files": len(paths)}
+    for out_tile in (0, 640):
+        counts, cpu_counts = {}, {}
+        card = list(native_loader.native_tile_batches(paths, batch_size=4, out_tile=out_tile, device=dev,
+                                                      counts=counts))
+        cpu = list(native_loader.native_tile_batches(paths, batch_size=4, out_tile=out_tile, device="cpu",
+                                                     counts=cpu_counts))
+        want = {"device": 3, "pil": 0 if out_tile else 1, "pil_resize": 1 if out_tile else 0, "skipped": 3}
+        if counts != want or cpu_counts != want:
+            fail(f"routing at out_tile {out_tile}: counts {counts} (CPU {cpu_counts}), expected {want}")
+        valid = [b.valid.tolist() for b in card]
+        if valid != [[True] * 4] or valid != [b.valid.tolist() for b in cpu] or not all(
+                torch.equal(a.images.cpu(), b.images) for a, b in zip(card, cpu)):
+            fail(f"routing at out_tile {out_tile}: tiles on the card != the plain path's (valid {valid})")
+        out[f"out_tile_{out_tile}"] = {"counts": counts, "valid": valid}
     return out
 
 
@@ -3727,6 +3878,8 @@ def run_feed_phase(dev, card: str, d: str, serving_tps: float) -> dict:
     seconds = {"write": time.perf_counter() - t0}
     out = {"exactness": check_jpeg_exactness(cases, dev)}
     seconds["exactness"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["routing"] = check_feed_routing(dev, d, distinct)
+    seconds["routing"] = time.perf_counter() - t0 - sum(seconds.values())
     out["kernels"] = time_jpeg_decode(distinct, dev, card)
     seconds["kernel_times"] = time.perf_counter() - t0 - sum(seconds.values())
     out["host_decode"] = time_host_decode(distinct, card)
@@ -3774,7 +3927,8 @@ def main() -> int:
     aot_export = start_aot_export(d4, batch=8)
 
     # 2. build the kernels (one nvcc per source), the overlay sweep and the
-    # entropy decoder (g++), all at once
+    # entropy decoder (g++), all at once; 3. the suppression kernel against
+    # its plain version and the int8 conv routes while the others build
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         t0 = time.perf_counter()
         builds = {name: pool.submit(lambda f=f: (f(), time.perf_counter() - t0)[1])
@@ -3782,16 +3936,14 @@ def main() -> int:
                                   ("jpeg_decode", jpeg_cuda.build))}
         nms_cuda.build()
         print(f"build: nms_suppress {time.perf_counter() - t0:.2f} s ({nms_cuda.library_path()})", flush=True)
+        t1 = time.perf_counter()
+        shapes = check_shapes()
+        suites = check_kernels(dev, shapes)
+        print(f"kernels: nms_suppress == plain (exact) on suites {','.join(suites)} x shapes "
+              f"{list(shapes)} in {time.perf_counter() - t1:.1f} s", flush=True)
+        print(json.dumps({"phase": "int8_conv", **check_int8_conv(dev)}), flush=True)
         for name, job in builds.items():
             print(f"build: {name} {job.result():.2f} s", flush=True)
-
-    # 3. kernels vs plain
-    t0 = time.perf_counter()
-    shapes = check_shapes()
-    suites = check_kernels(dev, shapes)
-    print(f"kernels: nms_suppress == plain (exact) on suites {','.join(suites)} x shapes "
-          f"{list(shapes)} in {time.perf_counter() - t0:.1f} s", flush=True)
-    print(json.dumps({"phase": "int8_conv", **check_int8_conv(dev)}), flush=True)
 
     # 4. the main path; the tiles serve every later phase that needs files
     tile_dir, label_dir = os.path.join(d, "tiles"), os.path.join(d, "labels")
@@ -3827,18 +3979,23 @@ def main() -> int:
     os.makedirs(d1)
     inputs = write_pipeline_inputs(d1)
     world = render_world(dw, n_images=12, seed=0)
-    pipeline = {"full_width": drive_pipeline_full_width(d1, inputs),
-                "trained_fixture": drive_pipeline_trained_card_vs_cpu(dw, world[0]), "card": card}
-    print(json.dumps({"phase": "pipeline", **pipeline}), flush=True)
+    # the CPU halves of the trained fixture's runs and of the accuracy table
+    # start in a worker now; the card halves come last in their phases
+    cpu_refs = start_cpu_references(dw, *world)
+    # 9. aq-pod: its processes start here and import while the pipeline
+    # phases run (they need some 10 s; the card-vs-CPU checks alone are 2 s)
+    pod_run = start_pod_phase(d, tile_dir, n_tiles=16)
+    full_width = drive_pipeline_full_width(d1, inputs)
     p6 = drive_pipeline_full_width(d1, inputs, variant="m6")
     print(json.dumps({"phase": "p6", **p6, "card": card}), flush=True)
     overlap = drive_pipeline_overlap(d1, inputs[1])
     print(json.dumps({"phase": "overlap", **overlap, "card": card}), flush=True)
     int8_pipeline = drive_pipeline_full_width(d1, inputs, options=("--int8",))
     print(json.dumps({"phase": "int8_pipeline", **int8_pipeline, "card": card}), flush=True)
+    pipeline = {"full_width": full_width,
+                "trained_fixture": drive_pipeline_trained_card_vs_cpu(dw, world[0], cpu_refs), "card": card}
+    print(json.dumps({"phase": "pipeline", **pipeline}), flush=True)
     mark("pipeline")
-    # 9. aq-pod: its processes start here and import while the checks below run
-    pod_run = start_pod_phase(d, tile_dir, n_tiles=16)
     print(json.dumps({"phase": "f32_card_vs_cpu_n160", "tf32": False, **check_f32_vs_cpu(dev)}), flush=True)
     print(json.dumps({"phase": "f32_card_vs_cpu_n6_256", "tf32": False, **check_f32_vs_cpu(dev, "n6", 256)}),
           flush=True)
@@ -3846,12 +4003,14 @@ def main() -> int:
     print(json.dumps({"phase": "int8_n160_card_vs_cpu", "tf32": False, **check_int8_forward_card_vs_cpu(dev)}),
           flush=True)
     mark("card_vs_cpu")
-    accuracy = run_accuracy_phase(dev, card, *world)
-    print(json.dumps({"phase": "accuracy", **accuracy, "card": card}), flush=True)
-    mark("accuracy")
     pod = run_pod_phase(dev, card, pod_run)
     print(json.dumps({"phase": "pod", **pod, "card": card}), flush=True)
     mark("pod")
+    # the accuracy table after the pod phase: its CPU half has had the
+    # worker since the pipeline phases began
+    accuracy = run_accuracy_phase(dev, card, *world, cpu_refs["accuracy"])
+    print(json.dumps({"phase": "accuracy", **accuracy, "card": card}), flush=True)
+    mark("accuracy")
     # 8. aq-cluster and aq-evaluate on the evaluation world
     d8 = os.path.join(d, "evaluation")
     os.makedirs(d8)
@@ -3864,8 +4023,10 @@ def main() -> int:
     os.makedirs(d10)
     screening_worker = start_screening_worker()  # phase 12's; it imports while phase 10 runs
     eval_world = tuple(os.path.join(d8, f) for f in ("detections.geojson", "labels.geojson", "images.csv"))
-    print(json.dumps({"phase": "facilities_tonnage", **run_facilities_tonnage_phase(dev, card, d10, eval_world),
-                      "card": card}), flush=True)
+    print(json.dumps({"phase": "facilities_tonnage",
+                      **run_facilities_tonnage_phase(dev, card, d10, eval_world, cpu_refs["pool"]), "card": card}),
+          flush=True)
+    cpu_refs["pool"].shutdown()
     torch.cuda.empty_cache()
     mark("facilities_tonnage")
     # 12. aq-acquire -> the reference's tiling -> aq-pipeline on the card,

@@ -6,9 +6,10 @@ plain version gives PIL's bytes at 8/8 and the JAX native loader's
 (libjpeg-turbo 2.1 through native/libaquatile.so) at every N/8, where
 libjpeg-turbo's scaled IDCTs (jidctred.c's 1x1, 2x2, 4x4 and jidctint.c's
 3x3 .. 14x14; 4:2:0 chroma takes twice the luma's size) replace a resize.
-The cases cover 4:2:0 at three qualities, 4:4:4, 4:2:2, 4:4:0,
-greyscale, sizes that are not multiples of the MCU, and restart
-intervals; one-block cosine images hold each scaled IDCT to the
+The cases cover 4:2:0 at three qualities, 4:4:4, 4:2:2, 4:4:0, 4:1:1
+(box upsampling by 4), RGB-coded files (Adobe transform 0: the components
+copied, no YCbCr), greyscale, sizes that are not multiples of the MCU,
+and restart intervals; one-block cosine images hold each scaled IDCT to the
 coefficients libjpeg's reads. The kernel wrapper takes the plain version
 on CPU tensors and nothing else; the kernel itself is held to the plain
 version on the card by chip_smoke.py. Here its stripe arithmetic is: the
@@ -31,7 +32,8 @@ REPO = Path(__file__).resolve().parent.parent
 SCALES = tuple(range(1, 9))
 
 # (name, (height, width), PIL save options; "gray" for one component,
-# "440" for 4:4:0 through OpenCV, which PIL does not write)
+# "440" and "411" for 4:4:0 and 4:1:1 through OpenCV, which PIL does not
+# write)
 CASES = (
     ("q75_420", (96, 128), dict(quality=75)),
     ("q90_420", (128, 128), dict(quality=90)),
@@ -44,6 +46,8 @@ CASES = (
     ("restart_blocks", (96, 128), dict(quality=90, restart_marker_blocks=5)),
     ("restart_rows", (70, 90), dict(quality=60, subsampling=0, restart_marker_rows=1)),
     ("q90_440", (200, 333), "440"),                          # H1V2 chroma
+    ("q90_411", (96, 136), "411"),                           # luma 4x1: chroma boxed by 4 across
+    ("rgb_444", (88, 120), dict(quality=90, keep_rgb=True, subsampling=0)),  # RGB-coded
 )
 NAMES = [c[0] for c in CASES]
 
@@ -67,9 +71,10 @@ def jpegs(tmp_path_factory):
         p = d / f"{name}.jpg"
         if kw == "gray":
             Image.fromarray(img[..., 0]).save(p, quality=90)
-        elif kw == "440":
+        elif kw in ("440", "411"):
+            factor = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440 if kw == "440" else cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411
             cv2.imwrite(str(p), img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
+                                                 factor])
         else:
             Image.fromarray(img).save(p, **kw)
         paths[name] = str(p)
@@ -132,6 +137,7 @@ LAYOUT = {
     "q90_422": {1: (1, 1, jp.UP_BOX), **{n: (n, n, jp.UP_H2V1) for n in range(2, 9)}},
     "q90_440": {1: (1, 1, jp.UP_BOX), **{n: (n, n, jp.UP_H1V2) for n in range(2, 9)}},
     "q90_444": {n: (n, n, jp.UP_FULL) for n in SCALES},
+    "q90_411": {n: (n, n, jp.UP_BOX) for n in SCALES},
 }
 
 
@@ -152,6 +158,10 @@ def test_layout_at_every_scale_is_libjpegs(jpegs, scale):
         rows = max(c.size * jp.upsample_mode(c, m)[2] for c in comps)  # IDCT rows x vertical factor
         want = 2 * scale if name in ("q90_420", "q90_440") else scale
         assert jp.describe_batch([m], [0], [])[1].band_unit == rows == want, name
+        assert m[jp.M_COLOR] == jp.COLOR_YCC, name
+    m = native_loader.probe(jpegs[0]["q90_411"], scale)
+    assert [jp.upsample_mode(c, m)[1:] for c in jp.components_of(m)] == [(1, 1), (4, 1), (4, 1)]
+    assert native_loader.probe(jpegs[0]["rgb_444"], scale)[jp.M_COLOR] == jp.COLOR_RGB
 
 
 def _cosine_block(u: int, v: int, n: int = 8) -> np.ndarray:

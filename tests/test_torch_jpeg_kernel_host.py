@@ -24,6 +24,7 @@ import torch
 from PIL import Image
 
 from aquaculture_tpu_torch.data import jpeg_plain as jp, native_loader
+from torch_jax_native import libjpeg_writer, write_jpeg
 
 SOURCE = Path(__file__).resolve().parent.parent / "aquaculture_tpu_torch" / "csrc" / "jpeg_decode.cu"
 
@@ -93,7 +94,9 @@ extern "C" void host_decode(const void* coef, const void* qt, const void* comps,
 }
 """
 
-# (name, (height, width), PIL save options, "gray", or "440" through OpenCV)
+# (name, (height, width), PIL save options, "gray", "440" or "411" through
+# OpenCV, or "luma44" through the libjpeg writer: luma sampled 4 x 4, one
+# scan a component, so that chroma takes the 4N x 4N IDCT below 4/8)
 CASES = (
     ("q90_420", (96, 144), dict(quality=90)),             # two stripes at 8/8
     ("q90_422", (64, 136), dict(quality=90, subsampling=1)),
@@ -102,6 +105,9 @@ CASES = (
     ("gray", (40, 70), "gray"),
     ("wide_420", (70, 333), dict(quality=85)),            # ragged right stripe, byte stores
     ("tiny_420", (3, 2), dict(quality=90)),               # box upsampling
+    ("q90_411", (40, 150), "411"),                       # box upsampling by 4 across
+    ("rgb_444", (40, 90), dict(quality=90, keep_rgb=True, subsampling=0)),  # RGB: pixel by pixel
+    ("luma44", (56, 80), "luma44"),
 )
 NAMES = [c[0] for c in CASES]
 SCALES = tuple(range(1, 9))
@@ -126,15 +132,20 @@ def host_kernel(tmp_path_factory):
     lib.aq_jpeg_stripe_blocks.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.aq_jpeg_stripe_blocks.restype = ctypes.c_int
     rng = np.random.default_rng(14)
+    writer = libjpeg_writer(d)
     paths = {}
     for name, (h, w), kw in CASES:
         img = cv2.GaussianBlur(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), (5, 5), 2)
         p = d / f"{name}.jpg"
         if kw == "gray":
             Image.fromarray(img[..., 0]).save(p, quality=90)
-        elif kw == "440":
-            cv2.imwrite(str(p), img, [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                      cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
+        elif kw in ("440", "411"):
+            factor = cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440 if kw == "440" else cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411
+            cv2.imwrite(str(p), img, [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])
+        elif kw == "luma44":
+            if writer is None:
+                continue
+            write_jpeg(writer, img, p, "multiscan", 90, 0, (4, 4))
         else:
             Image.fromarray(img).save(p, **kw)
         paths[name] = str(p)
@@ -178,6 +189,8 @@ def test_kernel_source_equals_plain_on_whole_images(host_kernel, name, scale):
     wrapper's bands and in bands of 8 rows (steps cut short at the band's
     edges, context rows recomputed)."""
     lib, paths = host_kernel
+    if name not in paths:
+        pytest.skip("the libjpeg writer does not build here")
     image = native_loader.entropy_decode(paths[name], scale)
     for band_rows in (None, 8):
         got, want = _decode_both(lib, [image], 0, band_rows)

@@ -11,10 +11,13 @@ batches at every N/8 for each sampling, restart intervals and an odd size,
 and for progressive (spectral selection alone, and with successive
 approximation) and multi-scan sequential files. The JAX loader's tile
 order varies from run to run, so the comparison is by tile key; the
-port's order is the Python loader's. Also: files routed and counted by
-content (TIFF, 4:1:1 and a progressive JPEG whose scans stop short to
-PIL, the corrupt file skipped; arithmetic, CMYK, 12-bit and lossless
-files against the JAX loader), routed rasters no larger than a slot
+port's order is the Python loader's. Also: the JPEG processes added since
+(RGB-coded; luma sampled 4x1, 4x2, 3x1 and 1x4; arithmetic sequential
+with restarts and arithmetic progressive; progressive files whose scans
+stop short, which libjpeg smooths: DC and AC, AC only, DC only) at full
+size and every N/8; files routed and counted by content (TIFF to PIL with
+libtiff's pixels, JPEGs that libjpeg refuses and the corrupt file skipped,
+as the JAX loader skips them), routed rasters no larger than a slot
 zero-padded into it, an early close that does not hang,
 ``detect_files(use_native=True)`` and ``detect_files(decode_scale=True)``
 against the JAX package's, and the accuracy harness on the device loader.
@@ -34,7 +37,8 @@ from PIL import Image
 from aquaculture_tpu_torch.config import DetectConfig
 from aquaculture_tpu_torch.data import jpeg_cuda, loader as tloader, native_loader
 from aquaculture_tpu_torch.pipeline import PipelineStats, detect_files
-from torch_jax_native import jax_native_loader, libjpeg_writer, write_jpeg
+from torch_jax_native import (FEED_FIXTURES, FIXTURES, fixture_image, jax_native_loader, libjpeg_writer,
+                              write_feed_fixtures, write_jpeg)
 
 REPO = Path(__file__).resolve().parent.parent
 PREFIX = "ORTHOIMAGERY.ORTHOPHOTOS2019"
@@ -53,8 +57,8 @@ def corpus(tmp_path_factory):
     """Tile-codec-named files: JPEG rasters of 2048 (4:2:0) and 1024 px
     (4:4:4, restart intervals), a 1000 x 750 JPEG, a TIFF, a TIFF named
     .jpg, a corrupt .jpg, a 1000 x 750 TIFF, progressive JPEGs of 1024 and
-    1000 x 750 px and, apart, a 1000 x 750 4:1:1 JPEG (the entropy decoder
-    takes sampling factors 1 and 2 only); and the JAX native loader
+    1000 x 750 px and, apart, an LZW TIFF of 1000 x 750; and the JAX native
+    loader
     (``jax_native_loader``: None if it does not build here)."""
     d = tmp_path_factory.mktemp("corpus")
     rng = np.random.default_rng(5)
@@ -74,10 +78,7 @@ def corpus(tmp_path_factory):
     save("progressive", "7_0_0.jpg", 1024, 1024, quality=90, progressive=True)
     save("small_tiff", "9_0_0.tif", 750, 1000)
     save("small_progressive", "10_0_0.jpg", 750, 1000, quality=90, progressive=True)
-    p411 = d / f"{PREFIX}_11_0_0.jpg"
-    cv2.imwrite(str(p411), aerial(rng, 750, 1000), [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                                    cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
-    files["small_411"] = str(p411)
+    save("small_tiff_lzw", "11_0_0.tif", 750, 1000, compression="tiff_lzw")
     corrupt = d / f"{PREFIX}_8_0_0.jpg"
     # a JFIF header and then no marker: neither decoder finds a frame
     junk = np.random.default_rng(0).integers(0, 255, 4000, dtype=np.uint8).tobytes()  # no 0xFF byte
@@ -130,11 +131,10 @@ def test_native_tile_batches_equal_jax_native_loader(corpus, out_tile):
 
 @pytest.mark.parametrize("out_tile", [0, 640])
 def test_routed_rasters_no_larger_than_a_slot_are_zero_padded(corpus, out_tile):
-    """A TIFF and a 4:1:1 JPEG of 1000 x 750 (625 x 469 at 5/8), both
-    through PIL, fill one zero-padded slot each, as in the Python loader's
-    batches."""
+    """Two TIFFs of 1000 x 750 (625 x 469 at 5/8), both through PIL, fill
+    one zero-padded slot each, as in the Python loader's batches."""
     files, _ = corpus
-    paths = [files["small_tiff"], files["small_411"]]
+    paths = [files["small_tiff"], files["small_tiff_lzw"]]
     counts = {}
     got = list(native_loader.native_tile_batches(paths, batch_size=2, tile=1024, out_tile=out_tile,
                                                  device="cpu", counts=counts))
@@ -170,22 +170,23 @@ def _unfinished_progressive(path: str, out: Path) -> str:
     return str(out)
 
 
-def test_progressive_jpeg_is_routed_to_pil_and_counted(corpus, tmp_path):
+def test_interrupted_progressive_jpeg_takes_the_device_route_and_is_counted(corpus, tmp_path):
     """A progressive JPEG whose scans leave AC coefficients 1..9 short of
-    their last bits: libjpeg smooths such blocks (jdcoefct.c), so the
-    markers route it to PIL (kind OTHER_JPEG, with the frame's size), and
-    it is counted there. The JAX package's libjpeg-turbo smooths with
-    another version's filter than PIL's (ROADMAP.md, section 3), so only
-    the PIL route's bytes are held here."""
-    files, _ = corpus
+    their last bits (an interrupted download): the entropy decoder smooths
+    its blocks as libjpeg-turbo 2.1.5's jdcoefct.c does, so it takes the
+    device route and is counted there, and its tile equals the JAX native
+    loader's (PIL's newer libjpeg-turbo smooths otherwise)."""
+    files, jn = corpus
     path = _unfinished_progressive(files["progressive"], tmp_path / f"{PREFIX}_12_0_0.jpg")
     meta = native_loader.probe(path)
-    assert meta[0] == native_loader.KIND_OTHER_JPEG and meta[1:3].tolist() == [1024, 1024]
+    assert meta[0] == native_loader.KIND_BASELINE and meta[1:3].tolist() == [1024, 1024]
     counts = {}
     (batch,) = native_loader.native_tile_batches([path, files["corrupt"]], batch_size=2, tile=1024,
                                                  device="cpu", counts=counts)
-    assert counts == {"device": 0, "pil": 1, "pil_resize": 0, "skipped": 1}
-    np.testing.assert_array_equal(batch.images[0].numpy(), np.asarray(Image.open(path).convert("RGB")))
+    assert counts == {"device": 1, "pil": 0, "pil_resize": 0, "skipped": 1}
+    assert batch.valid.tolist() == [True, False]
+    if jn is not None:
+        np.testing.assert_array_equal(batch.images[0].numpy(), jn.decode_image(path))
     assert native_loader.decode_image(files["corrupt"], "cpu") is None
 
 
@@ -324,11 +325,11 @@ def _scale_case(scale_corpus, name):
     return files[name], jn
 
 
-def _equal_jax_at(path, jn, scale):
+def _equal_jax_at(path, jn, scale, tile=None):
     """decode_image_scaled and native_tile_batches at scale/8 against the
-    JAX native loader: tiles of 512 px (1024 for the 1000 x 750 raster),
-    out_tile its scale/8."""
-    w, h = Image.open(path).size
+    JAX native loader: tiles of ``tile`` px (default 512, and 1024 for the
+    1000 x 750 raster), out_tile its scale/8."""
+    w, h = native_loader.probe(path)[1:3].tolist()
     if scale == 8:
         got, want = native_loader.decode_image(path, "cpu").numpy(), jn.decode_image(path)
     else:
@@ -337,13 +338,13 @@ def _equal_jax_at(path, jn, scale):
         want = jn.decode_image_scaled(path, target)
     assert got.shape == want.shape == (-(-h * scale // 8), -(-w * scale // 8), 3)
     np.testing.assert_array_equal(got, want)
-    tile = 1024 if w == 1000 else 512
+    tile = tile or (1024 if w == 1000 else 512)
     out_tile = 0 if scale == 8 else tile * scale // 8
     counts = {}
     got = _by_key(native_loader.native_tile_batches([path], batch_size=2, tile=tile, out_tile=out_tile, device="cpu",
                                                     counts=counts))
     want = _by_key(jn.native_tile_batches([path], batch_size=2, tile=tile, out_tile=out_tile))
-    assert sorted(got) == sorted(want) and len(got) == (1 if w == 1000 else 2)
+    assert sorted(got) == sorted(want) and len(got) == len(native_loader.tile_grid(w, h, tile))
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
     assert counts["device"] == 1
@@ -393,14 +394,12 @@ def _hand_made(kind: str, path: Path) -> str:
 
 
 def test_other_jpeg_processes_keep_their_route(corpus, tmp_path):
-    """Arithmetic coding, CMYK, 12-bit and lossless JPEG: the markers give
-    kind OTHER_JPEG and the frame's size, and the file goes to PIL. Against
-    the JAX native loader (libjpeg-turbo 2.1 here; ROADMAP.md, section 3
-    records the differences): arithmetic equal at 8/8; CMYK and lossless
-    skipped by the JAX loader, decoded by PIL in the port; 12-bit read by
-    neither (the port's PIL route raises where the JAX loader skips)."""
-    from PIL import UnidentifiedImageError
-
+    """Arithmetic coding, CMYK, 12-bit and lossless JPEG are routed by
+    their markers as the JAX native loader's libjpeg-turbo 2.1.5 takes
+    them: arithmetic to the device route, equal to the JAX loader; CMYK,
+    12-bit and lossless refused (kind REFUSED, with the frame's size and
+    SOF), so decode_image and decode_image_scaled give None, as the JAX
+    loader does, and nothing raises (the 12-bit file raised PIL's error)."""
     files, jn = corpus
     writer = libjpeg_writer(tmp_path)
     img = aerial(np.random.default_rng(4), 96, 128)
@@ -414,13 +413,12 @@ def test_other_jpeg_processes_keep_their_route(corpus, tmp_path):
     sofs = {"12bit": 0xC1, "lossless": 0xC3, "cmyk": 0xC0, "arith": 0xC9}
     for name, path in paths.items():
         meta = native_loader.probe(path)
-        assert meta[0] == native_loader.KIND_OTHER_JPEG and meta[1:3].tolist() == sizes[name], name
+        kind = native_loader.KIND_BASELINE if name == "arith" else native_loader.KIND_REFUSED
+        assert meta[0] == kind and meta[1:3].tolist() == sizes[name], name
         assert meta[12] == sofs[name], name
-    with pytest.raises(UnidentifiedImageError):
-        native_loader.decode_image(paths["12bit"], "cpu")
-    assert (native_loader.decode_image(paths["lossless"], "cpu") == 128).all()
-    np.testing.assert_array_equal(native_loader.decode_image(paths["cmyk"], "cpu").numpy(),
-                                  np.asarray(Image.open(paths["cmyk"]).convert("RGB")))
+    for name in ("12bit", "lossless", "cmyk"):
+        assert native_loader.decode_image(paths[name], "cpu") is None, name
+        assert native_loader.decode_image_scaled(paths[name], 4, "cpu") is None, name
     if jn is None:
         return
     for name in ("12bit", "lossless", "cmyk"):
@@ -428,6 +426,236 @@ def test_other_jpeg_processes_keep_their_route(corpus, tmp_path):
     if "arith" in paths:
         np.testing.assert_array_equal(native_loader.decode_image(paths["arith"], "cpu").numpy(),
                                       jn.decode_image(paths["arith"]))
+
+
+def _hierarchical(path: str, out: Path) -> str:
+    """A baseline JPEG with its SOF0 made SOF5 (differential sequential,
+    hierarchical): a process libjpeg-turbo refuses."""
+    data = bytearray(Path(path).read_bytes())
+    data[data.index(b"\xff\xc0") + 1] = 0xC5
+    out.write_bytes(bytes(data))
+    return str(out)
+
+
+@pytest.mark.parametrize("out_tile", [0, 128])
+def test_refused_jpegs_are_skipped_in_a_mixed_corpus(tmp_path, out_tile):
+    """One good 256 px JPEG tile beside 12-bit, CMYK, lossless and
+    hierarchical JPEGs (which libjpeg-turbo 2.1.5 refuses) and a TIFF, at
+    256 px tiles: the device loader serves the JAX native loader's tiles,
+    valid masks at full size, counts the four JPEGs skipped and only the
+    file that is not a JPEG under PIL, and raises nothing."""
+    jn = jax_native_loader()
+    if jn is None:
+        pytest.skip("native/libaquatile.so does not build here")
+    rng = np.random.default_rng(6)
+    good = tmp_path / f"{PREFIX}_1_0_0.jpg"
+    Image.fromarray(aerial(rng, 256, 256)).save(good, quality=90)
+    cmyk = tmp_path / f"{PREFIX}_3_0_0.jpg"
+    Image.fromarray(np.concatenate([aerial(rng, 96, 128)] * 2, -1)[..., :4], "CMYK").save(cmyk, quality=90)
+    tiff = tmp_path / f"{PREFIX}_6_0_0.tif"
+    Image.fromarray(aerial(rng, 256, 256)).save(tiff)
+    paths = [str(good), _hand_made("12bit", tmp_path / f"{PREFIX}_2_0_0.jpg"), str(cmyk),
+             _hand_made("lossless", tmp_path / f"{PREFIX}_4_0_0.jpg"),
+             _hierarchical(str(good), tmp_path / f"{PREFIX}_5_0_0.jpg"), str(tiff)]
+    def masks(batches):
+        return [b.valid.tolist() for b in batches]
+
+    # the good tile and the 12-bit file: one batch, one valid slot in both
+    pair = dict(batch_size=4, tile=256, out_tile=out_tile)
+    assert masks(native_loader.native_tile_batches(paths[:2], device="cpu", **pair)) == \
+        masks(jn.native_tile_batches(paths[:2], **pair)) == [[True, False, False, False]]
+    counts = {}
+    got = list(native_loader.native_tile_batches(paths, batch_size=4, tile=256, out_tile=out_tile, device="cpu",
+                                                 counts=counts))
+    want = list(jn.native_tile_batches(paths, batch_size=4, tile=256, out_tile=out_tile))
+    g, w = _by_key(got), _by_key(want)
+    assert sorted(g) == sorted(w) and len(g) == 2
+    for k in w:
+        np.testing.assert_array_equal(g[k], w[k])
+    # the JAX loader's batches hold its tiles as its threads finish them
+    assert masks(got) == [[True, True, False, False]] and sum(map(sum, masks(want))) == 2
+    non_jpeg = sum(Path(p).read_bytes()[:2] != b"\xff\xd8" for p in paths)
+    assert counts["skipped"] == 4 and counts["device"] == 1
+    assert counts["pil"] + counts["pil_resize"] == non_jpeg == 1
+
+
+# The JPEG processes the device loader took on from PIL and from refusal:
+# RGB-coded (PIL's keep_rgb, Adobe transform 0), luma sampled 4x1 (OpenCV's
+# 4:1:1), 4x2, 3x1 and 1x4, arithmetic sequential with restarts and
+# progressive, and progressive files interrupted (DC and AC short, AC
+# short, DC alone), which libjpeg smooths: 384 x 256 each, the files of
+# tests/data/torch_jpeg/ (torch_jax_native.FEED_FIXTURES) and three more
+NEW_PROCESSES = ("rgb", "luma41", "luma42", *FEED_FIXTURES)
+
+
+@pytest.fixture(scope="module")
+def process_corpus(tmp_path_factory):
+    """One JPEG per name of ``NEW_PROCESSES``, and the JAX native loader."""
+    d = tmp_path_factory.mktemp("processes")
+    files = {name: str(FIXTURES / f"{name}.jpg") for name in FEED_FIXTURES}
+    img = fixture_image(20)
+    Image.fromarray(img).save(d / "rgb.jpg", quality=90, keep_rgb=True, subsampling=0)
+    cv2.imwrite(str(d / "luma41.jpg"), img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90,
+                                                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
+    files.update(rgb=str(d / "rgb.jpg"), luma41=str(d / "luma41.jpg"))
+    writer = libjpeg_writer(d)
+    if writer is not None:
+        files["luma42"] = write_jpeg(writer, img, d / "luma42.jpg", "plain", 90, 0, (4, 2))
+    return files, jax_native_loader()
+
+
+@pytest.mark.parametrize("scale", range(1, 9))
+@pytest.mark.parametrize("name", NEW_PROCESSES)
+def test_new_processes_equal_jax_native_loader_at_every_scale(process_corpus, name, scale):
+    """Each new process through the entropy decoder and the kernel's plain
+    version: decode_image (8/8), decode_image_scaled and
+    native_tile_batches of 1024 px tiles at out_tile 128 N equal the JAX
+    native loader byte for byte."""
+    path, jn = _scale_case(process_corpus, name)
+    assert native_loader.probe(path)[0] == native_loader.KIND_BASELINE
+    _equal_jax_at(path, jn, scale, tile=1024)
+
+
+def _segments(data: bytes) -> list:
+    """(offset, marker, length) of each marker segment up to the first SOS."""
+    out, i = [], 2
+    while i < len(data):
+        m, n = data[i + 1], (data[i + 2] << 8) | data[i + 3]
+        out.append((i, m, n))
+        if m == 0xDA:
+            return out
+        i += 2 + n
+    return out
+
+
+# JPEGs whose markers or data libjpeg-turbo reads in a way of its own, each
+# by how it is made from a 160 x 120 4:2:0 file of the libjpeg writer
+# ("plain" one scan, "simple" progressive, both with a restart every row):
+# the DHTs dropped (the standard tables of jdhuff.c), a DC table no scan
+# uses with a category past 15 (refused only where used), the data cut inside a
+# scan or inside a table's values between scans (zeros and fake EOIs read
+# on), cut inside that table's counts or length (refused: fake EOIs make
+# its counts too many), a scan after a one-scan file and a reserved marker
+# (refused)
+ODD_JPEGS = ("no_tables", "unused_bad_table", "cut_in_scan_40", "cut_in_scan_90", "progressive_cut_70",
+             "progressive_cut_in_values", "progressive_cut_in_counts", "progressive_cut_in_length", "second_scan",
+             "reserved_marker")
+REFUSED_ODD = ("progressive_cut_in_counts", "progressive_cut_in_length", "second_scan", "reserved_marker")
+
+
+@pytest.fixture(scope="module")
+def odd_jpegs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("odd")
+    writer = libjpeg_writer(d)
+    if writer is None:
+        return None, None
+    img = aerial(np.random.default_rng(8), 120, 160)
+    plain = Path(write_jpeg(writer, img, d / "plain.jpg", "plain", 90, 1)).read_bytes()
+    prog = Path(write_jpeg(writer, img, d / "prog.jpg", "simple", 90, 1)).read_bytes()
+    sos = [i for i, m, _ in _segments(plain) if m == 0xDA][0]
+    eoi = plain.rindex(b"\xff\xd9")
+    later_dht = [i for i in range(sos, len(prog) - 1) if prog[i] == 0xFF and prog[i + 1] == 0xC4][-1]
+    made = {
+        "no_tables": plain[:2] + b"".join(plain[i:i + 2 + n] for i, m, n in _segments(plain)[:-1] if m != 0xC4)
+        + plain[sos:],
+        "unused_bad_table": plain[:2] + b"\xff\xc4\x00\x14\x03\x01" + bytes(15) + b"\x10" + plain[2:],
+        "cut_in_scan_40": plain[:sos + (eoi - sos) * 2 // 5],
+        "cut_in_scan_90": plain[:sos + (eoi - sos) * 9 // 10],
+        "progressive_cut_70": prog[:len(prog) * 7 // 10],
+        "progressive_cut_in_values": prog[:later_dht + 25],
+        "progressive_cut_in_counts": prog[:later_dht + 10],
+        "progressive_cut_in_length": prog[:later_dht + 3],
+        "second_scan": plain[:eoi] + plain[sos:],
+        "reserved_marker": plain[:2] + b"\xff\xf1\x00\x04ab" + plain[2:],
+    }
+    files = {}
+    for name, data in made.items():
+        (d / f"{name}.jpg").write_bytes(data)
+        files[name] = str(d / f"{name}.jpg")
+    return files, jax_native_loader()
+
+
+@pytest.mark.parametrize("name", ODD_JPEGS)
+def test_odd_jpegs_decode_or_skip_as_the_jax_native_loader(odd_jpegs, name):
+    """Each file decodes to the JAX native loader's bytes at 8/8 and 4/8,
+    through decode_image, decode_image_scaled and native_tile_batches, or
+    is skipped where that loader's libjpeg refuses it."""
+    files, jn = odd_jpegs
+    if files is None or jn is None:
+        pytest.skip("the libjpeg writer or native/libaquatile.so does not build here")
+    path = files[name]
+    want = jn.decode_image(path)
+    if name in REFUSED_ODD:
+        assert want is None and native_loader.decode_image(path, "cpu") is None
+        counts = {}
+        assert list(native_loader.native_tile_batches([path], tile=256, device="cpu", counts=counts)) == []
+        assert counts["skipped"] == 1
+        return
+    np.testing.assert_array_equal(native_loader.decode_image(path, "cpu").numpy(), want)
+    np.testing.assert_array_equal(native_loader.decode_image_scaled(path, 80, "cpu").numpy(),
+                                  jn.decode_image_scaled(path, 80))
+    got = _by_key(native_loader.native_tile_batches([path], batch_size=1, tile=256, device="cpu"))
+    np.testing.assert_array_equal(next(iter(got.values()))[:120, :160], want)
+
+
+def test_feed_fixtures_are_the_writers(tmp_path):
+    """tests/data/torch_jpeg/ holds what torch_jax_native.write_feed_fixtures
+    writes, byte for byte (chip_smoke.py reads them on a machine without
+    libjpeg)."""
+    writer = libjpeg_writer(tmp_path)
+    if writer is None:
+        pytest.skip("the libjpeg writer does not build here")
+    for name, path in write_feed_fixtures(writer, tmp_path).items():
+        assert Path(path).read_bytes() == (FIXTURES / f"{name}.jpg").read_bytes(), name
+
+
+# TIFFs where libtiff's RGBA interface and PIL's convert("RGB") part:
+# unassociated alpha, 16-bit grey, orientations 5-8 (300 x 200 stored)
+TIFF_CASES = ("rgba_unassociated", "grey16", "orient5", "orient6", "orient7", "orient8")
+
+
+@pytest.fixture(scope="module")
+def tiff_corpus(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tiffs")
+    rng = np.random.default_rng(9)
+    rgb = aerial(rng, 200, 300)
+    files = {}
+    for i, name in enumerate(TIFF_CASES):
+        p = d / f"{PREFIX}_{i + 1}_0_0.tif"
+        if name == "rgba_unassociated":
+            Image.fromarray(np.dstack([rgb, rng.integers(0, 256, (200, 300), dtype=np.uint8)])).save(p)
+        elif name == "grey16":
+            Image.fromarray(rng.integers(0, 65536, (200, 300), dtype=np.uint16)).save(p)
+        else:
+            Image.fromarray(rgb).save(p, tiffinfo={274: int(name[-1])})
+        files[name] = str(p)
+    return files, jax_native_loader()
+
+
+@pytest.mark.parametrize("name", TIFF_CASES)
+def test_tiffs_take_libtiffs_pixels_at_full_size(tiff_corpus, name):
+    """decode_image and native_tile_batches (256 px tiles) give the JAX
+    native loader's libtiff pixels: alpha premultiplied, 16-bit grey's high
+    byte, orientations 5-8 flipped and not transposed. The Python loader
+    still gives PIL's convert("RGB"), unchanged."""
+    files, jn = tiff_corpus
+    if jn is None:
+        pytest.skip("native/libaquatile.so does not build here")
+    path = files[name]
+    want = jn.decode_image(path)
+    np.testing.assert_array_equal(native_loader.decode_image(path, "cpu").numpy(), want)
+    np.testing.assert_array_equal(native_loader.decode_image_scaled(path, 100, "cpu").numpy(), want)
+    counts = {}
+    got = _by_key(native_loader.native_tile_batches([path], batch_size=2, tile=256, device="cpu", counts=counts))
+    ref = _by_key(jn.native_tile_batches([path], batch_size=2, tile=256))
+    assert sorted(got) == sorted(ref) and counts == {"device": 0, "pil": 1, "pil_resize": 0, "skipped": 0}
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k])
+    (batch,) = tloader.tile_batches([path], batch_size=1, tile=512, decode_threads=1)
+    pil = np.asarray(Image.open(path).convert("RGB"))
+    assert not np.array_equal(pil, want)  # the case is one where the two decoders part
+    np.testing.assert_array_equal(np.asarray(batch.images[0])[:pil.shape[0], :pil.shape[1]], pil)
 
 
 def test_early_close_does_not_hang(corpus):
