@@ -34,7 +34,9 @@
 // is KIND_REFUSED, with the frame's size; markers that do not parse as
 // libjpeg parses them, and anything that is neither JPEG nor TIFF,
 // KIND_UNREADABLE. The caller skips both, as the JAX package's loader skips
-// a file its libjpeg refuses. TIFF is KIND_TIFF.
+// a file its libjpeg refuses. TIFF (classic or BigTIFF) is KIND_TIFF, read
+// by csrc/tiff_decode.cc (built into the same library); decode_jpeg_segment
+// takes its JPEG strips and tiles, each with the file's JPEGTables.
 //
 // At scale N/8 every coefficient is still parsed, but each block keeps only
 // the K x K square that its scaled IDCT reads (kept_index): the DC for the
@@ -47,9 +49,15 @@
 //
 // C ABI (bound with ctypes by data/native_loader.py): aq_jpeg_probe,
 // aq_jpeg_decode for one file, and a loader (aq_jpeg_loader_create / peek /
-// pop / kind / destroy) whose worker threads decode files ahead of the
-// caller, at most `depth` files past the oldest one not yet popped, and hand
-// them out in path order.
+// segments / pop / pop_pixels / meta / destroy) whose worker threads decode
+// files ahead of the caller (JPEGs to coefficients, TIFFs to pixels or JPEG
+// segments), at most `depth` files and 1 GiB of decoded bytes past the
+// oldest one not yet popped, and hand them out in path order.
+
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
 
 #include <algorithm>
 #include <condition_variable>
@@ -57,25 +65,17 @@
 #include <cstdio>
 #include <cstring>
 #include <map>
+#include <memory>
 #include <mutex>
 #include <string>
 #include <thread>
 #include <vector>
 
+#include "tiff_decode.h"
+
+using namespace aq;
+
 namespace {
-
-// KIND_BASELINE: the entropy decoder takes the file (any process above)
-enum Kind { KIND_BASELINE = 0, KIND_REFUSED = 1, KIND_TIFF = 2, KIND_UNREADABLE = 3, KIND_END = 4 };
-
-// Per-image metadata, one int32 array (mirrored in data/native_loader.py).
-constexpr int META_INTS = 256;
-enum MetaField {
-  M_KIND = 0, M_WIDTH, M_HEIGHT, M_NCOMP, M_MAX_H, M_MAX_V, M_OUT_W, M_OUT_H,
-  M_SCALE, M_COLOR, M_RESTART, M_COEFS, M_SOF,
-};
-constexpr int COMP_BASE = 16, COMP_INTS = 80, COMP_QT = 16;
-enum CompField { C_H = 0, C_V, C_S, C_K, C_BW, C_BH, C_OFF, C_DW, C_DH };
-enum Color { COLOR_GREY = 0, COLOR_YCC = 1, COLOR_RGB = 2 };
 
 constexpr int kLook = 10;
 constexpr int kMaxDimension = 65500;  // libjpeg's JPEG_MAX_DIMENSION
@@ -473,9 +473,9 @@ int check_scan(Header* h) {
 
 // Parse markers up to the first SOS and check it. Returns a Kind.
 int parse_header(const uint8_t* d, size_t n, Header* h) {
-  if (n >= 4 && ((d[0] == 'I' && d[1] == 'I' && d[2] == 42 && d[3] == 0) ||
-                 (d[0] == 'M' && d[1] == 'M' && d[2] == 0 && d[3] == 42)))
-    return KIND_TIFF;
+  if (n >= 4 && ((d[0] == 'I' && d[1] == 'I' && (d[2] == 42 || d[2] == 43) && d[3] == 0) ||
+                 (d[0] == 'M' && d[1] == 'M' && d[2] == 0 && (d[3] == 42 || d[3] == 43))))
+    return KIND_TIFF;  // classic or BigTIFF
   if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return KIND_UNREADABLE;
   size_t pos = 2;
   int kind = read_markers(d, n, &pos, h);
@@ -1130,10 +1130,10 @@ size_t sequential_scan(const uint8_t* d, size_t n, const Header& h, Out out, Don
 
 // Entropy-decode a one-scan image into coef (meta's layout): a block kept
 // whole straight into its place, any other into a scratch block, then its
-// kept square out. Then the markers after the scan, as
+// kept square out. Then (unless scan_only) the markers after the scan, as
 // jpeg_finish_decompress reads them: another scan, or markers that do not
 // parse, make libjpeg refuse the file. Returns a Kind.
-int decode_scan(const uint8_t* d, size_t n, Header* h, const int32_t* meta, int16_t* coef) {
+int decode_scan(const uint8_t* d, size_t n, Header* h, const int32_t* meta, int16_t* coef, bool scan_only) {
   Cut cut[3];
   int BW[3], KK[3];
   int16_t* base[3];
@@ -1179,6 +1179,7 @@ int decode_scan(const uint8_t* d, size_t n, Header* h, const int32_t* meta, int1
         [&]() { pred[0] = pred[1] = pred[2] = 0; });
     pos = size_t(br.p - d);
   }
+  if (scan_only) return KIND_BASELINE;
   const int kind = read_markers(d, n, &pos, h);
   return kind == KIND_END ? KIND_BASELINE : kind == KIND_BASELINE ? KIND_UNREADABLE : kind;
 }
@@ -1414,24 +1415,48 @@ int walk_scans(const uint8_t* d, size_t n, Header* h, int16_t* full) {
   return KIND_BASELINE;
 }
 
-bool read_file(const char* path, std::vector<uint8_t>* out) {
-  FILE* f = fopen(path, "rb");
-  if (!f) return false;
-  if (fseek(f, 0, SEEK_END) != 0) {
-    fclose(f);
-    return false;
+// A file's bytes: read into memory, or from kMapBytes on (a TIFF
+// download) mapped read-only, as libtiff maps what it reads, with no copy.
+constexpr size_t kMapBytes = size_t(4) << 20;
+
+struct MappedFile {
+  const uint8_t* data = nullptr;
+  size_t size = 0;
+  void* map = nullptr;
+  std::unique_ptr<uint8_t[]> owned;
+
+  bool open(const char* path) {
+    const int fd = ::open(path, O_RDONLY | O_CLOEXEC);
+    if (fd < 0) return false;
+    struct stat st;
+    bool ok = fstat(fd, &st) == 0 && S_ISREG(st.st_mode);
+    if (ok && st.st_size > 0) {
+      size = size_t(st.st_size);
+      if (size >= kMapBytes) {
+        map = mmap(nullptr, size, PROT_READ, MAP_PRIVATE | MAP_POPULATE, fd, 0);
+        ok = map != MAP_FAILED;
+        if (!ok) map = nullptr;
+        data = static_cast<const uint8_t*>(map);
+      } else {
+        owned.reset(new uint8_t[size]);
+        size_t got = 0;
+        while (ok && got < size) {
+          const ssize_t r = ::read(fd, owned.get() + got, size - got);
+          ok = r > 0;
+          got += ok ? size_t(r) : 0;
+        }
+        data = owned.get();
+      }
+      if (!ok) size = 0;
+    }
+    ::close(fd);
+    return ok;
   }
-  long n = ftell(f);
-  fseek(f, 0, SEEK_SET);
-  if (n < 0) {
-    fclose(f);
-    return false;
+
+  ~MappedFile() {
+    if (map != nullptr) munmap(map, size);
   }
-  out->resize(size_t(n));
-  bool ok = n == 0 || fread(out->data(), 1, size_t(n), f) == size_t(n);
-  fclose(f);
-  return ok;
-}
+};
 
 // A multi-scan image's coefficients into coef (meta's layout): every scan
 // into whole blocks, then each block's kept square out.
@@ -1458,8 +1483,10 @@ int decode_multi_scan(const uint8_t* d, size_t n, const int32_t* meta, int16_t* 
 
 // Probe (coef == nullptr) or decode one in-memory file. Returns the Kind,
 // or -2 if cap (int16 units) is too small for the coefficients. A one-scan
-// file's markers after its scan are read by the decode, not the probe.
-int decode_bytes(const uint8_t* d, size_t n, int scale_n, int32_t* meta, int16_t* coef, long cap) {
+// file's markers after its scan are read by the decode (unless scan_only),
+// not the probe.
+int decode_bytes(const uint8_t* d, size_t n, int scale_n, int32_t* meta, int16_t* coef, long cap,
+                 bool scan_only = false) {
   Header* h = new Header();
   int kind = parse_header(d, n, h);
   if (kind == KIND_BASELINE && h->multi_scan) kind = walk_scans(d, n, h, nullptr);
@@ -1470,7 +1497,7 @@ int decode_bytes(const uint8_t* d, size_t n, int scale_n, int32_t* meta, int16_t
     } else if (h->multi_scan) {
       kind = decode_multi_scan(d, n, meta, coef);
     } else {
-      kind = decode_scan(d, n, h, meta, coef);
+      kind = decode_scan(d, n, h, meta, coef, scan_only);
     }
   }
   if (kind != KIND_BASELINE && kind != -2) {
@@ -1488,10 +1515,38 @@ int decode_bytes(const uint8_t* d, size_t n, int scale_n, int32_t* meta, int16_t
 
 // ---------------------------------------------------------------- loader
 
+// One file as a worker left it: a JPEG's coefficients, or a TIFF as
+// read_tiff gives it (pixels, or JPEG segments and their coefficients).
 struct Record {
   int32_t meta[META_INTS];
   std::vector<int16_t> coef;
+  Bytes rgb;
+  std::vector<int32_t> metas;
+
+  size_t bytes() const { return coef.size() * sizeof(int16_t) + rgb.size + metas.size() * sizeof(int32_t); }
 };
+
+// Decode a file's bytes as the loader hands it out: a TIFF's pixels only
+// at 8/8 (at scale the caller resizes TIFFs another way).
+void decode_record(const uint8_t* d, size_t n, int scale_n, Record* rec) {
+  int kind = decode_bytes(d, n, scale_n, rec->meta, nullptr, 0);
+  if (kind == KIND_TIFF) {
+    TiffImage t;
+    read_tiff(d, n, scale_n == 8, &t);
+    std::memcpy(rec->meta, t.meta, sizeof(rec->meta));
+    rec->rgb = std::move(t.rgb);
+    rec->metas = std::move(t.metas);
+    rec->coef = std::move(t.coef);
+  } else if (kind == KIND_BASELINE) {
+    rec->coef.resize(size_t(rec->meta[M_COEFS]));
+    kind = decode_bytes(d, n, scale_n, rec->meta, rec->coef.data(), long(rec->coef.size()));
+    if (kind != KIND_BASELINE) rec->coef.clear();
+  }
+}
+
+// Decoded bytes the workers may hold ahead of the caller (besides the file
+// it waits for): a 6144 px raster is 113 MB.
+constexpr size_t kAheadBytes = size_t(1) << 30;
 
 struct Loader {
   std::vector<std::string> paths;
@@ -1500,38 +1555,40 @@ struct Loader {
   std::mutex mu;
   std::condition_variable cv_ready, cv_space;
   std::map<size_t, Record*> done;
-  size_t next_claim = 0, next_emit = 0;
+  size_t next_claim = 0, next_emit = 0, held = 0;
   bool stopping = false;
   std::vector<std::thread> workers;
 
   void worker() {
-    std::vector<uint8_t> data;
     while (true) {
       size_t i;
       {
         std::unique_lock<std::mutex> lk(mu);
-        cv_space.wait(lk, [&] { return stopping || next_claim < next_emit + depth; });
+        cv_space.wait(lk, [&] {
+          return stopping || (next_claim < next_emit + depth && (held < kAheadBytes || next_claim == next_emit));
+        });
         if (stopping || next_claim >= paths.size()) return;
         i = next_claim++;
       }
       Record* rec = new Record();
-      int kind;
-      if (!read_file(paths[i].c_str(), &data)) {
+      MappedFile file;
+      if (!file.open(paths[i].c_str())) {
         std::memset(rec->meta, 0, sizeof(rec->meta));
-        kind = rec->meta[M_KIND] = KIND_UNREADABLE;
+        rec->meta[M_KIND] = KIND_UNREADABLE;
       } else {
-        kind = decode_bytes(data.data(), data.size(), scale_n, rec->meta, nullptr, 0);
-        if (kind == KIND_BASELINE) {
-          rec->coef.resize(size_t(rec->meta[M_COEFS]));
-          kind = decode_bytes(data.data(), data.size(), scale_n, rec->meta, rec->coef.data(),
-                              long(rec->coef.size()));
-          if (kind != KIND_BASELINE) rec->coef.clear();
-        }
+        decode_record(file.data, file.size, scale_n, rec);
       }
       std::lock_guard<std::mutex> lk(mu);
       done[i] = rec;
+      held += rec->bytes();
       cv_ready.notify_all();
     }
+  }
+
+  // The peeked record (nullptr if none), under mu.
+  Record* current() {
+    auto it = done.find(next_emit);
+    return it == done.end() ? nullptr : it->second;
   }
 
   ~Loader() {
@@ -1541,29 +1598,67 @@ struct Loader {
 
 }  // namespace
 
+namespace aq {
+
+int decode_jpeg_segment(const uint8_t* tables, size_t tlen, const uint8_t* d, size_t n, int32_t* meta,
+                        std::vector<int16_t>* coef) {
+  if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) {  // jpeg_read_header: not a JPEG stream
+    std::memset(meta, 0, sizeof(int32_t) * META_INTS);
+    return meta[M_KIND] = KIND_UNREADABLE;
+  }
+  // the tables' stream without its EOI, then the segment's without its SOI:
+  // libjpeg reads the one and then the other into the same state
+  std::vector<uint8_t> joined;
+  if (tables != nullptr) {
+    const size_t tl = tlen >= 2 && tables[tlen - 2] == 0xFF && tables[tlen - 1] == 0xD9 ? tlen - 2 : tlen;
+    joined.reserve(tl + n - 2);
+    joined.insert(joined.end(), tables, tables + tl);
+    joined.insert(joined.end(), d + 2, d + n);
+    d = joined.data();
+    n = joined.size();
+  }
+  int kind = decode_bytes(d, n, 8, meta, nullptr, 0);
+  if (kind != KIND_BASELINE || coef == nullptr) return kind;
+  const size_t at = coef->size();
+  coef->resize(at + size_t(meta[M_COEFS]));
+  // libtiff keeps a segment's rows when jpeg_finish_decompress then fails
+  kind = decode_bytes(d, n, 8, meta, coef->data() + at, long(meta[M_COEFS]), true);
+  if (kind != KIND_BASELINE) coef->resize(at);
+  return kind;
+}
+
+}  // namespace aq
+
 extern "C" {
 
 int aq_jpeg_meta_ints() { return META_INTS; }
 
-// Classify one file and fill its metadata at scale_n/8, without decoding.
+// Classify one file and fill its metadata at scale_n/8, without decoding
+// (a TIFF's route and size from its tags and segment headers).
 int aq_jpeg_probe(const char* path, int scale_n, int32_t* meta) {
-  std::vector<uint8_t> data;
-  if (!read_file(path, &data)) {
+  MappedFile file;
+  if (!file.open(path)) {
     std::memset(meta, 0, sizeof(int32_t) * META_INTS);
     return meta[M_KIND] = KIND_UNREADABLE;
   }
-  return decode_bytes(data.data(), data.size(), scale_n, meta, nullptr, 0);
+  const int kind = decode_bytes(file.data, file.size, scale_n, meta, nullptr, 0);
+  if (kind == KIND_TIFF) {
+    TiffImage t;
+    read_tiff(file.data, file.size, false, &t);
+    std::memcpy(meta, t.meta, sizeof(int32_t) * META_INTS);
+  }
+  return kind;
 }
 
 // Decode one file's coefficients into coef (cap int16 values). Returns the
 // Kind (coefficients written only for KIND_BASELINE) or -2 if cap is short.
 int aq_jpeg_decode(const char* path, int scale_n, int32_t* meta, int16_t* coef, long cap) {
-  std::vector<uint8_t> data;
-  if (!read_file(path, &data)) {
+  MappedFile file;
+  if (!file.open(path)) {
     std::memset(meta, 0, sizeof(int32_t) * META_INTS);
     return meta[M_KIND] = KIND_UNREADABLE;
   }
-  return decode_bytes(data.data(), data.size(), scale_n, meta, coef, cap);
+  return decode_bytes(file.data, file.size, scale_n, meta, coef, cap);
 }
 
 void* aq_jpeg_loader_create(const char** paths, int n_paths, int scale_n, int n_threads, int depth) {
@@ -1592,37 +1687,59 @@ int aq_jpeg_loader_peek(void* handle, int32_t* meta, int32_t* path_idx) {
   return 1;
 }
 
-// Copy the peeked file's coefficients into dst (cap int16 values; dst may
-// be null to drop them) and move past it. Returns 0, -2 if cap is short
-// (nothing popped), -1 if nothing was peeked.
-int aq_jpeg_loader_pop(void* handle, int16_t* dst, long cap) {
+// The peeked TIFF's JPEG segments' metadata into metas (cap segments).
+// Returns the segments copied, -2 if cap is short, -1 if nothing was peeked.
+int aq_jpeg_loader_segments(void* handle, int32_t* metas, int cap) {
+  if (handle == nullptr) return -1;
+  auto* l = static_cast<Loader*>(handle);
+  std::lock_guard<std::mutex> lk(l->mu);
+  Record* rec = l->current();
+  if (rec == nullptr) return -1;
+  const size_t segs = rec->metas.size() / META_INTS;
+  if (segs > size_t(cap)) return -2;
+  if (segs) std::memcpy(metas, rec->metas.data(), rec->metas.size() * sizeof(int32_t));
+  return int(segs);
+}
+
+// Move past the peeked file, copying its coefficients (int16, cap values)
+// or its pixels (uint8, cap bytes) to dst, which may be null to drop them.
+// Returns 0, -2 if cap is short (nothing popped), -1 if nothing was peeked.
+static int loader_pop(void* handle, void* dst, long cap, bool pixels) {
   if (handle == nullptr) return -1;
   auto* l = static_cast<Loader*>(handle);
   Record* rec;
   {
     std::lock_guard<std::mutex> lk(l->mu);
-    auto it = l->done.find(l->next_emit);
-    if (it == l->done.end()) return -1;
-    rec = it->second;
-    if (dst != nullptr && long(rec->coef.size()) > cap) return -2;
-    l->done.erase(it);
+    rec = l->current();
+    if (rec == nullptr) return -1;
+    const size_t need = pixels ? rec->rgb.size : rec->coef.size();
+    if (dst != nullptr && long(need) > cap) return -2;
+    l->done.erase(l->next_emit);
     l->next_emit++;
+    l->held -= rec->bytes();
   }
   l->cv_space.notify_all();
-  if (dst != nullptr && !rec->coef.empty())
+  if (dst != nullptr && pixels && rec->rgb.size) std::memcpy(dst, rec->rgb.data.get(), rec->rgb.size);
+  if (dst != nullptr && !pixels && !rec->coef.empty())
     std::memcpy(dst, rec->coef.data(), rec->coef.size() * sizeof(int16_t));
   delete rec;
   return 0;
 }
 
-// The kind of file path_idx if a worker has read it and it is not yet
-// popped, else -1: lets the caller start other decoders ahead.
-int aq_jpeg_loader_kind(void* handle, int path_idx) {
-  if (handle == nullptr || path_idx < 0) return -1;
+int aq_jpeg_loader_pop(void* handle, int16_t* dst, long cap) { return loader_pop(handle, dst, cap, false); }
+
+int aq_jpeg_loader_pop_pixels(void* handle, uint8_t* dst, long cap) { return loader_pop(handle, dst, cap, true); }
+
+// The metadata of file path_idx if a worker has read it and it is not yet
+// popped: lets the caller start other decoders ahead. Returns 1, or 0.
+int aq_jpeg_loader_meta(void* handle, int path_idx, int32_t* meta) {
+  if (handle == nullptr || path_idx < 0) return 0;
   auto* l = static_cast<Loader*>(handle);
   std::lock_guard<std::mutex> lk(l->mu);
   auto it = l->done.find(size_t(path_idx));
-  return it == l->done.end() ? -1 : it->second->meta[M_KIND];
+  if (it == l->done.end()) return 0;
+  std::memcpy(meta, it->second->meta, sizeof(int32_t) * META_INTS);
+  return 1;
 }
 
 void aq_jpeg_loader_destroy(void* handle) {

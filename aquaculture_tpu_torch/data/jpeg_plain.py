@@ -43,16 +43,23 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-# The metadata layout of csrc/jpeg_entropy.cc (one int32 array per image).
+# The metadata layout of csrc/tiff_decode.h (one int32 array per image).
 META_INTS = 256
 M_KIND, M_WIDTH, M_HEIGHT, M_NCOMP, M_MAX_H, M_MAX_V, M_OUT_W, M_OUT_H = range(8)
-M_SCALE, M_COLOR, M_RESTART, M_COEFS, M_SOF = range(8, 13)
+M_SCALE, M_COLOR, M_RESTART, M_COEFS, M_SOF, M_SOURCE = range(8, 14)
 MC_BASE, MC_INTS, MC_QT = 16, 80, 16   # one component's fields in the metadata
 C_H, C_V, C_S, C_K, C_BW, C_BH, C_OFF, C_DW, C_DH = range(9)
 # KIND_BASELINE: the entropy decoder takes the file (any JPEG process that
 # libjpeg-turbo decodes); KIND_REFUSED: a JPEG that libjpeg-turbo refuses;
 # KIND_UNREADABLE: neither JPEG nor TIFF, or markers that do not parse
 KIND_BASELINE, KIND_REFUSED, KIND_TIFF, KIND_UNREADABLE = range(4)
+# A TIFF's fields (M_KIND KIND_TIFF; csrc/tiff_decode.h): its route, its
+# JPEG segments (count, size, segments across, tiled or stripped) and the
+# orientation's flips (1 each row reversed, 2 the rows reversed)
+T_ROUTE, T_SEGMENTS, T_SEG_W, T_SEG_H, T_ACROSS, T_TILED, T_FLIP = range(MC_BASE, MC_BASE + 7)
+# T_ROUTE: pixels decoded on the host, JPEG segments for the kernel, a
+# compression left to PIL, refused as libtiff's RGBA interface refuses it
+TIFF_RASTER, TIFF_JPEG, TIFF_PIL, TIFF_SKIP = range(4)
 COLOR_GREY, COLOR_YCC, COLOR_RGB = range(3)   # M_COLOR: jdcolor.c's conversion to RGB
 
 # Upsampling modes of one component (shared with csrc/jpeg_decode.cu).

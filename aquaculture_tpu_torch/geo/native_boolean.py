@@ -54,24 +54,42 @@ def find_cxx() -> str:
     return cxx
 
 
-def library_path(source: str = SOURCE, name: str = "libaq_booleanop", flags=CXX_FLAGS) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}_{digest}.so")
+def library_path(sources: Sequence[str] = (SOURCE,), name: str = "libaq_booleanop", flags=CXX_FLAGS) -> str:
+    """The library's path: named by a hash of its sources (.cc files and
+    the headers they include) and flags."""
+    h = hashlib.sha256()
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
-def compile_library(source: str = SOURCE, name: str = "libaq_booleanop", flags=CXX_FLAGS) -> str:
-    """g++ ``source`` with ``flags`` into the build directory once per
-    source hash (the library named ``name``); returns its path."""
-    so = library_path(source, name, flags)
+def compile_library(sources: Sequence[str] = (SOURCE,), name: str = "libaq_booleanop", flags=CXX_FLAGS) -> str:
+    """g++ ``sources`` (.cc files, and the headers they include) with
+    ``flags`` into the build directory once per source hash: one g++ -c per
+    .cc file, all at once, then the link into the library named ``name``.
+    Returns its path."""
+    so = library_path(sources, name, flags)
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-        proc = subprocess.run([find_cxx(), *flags, "-o", tmp, source], capture_output=True, text=True)
+        units = [s for s in sources if not s.endswith(".h")]
+        objs = [f"{tmp}.{i}.o" for i in range(len(units))]
+        cxx = find_cxx()
+        jobs = [subprocess.Popen([cxx, *flags, "-c", "-o", o, u], stdout=subprocess.DEVNULL,
+                                 stderr=subprocess.PIPE, text=True) for o, u in zip(objs, units)]
+        errs = [(job.communicate()[1], job.returncode) for job in jobs]
+        failed = [(e, rc) for e, rc in errs if rc != 0]
+        proc = (subprocess.CompletedProcess(units, failed[0][1], "", "".join(e for e, _ in failed)) if failed
+                else subprocess.run([cxx, *flags, "-o", tmp, *objs], capture_output=True, text=True))
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
         if proc.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            raise RuntimeError(f"g++ failed to build {source} (exit {proc.returncode}):\n{proc.stderr}")
+            raise RuntimeError(f"g++ failed to build {' '.join(units)} (exit {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so)
     return so
 

@@ -62,8 +62,8 @@ class PipelineStats:
     land_filter: str = ""
     # the tile loader that ran: "python" (data/loader.py) or "device"
     # (data/native_loader.py, the JAX package's native loader); and, for
-    # the device loader, the files of each route ("device", "pil",
-    # "pil_resize", "skipped")
+    # the device loader, the files of each route (data/native_loader.py's
+    # ROUTES: "device", "tiff", "tiff_jpeg", "pil", "pil_resize", "skipped")
     loader: str = "python"
     files: Dict[str, int] = dataclasses.field(default_factory=dict)
 

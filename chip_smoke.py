@@ -168,19 +168,25 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      7/8 all but the raster in one batch on the grid; a corpus of good
      tiles, a TIFF and the 12-bit, lossless and CMYK JPEGs that libjpeg
      refuses through native_tile_batches on the card (3 skipped, no
-     exception, the TIFF alone under PIL, tiles equal to the plain path's
-     on the CPU, at 8/8 and 5/8); detect_files through
-     both loaders (full-decode rows equal, the kernel once per batch), and
-     at --img 512 (4/8) through the device loader by default (each kernel
-     once per batch, the card's tiles equal to the CPU plain path's); then
-     the times, with the card's name and power limit: the host entropy
-     decode and PIL's full decode per second on one thread and on every
-     core, the kernel per batch of 128 at every N/8 beside its bound
-     (bytes and integer operations; its registers, shared memory and
-     spills) and, at 8/8 and 5/8, its plain version's time, and file-fed
-     detect_files tiles/s (mt bf16 b128) through both loaders in turns
-     (10 batches a device-loader run, 3 a Python-loader run, whole-run and steady rates) beside phase
-     5's tiles-on-card rate.
+     exception, the TIFF through the TIFF reader, under PIL's resize at
+     5/8, tiles equal to the plain path's on the CPU, at 8/8 and 5/8);
+     detect_files through both loaders (full-decode rows equal, the kernel
+     once per batch), and at --img 512 (4/8) through the device loader by
+     default (each kernel once per batch, the card's tiles equal to the CPU
+     plain path's); then the times, with the card's name and power limit:
+     the host entropy decode and PIL's full decode per second on one thread
+     and on every core, the kernel per batch of 128 at every N/8 beside its
+     bound (bytes and integer operations; its registers, shared memory and
+     spills) and, at 8/8, its plain version's time, and file-fed
+     detect_files tiles/s (mt bf16 b128) through both loaders in turns (8
+     batches a device-loader run, 3 a Python-loader run, whole-run and
+     steady rates) beside phase 5's tiles-on-card rate. Last, the TIFF
+     corpus (written by a process of its own since the builds): a 6144 px
+     uncompressed download, LZW with predictor, Deflate, BigTIFF and JPEG
+     tiled and in strips, each on its route through native_tile_batches,
+     the card's tiles equal to the CPU route's, the kernel once per JPEG
+     TIFF and equal to its plain version on its segments, timed; and the
+     corpus's file-fed tiles/s through the device loader.
 The last lines are the script seconds per group of phases, the total, the
 {"kernels": [...]} summary, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -3339,7 +3345,7 @@ def run_acquire_to_map_phase(dev, card: str, d: str, d10: str, screening_worker:
 
 FEED_BATCH = 128
 FEED_DISTINCT = 32   # written tiles, reused under many tile-codec names
-FEED_PATHS = 1280    # 10 batches of 128 per timed device-loader run
+FEED_PATHS = 1024    # 8 batches of 128 per timed device-loader run
 FEED_PY_PATHS = 384  # 3 batches per timed Python-loader run (4x slower)
 FEED_HOST_FILES = 16  # host decode timing: files per thread
 FEED_ROWS_TILES = 16
@@ -3567,9 +3573,9 @@ def write_refused_jpegs(d: str) -> list:
 def check_feed_routing(dev, d: str, distinct: list) -> dict:
     """native_tile_batches on the card over a corpus of 3 good 1024 px
     tiles, a TIFF and the JPEGs libjpeg refuses (12-bit, lossless, CMYK):
-    no exception, 3 skipped, the TIFF alone under PIL (no JPEG there), the
-    good tiles and the TIFF served, equal to the loader's plain path on the
-    CPU; at 5/8 too."""
+    no exception, 3 skipped, the TIFF through the TIFF reader (PIL's
+    resize at 5/8), the good tiles and the TIFF served, equal to the
+    loader's plain path on the CPU; at 5/8 too."""
     import torch
     from PIL import Image
 
@@ -3585,7 +3591,8 @@ def check_feed_routing(dev, d: str, distinct: list) -> dict:
                                                       counts=counts))
         cpu = list(native_loader.native_tile_batches(paths, batch_size=4, out_tile=out_tile, device="cpu",
                                                      counts=cpu_counts))
-        want = {"device": 3, "pil": 0 if out_tile else 1, "pil_resize": 1 if out_tile else 0, "skipped": 3}
+        want = {"device": 3, "tiff": 0 if out_tile else 1, "tiff_jpeg": 0, "pil": 0,
+                "pil_resize": 1 if out_tile else 0, "skipped": 3}
         if counts != want or cpu_counts != want:
             fail(f"routing at out_tile {out_tile}: counts {counts} (CPU {cpu_counts}), expected {want}")
         valid = [b.valid.tolist() for b in card]
@@ -3593,6 +3600,153 @@ def check_feed_routing(dev, d: str, distinct: list) -> dict:
                 torch.equal(a.images.cpu(), b.images) for a, b in zip(card, cpu)):
             fail(f"routing at out_tile {out_tile}: tiles on the card != the plain path's (valid {valid})")
         out[f"out_tile_{out_tile}"] = {"counts": counts, "valid": valid}
+    return out
+
+
+# The TIFF corpus (csrc/tiff_decode.cc): a 6144 px uncompressed RGB
+# download as aq-acquire wms stores it, and smaller files in the reader's
+# other routes: LZW with Predictor 2, Deflate and a BigTIFF (2048 px, PIL),
+# JPEG tiled at 256 with JPEGTables and JPEG in strips through libtiff (PIL;
+# 1024 px: their plain decode on the CPU is the slow half of the check)
+TIFF_CASES = {"wms_6144": "tiff", "lzw_predictor_2048": "tiff", "deflate_2048": "tiff", "bigtiff_2048": "tiff",
+              "jpeg_tiles_256": "tiff_jpeg", "jpeg_strips": "tiff_jpeg"}
+TIFF_PASSES = 5  # the corpus linked 5 times over for its tiles/s (250 tiles of 1024 px)
+
+
+def tiff_writer():
+    """tests/torch_tiff_writer.py, loaded from its path: a ``tests``
+    package installed on a machine would shadow the directory."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_tiff_writer.py")
+    spec = importlib.util.spec_from_file_location("torch_tiff_writer", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def write_tiff_corpus(d: str) -> dict:
+    """TIFF_CASES' files under d: name -> path."""
+    from PIL import Image
+
+    writer = tiff_writer()
+
+    paths = {name: os.path.join(d, f"tiff_{name}.tif") for name in TIFF_CASES}
+    with open(paths["wms_6144"], "wb") as f:
+        f.write(tiff_bytes(sea_image(17)))
+    small = aerial_image(np.random.default_rng(18), 2048, 2048)
+    Image.fromarray(small).save(paths["lzw_predictor_2048"], compression="tiff_lzw", tiffinfo={317: 2})
+    Image.fromarray(small).save(paths["deflate_2048"], compression="tiff_adobe_deflate")
+    Image.fromarray(small).save(paths["bigtiff_2048"], big_tiff=True)
+    segs, tables = writer.jpeg_tiles(small[:1024, :1024], 256, 256, "YCbCr")
+    tags = {256: (3, [1024]), 257: (3, [1024]), 258: (3, [8, 8, 8]), 259: (3, [7]), 262: (3, [6]),
+            277: (3, [3]), 284: (3, [1]), 322: (3, [256]), 323: (3, [256]), 347: (7, list(tables)),
+            530: (3, [2, 2])}
+    with open(paths["jpeg_tiles_256"], "wb") as f:
+        f.write(writer.tiff_bytes(segs, tags, tiled=True))
+    Image.fromarray(small[1024:, 1024:]).save(paths["jpeg_strips"], compression="jpeg", quality=90)
+    return paths
+
+
+def start_tiff_corpus(d: str) -> tuple:
+    """write_tiff_corpus(d) in a spawned process of its own, started with
+    the builds, so that the feed phase finds the corpus written: (executor,
+    future of name -> path)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(write_tiff_corpus, d)
+
+
+def tiff_jpeg_kernel(path: str, dev, rate: float, card: str) -> dict:
+    """One JPEG-compressed TIFF's segments as the loader decodes them (one
+    launch, a slot per strip or tile): the kernel == its plain version on
+    the same card tensors, timed (CUDA events, 10 launches a window) beside
+    its bound and the plain version's one call."""
+    import torch
+
+    from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp, native_loader
+
+    meta, metas, coef = native_loader.tiff_segments(path)
+    decoded, offs, tiles = native_loader.segment_slots(metas)
+    images = [jp.EntropyImage(metas[s], coef[o:o + metas[s][jp.M_COEFS]]) for s, o in zip(decoded, offs)]
+    packed, lay = jp.describe_batch([metas[s] for s in decoded], offs, tiles)
+    qt, comps, imgs, tl = jp.unpack_batch(torch.from_numpy(packed).to(dev), lay)
+    coef_d = coef.to(dev)
+    shape = (len(tiles), int(meta[jp.T_SEG_H]), int(meta[jp.T_SEG_W]), 3)
+    out = torch.empty(shape, dtype=torch.uint8, device=dev)
+    ms = time_cuda(lambda: jpeg_cuda.jpeg_decode(coef_d, qt, comps, imgs, tl, out, lay), iters=10)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = jp.decode_batch_plain(coef_d, qt, comps, imgs, tl, torch.empty_like(out))
+    end.record()
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        fail(f"jpeg_decode != plain on the segments of {os.path.basename(path)}")
+    bound = jpeg_bound_ms(images, tl, shape, coef.numel(), rate)
+    row = {"segments": len(tiles), "slot": list(shape[1:3]), "tiled": bool(meta[jp.T_TILED]),
+           "coef_bytes": 2 * coef.numel(), "out_bytes": int(np.prod(shape)), "ms": ms,
+           "plain_ms": start.elapsed_time(end), "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+           "library_ms": None}
+    print(json.dumps({"metric": "tiff_jpeg_kernel", "file": os.path.basename(path), **row, "card": card}),
+          flush=True)
+    return row
+
+
+def check_tiff_feed(dev, card: str, writer: tuple) -> dict:
+    """The TIFF corpus (``start_tiff_corpus``'s) through native_tile_batches
+    at full size (1024 px tiles, batch 8) on the card and on the CPU: each
+    file on its route (TIFF_CASES), the card's tiles torch.equal to the
+    CPU's batch for batch, jpeg_decode launched once per JPEG-compressed
+    file (the count zeroed just before the card's run, read just after; the
+    batches hold no JPEG of their own); then each such file's segments
+    through the kernel against its plain version, timed."""
+    import torch
+
+    from aquaculture_tpu_torch.data import jpeg_cuda, native_loader
+
+    t0 = time.perf_counter()
+    cases = writer[1].result()
+    writer[0].shutdown()
+    paths = list(cases.values())
+    write_wait_s = time.perf_counter() - t0
+    counts, cpu_counts = {}, {}
+    jpeg_cuda.decode_launches = 0
+    card_b = list(native_loader.native_tile_batches(paths, batch_size=8, device=dev, counts=counts))
+    torch.cuda.synchronize()
+    launches = jpeg_cuda.decode_launches
+    cpu_b = list(native_loader.native_tile_batches(paths, batch_size=8, device="cpu", counts=cpu_counts))
+    want = {r: 0 for r in native_loader.ROUTES}
+    for route in TIFF_CASES.values():
+        want[route] += 1
+    if counts != want or cpu_counts != want:
+        fail(f"TIFF routing: counts {counts} (CPU {cpu_counts}), expected {want}")
+    if len(card_b) != len(cpu_b) or not all(torch.equal(a.images.cpu(), b.images) and
+                                            a.valid.tolist() == b.valid.tolist() for a, b in zip(card_b, cpu_b)):
+        fail("TIFF corpus: the card's tiles != the CPU route's")
+    if launches != want["tiff_jpeg"]:
+        fail(f"jpeg_decode launched {launches} times for {want['tiff_jpeg']} JPEG-compressed TIFFs")
+    rate = int_ops_per_s()
+    kernels = {name: tiff_jpeg_kernel(cases[name], dev, rate, card) for name, r in TIFF_CASES.items()
+               if r == "tiff_jpeg"}
+    tiles = sum(int(b.valid.sum()) for b in card_b)
+    return {"files": len(paths), "tiles": tiles, "counts": counts, "tiles_equal_cpu": True,
+            "launches": launches, "kernels": kernels, "write_wait_s": write_wait_s, "paths": cases}
+
+
+def tiff_feed_paths(d: str, cases: dict) -> list:
+    """The TIFF corpus linked TIFF_PASSES times over under tile-codec names."""
+    from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
+
+    corpus = os.path.join(d, "tiff_corpus")
+    os.makedirs(corpus)
+    out = []
+    for k in range(TIFF_PASSES):
+        for i, src in enumerate(cases.values()):
+            spec = TileSpec(year=2014, bbox_ind=1000 + k * len(cases) + i, x_offset=0, y_offset=0)
+            out.append(os.path.join(corpus, encode_tile_name(spec, "tif")))
+            os.symlink(src, out[-1])
     return out
 
 
@@ -3695,10 +3849,10 @@ def time_jpeg_decode(distinct: list, dev, card: str) -> dict:
     """jpeg_decode per batch of FEED_BATCH 1024 px tiles at every N/8
     (128 N px tiles; CUDA events) beside its bound, held equal to its plain
     version; with the kernel's registers, shared memory and spills per CTA
-    (each scale's kernel). At 8/8 and 5/8 the plain version runs on the
-    same card tensors, timed (one call); at the other scales, untimed, on
-    the batch's distinct images alone (the batch repeats them), each slot
-    held to its image's."""
+    (each scale's kernel). At 8/8 the plain version runs on the same card
+    tensors, timed (one call); at the other scales, untimed, on the batch's
+    distinct images alone (the batch repeats them), each slot held to its
+    image's."""
     import torch
 
     from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain as jp
@@ -3718,7 +3872,7 @@ def time_jpeg_decode(distinct: list, dev, card: str) -> dict:
                "bound_bytes_ms": bound["bytes_ms"], "bound_ops_ms": bound["ops_ms"], "ops": bound["ops"],
                "bound_by": bound["bound_by"], "library_ms": None, "int_ops_per_s": rate,
                "kernel": jpeg_cuda.attributes(scale)}
-        if scale in (8, 5):
+        if scale == 8:
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             want = jp.decode_batch_plain(coef, qt, comps, imgs, tiles, torch.empty_like(res))
@@ -3795,7 +3949,7 @@ def drive_scaled_feed(paths: list, model, dev) -> dict:
             "detections": stats.detections, "tiles_equal_cpu_plain": True, "files": stats.files}
 
 
-def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
+def drive_feed_path(paths: list, model, dev, card: str, serving_tps: float) -> dict:
     """detect_files (mt, bf16) through the device loader and the Python
     loader: full-decode rows equal on FEED_ROWS_TILES tiles (conf 1e-5,
     batch 8), decode-at-scale rows reported; the kernel launched once per
@@ -3808,12 +3962,10 @@ def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
     serving program to batch n's; and each timed run's peak device memory."""
     import torch
 
-    from aquaculture_tpu_torch.cli.detect import load_model
     from aquaculture_tpu_torch.config import DetectConfig
     from aquaculture_tpu_torch.data import jpeg_cuda
     from aquaculture_tpu_torch.pipeline import detect_files, make_infer_fn
 
-    model = load_model(None, "mt", 5)
     out = {"rows": {}, "tiles_per_s": {}, "steady_tiles_per_s": {}, "batches": {}, "peak_bytes": {}}
     cfg = DetectConfig(img_size=640, conf_threshold=1e-5)
     infer = make_infer_fn(model, cfg, 1024, device=dev)
@@ -3830,7 +3982,8 @@ def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
                 fail(f"detect_files(use_native={native}) ran {stats.loader!r} on {stats.tiles} tiles")
             if native and jpeg_cuda.decode_launches != stats.batches:
                 fail(f"jpeg_decode launched {jpeg_cuda.decode_launches} times for {stats.batches} batches")
-            if native and stats.files != {"device": len(few), "pil": 0, "pil_resize": 0, "skipped": 0}:
+            if native and stats.files != {"device": len(few), "tiff": 0, "tiff_jpeg": 0, "pil": 0, "pil_resize": 0,
+                                          "skipped": 0}:
                 fail(f"device loader routes {stats.files}")
         dev_rows, py_rows = _rows_of(res[True]), _rows_of(res[False])
         key = "decode_scale_5/8" if decode_scale else "full"
@@ -3870,9 +4023,40 @@ def drive_feed_path(paths: list, dev, card: str, serving_tps: float) -> dict:
     return out
 
 
-def run_feed_phase(dev, card: str, d: str, serving_tps: float) -> dict:
+def time_tiff_feed(tiff_paths: list, model, dev) -> dict:
+    """The TIFF corpus (``tiff_feed_paths``) through detect_files on the
+    device loader (mt bf16, b128, conf 0.25), twice after a warm run that
+    pins the raster slots: each run's tiles/s (a smoke-level reading of a
+    second or so; scripts/tiff_feed_ab.py times the corpus at length)."""
+    from aquaculture_tpu_torch.config import DetectConfig
+    from aquaculture_tpu_torch.pipeline import detect_files, make_infer_fn
+
+    cfg = DetectConfig(img_size=640, conf_threshold=0.25)
+    infer = make_infer_fn(model, cfg, 1024, device=dev)
+    detect_files(tiff_paths[:len(TIFF_CASES)], model, cfg, FEED_BATCH, infer_fn=infer, device=dev,
+                 use_native=True)  # warm: the pinned raster slots
+    rates = []
+    for _ in range(2):
+        *_, stats = detect_files(tiff_paths, model, cfg, FEED_BATCH, infer_fn=infer, device=dev, use_native=True)
+        want = {r: 0 for r in stats.files}
+        for route in TIFF_CASES.values():
+            want[route] += TIFF_PASSES
+        if stats.loader != "device" or stats.files != want:
+            fail(f"TIFF corpus through detect_files: the {stats.loader!r} loader, routes {stats.files}")
+        rates.append(stats.tiles_per_second)
+    return {"tiles_per_s": rates, "batches": stats.batches, "files": stats.files}
+
+
+def run_feed_phase(dev, card: str, d: str, serving_tps: float, tiff_writer: tuple) -> dict:
     """Phase 13: the device loader's kernels exact on every case, the path
-    through detect_files, and its times beside the tiles-on-card rate."""
+    through detect_files, and its times beside the tiles-on-card rate; then
+    the TIFF corpus (written meanwhile by ``tiff_writer``), checked and
+    timed after the JPEG readings so that it does not disturb them, and
+    deleted."""
+    import shutil
+
+    from aquaculture_tpu_torch.cli.detect import load_model
+
     t0 = time.perf_counter()
     cases, distinct, paths = write_feed_files(d)
     seconds = {"write": time.perf_counter() - t0}
@@ -3884,8 +4068,19 @@ def run_feed_phase(dev, card: str, d: str, serving_tps: float) -> dict:
     seconds["kernel_times"] = time.perf_counter() - t0 - sum(seconds.values())
     out["host_decode"] = time_host_decode(distinct, card)
     seconds["host_decode"] = time.perf_counter() - t0 - sum(seconds.values())
-    out["path"] = drive_feed_path(paths, dev, card, serving_tps)
+    model = load_model(None, "mt", 5)
+    out["path"] = drive_feed_path(paths, model, dev, card, serving_tps)
     seconds["path"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["tiff"] = check_tiff_feed(dev, card, tiff_writer)
+    cases = out["tiff"].pop("paths")
+    seconds["tiff"] = time.perf_counter() - t0 - sum(seconds.values())
+    out["tiff"].update(time_tiff_feed(tiff_feed_paths(d, cases), model, dev))
+    shutil.rmtree(os.path.join(d, "tiff_corpus"))
+    for path in cases.values():
+        os.remove(path)
+    print(json.dumps({"metric": "tiff_feed", **{k: v for k, v in out["tiff"].items() if k != "kernels"},
+                      "card": card}), flush=True)
+    seconds["tiff_times"] = time.perf_counter() - t0 - sum(seconds.values())
     out["seconds"] = seconds
     return out
 
@@ -3925,6 +4120,10 @@ def main() -> int:
     d4 = os.path.join(d, "tooling")
     os.makedirs(d4)
     aot_export = start_aot_export(d4, batch=8)
+    # phase 13's TIFF corpus, written by a process of its own meanwhile
+    d13 = os.path.join(d, "feed")
+    os.makedirs(d13)
+    tiff_writer = start_tiff_corpus(d13)
 
     # 2. build the kernels (one nvcc per source), the overlay sweep and the
     # entropy decoder (g++), all at once; 3. the suppression kernel against
@@ -4049,9 +4248,7 @@ def main() -> int:
     k, k6 = times["kernel"], times_p6["kernel"]
     mark("serving_times")
     # 13. the feed: the device loader's kernels, path and times
-    d13 = os.path.join(d, "feed")
-    os.makedirs(d13)
-    feed = run_feed_phase(dev, card, d13, times["conf_0.25"]["tiles_per_s"])
+    feed = run_feed_phase(dev, card, d13, times["conf_0.25"]["tiles_per_s"], tiff_writer)
     print(json.dumps({"phase": "feed", **feed, "card": card}), flush=True)
     torch.cuda.empty_cache()
     mark("feed")
@@ -4111,6 +4308,7 @@ def main() -> int:
         "launches_pipeline": pipeline["full_width"]["launches"]["jpeg_decode"],
         "launches_accuracy": accuracy["on_card"]["jpeg_launches"],
         "launches_decode_scale_512": feed["path"]["decode_scale_512"]["launches"]["jpeg_decode"],
+        "launches_tiff_feed": feed["tiff"]["launches"],
         "max_abs_err": 0.0,
         "ms": feed["kernels"]["8/8"]["decode_ms"],
         "plain_ms": feed["kernels"]["8/8"]["decode_plain_ms"],
@@ -4118,7 +4316,6 @@ def main() -> int:
         "bound_by": feed["kernels"]["8/8"]["bound_by"],
         "library_ms": None,
         "ms_5/8": feed["kernels"]["5/8"]["decode_ms"],
-        "plain_ms_5/8": feed["kernels"]["5/8"]["decode_plain_ms"],
         "bound_ms_5/8": feed["kernels"]["5/8"]["decode_bound_ms"],
         "bound_by_5/8": feed["kernels"]["5/8"]["bound_by"],
         **{f"{key}_{n}/8": feed["kernels"][f"{n}/8"][field] for n in OTHER_SCALES
@@ -4126,7 +4323,9 @@ def main() -> int:
         **{k: feed["kernels"]["8/8"]["kernel"][k] for k in ("registers", "shared_bytes", "local_bytes", "ctas_per_sm")},
         "registers_by_scale": {n: row["kernel"]["registers"] for n, row in feed["kernels"].items()},
         "local_bytes_by_scale": {n: row["kernel"]["local_bytes"] for n, row in feed["kernels"].items()},
-        "exact_on": sorted(feed["exactness"]),
+        **{f"{key}_tiff_{name}": row[key] for name, row in feed["tiff"]["kernels"].items()
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "exact_on": sorted(feed["exactness"]) + [f"tiff_{name}" for name in feed["tiff"]["kernels"]],
     }]}
     print(json.dumps({"phase_seconds": phase_seconds}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

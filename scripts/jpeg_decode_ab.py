@@ -24,7 +24,8 @@ turns, each in order and then in reverse, in two rounds. The tree's
 kernel is also timed at each ``--bands`` count of bands a tile.
 
 ``--entropy NAME=PATH``: other sources of csrc/jpeg_entropy.cc, each built
-with the port's g++ flags. On the 32 distinct tiles, every decoder probes
+with the port's g++ flags (one that includes tiff_decode.h with the
+tiff_decode.cc and tiff_decode.h beside it). On the 32 distinct tiles, every decoder probes
 and decodes the same files (as the loader's workers do) at each scale, on
 1 thread and on every core, in turns, each order then its reverse, in
 ``--rounds`` rounds; every source's coefficients are held equal to the tree's.
@@ -88,11 +89,22 @@ def _build(sources: dict) -> dict:
     return libs
 
 
+def _entropy_sources(path: str):
+    """A decoder source and, where it includes the TIFF reader's header (as
+    since the loader reads TIFFs), the reader and header beside it."""
+    with open(path) as f:
+        if '#include "tiff_decode.h"' not in f.read():
+            return (path,)
+    d = os.path.dirname(os.path.abspath(path))
+    return path, os.path.join(d, "tiff_decode.cc"), os.path.join(d, "tiff_decode.h")
+
+
 def _entropy_lib(name: str, path: str) -> ctypes.CDLL:
     from aquaculture_tpu_torch.data import native_loader
     from aquaculture_tpu_torch.geo import native_boolean
 
-    lib = ctypes.CDLL(native_boolean.compile_library(path, f"libab_entropy_{name}", native_loader.CXX_FLAGS))
+    lib = ctypes.CDLL(native_boolean.compile_library(_entropy_sources(path), f"libab_entropy_{name}",
+                                                     native_loader.CXX_FLAGS))
     lib.aq_jpeg_probe.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
     lib.aq_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
     return lib

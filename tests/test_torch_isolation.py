@@ -24,7 +24,7 @@ PORT = ROOT / "aquaculture_tpu_torch"
 def _port_sources():
     scripts = [ROOT / "scripts" / n
                for n in ("nms_suppress_ab.py", "serving_ab.py", "train_step_ab.py", "int_mm_probe.py",
-                         "torch_aot_coldstart.py", "plan_sweep.py")]
+                         "torch_aot_coldstart.py", "plan_sweep.py", "tiff_feed_ab.py")]
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
 
 

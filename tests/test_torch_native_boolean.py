@@ -136,7 +136,7 @@ def test_a_source_that_does_not_compile_raises(tmp_path, monkeypatch):
     bad = tmp_path / "broken.cc"
     bad.write_text('extern "C" int aq_bool_ncontours(void* h) { return undeclared_name; }\n')
     with pytest.raises(RuntimeError, match="undeclared_name"):
-        tnative.compile_library(str(bad))
+        tnative.compile_library((str(bad),))
     assert not os.listdir(tmp_path / "build")  # no library, no temporary left behind
 
 

@@ -126,13 +126,15 @@ def test_native_tile_batches_equal_jax_native_loader(corpus, out_tile):
         (1, 0, 0), (1, 0, 1024), (1, 1024, 0), (1, 1024, 1024), (2, 1024, 0)]
     tail = batches[-1]
     assert tail.valid.tolist() == [True, False, False] and (tail.images[1:] == 0).all()
-    assert counts == {"device": 6, "pil": 0 if out_tile else 3, "pil_resize": 3 if out_tile else 0, "skipped": 1}
+    assert counts == {"device": 6, "tiff": 0 if out_tile else 3, "tiff_jpeg": 0, "pil": 0,
+                      "pil_resize": 3 if out_tile else 0, "skipped": 1}
 
 
 @pytest.mark.parametrize("out_tile", [0, 640])
 def test_routed_rasters_no_larger_than_a_slot_are_zero_padded(corpus, out_tile):
-    """Two TIFFs of 1000 x 750 (625 x 469 at 5/8), both through PIL, fill
-    one zero-padded slot each, as in the Python loader's batches."""
+    """Two TIFFs of 1000 x 750 (625 x 469 at 5/8), through the TIFF reader
+    at full size and PIL's resize at 5/8, fill one zero-padded slot each,
+    as in the Python loader's batches."""
     files, _ = corpus
     paths = [files["small_tiff"], files["small_tiff_lzw"]]
     counts = {}
@@ -143,7 +145,8 @@ def test_routed_rasters_no_larger_than_a_slot_are_zero_padded(corpus, out_tile):
     eff = out_tile or 1024
     assert got[0].images.shape == (2, eff, eff, 3) and torch.equal(got[0].images, want[0].images)
     assert [_key(s) for s in got[0].specs] == [_key(s) for s in want[0].specs]
-    assert counts == {"device": 0, "pil": 0 if out_tile else 2, "pil_resize": 2 if out_tile else 0, "skipped": 0}
+    assert counts == {"device": 0, "tiff": 0 if out_tile else 2, "tiff_jpeg": 0, "pil": 0,
+                      "pil_resize": 2 if out_tile else 0, "skipped": 0}
 
 
 def test_full_size_tiles_equal_the_python_loader(corpus):
@@ -183,7 +186,7 @@ def test_interrupted_progressive_jpeg_takes_the_device_route_and_is_counted(corp
     counts = {}
     (batch,) = native_loader.native_tile_batches([path, files["corrupt"]], batch_size=2, tile=1024,
                                                  device="cpu", counts=counts)
-    assert counts == {"device": 1, "pil": 0, "pil_resize": 0, "skipped": 1}
+    assert counts == {"device": 1, "tiff": 0, "tiff_jpeg": 0, "pil": 0, "pil_resize": 0, "skipped": 1}
     assert batch.valid.tolist() == [True, False]
     if jn is not None:
         np.testing.assert_array_equal(batch.images[0].numpy(), jn.decode_image(path))
@@ -250,7 +253,7 @@ def test_detect_files_decode_scale_takes_the_device_loader(corpus, img):
     tb, tc, tk, tspecs, stats = detect_files(paths, model, DetectConfig(**kw), batch_size=5, device="cpu",
                                              decode_scale=True)
     assert stats.loader == "device" and stats.tiles == 5 and jstats.tiles == 5
-    assert stats.files == {"device": 2, "pil": 0, "pil_resize": 0, "skipped": 0}
+    assert stats.files == {"device": 2, "tiff": 0, "tiff_jpeg": 0, "pil": 0, "pil_resize": 0, "skipped": 0}
     assert jpeg_cuda.decode_launches == 0  # the CPU path never touches the kernel
 
     def rows(b, c, k, specs):
@@ -443,7 +446,8 @@ def test_refused_jpegs_are_skipped_in_a_mixed_corpus(tmp_path, out_tile):
     hierarchical JPEGs (which libjpeg-turbo 2.1.5 refuses) and a TIFF, at
     256 px tiles: the device loader serves the JAX native loader's tiles,
     valid masks at full size, counts the four JPEGs skipped and only the
-    file that is not a JPEG under PIL, and raises nothing."""
+    file that is not a JPEG under the TIFF reader (PIL's resize at scale),
+    and raises nothing."""
     jn = jax_native_loader()
     if jn is None:
         pytest.skip("native/libaquatile.so does not build here")
@@ -476,7 +480,7 @@ def test_refused_jpegs_are_skipped_in_a_mixed_corpus(tmp_path, out_tile):
     assert masks(got) == [[True, True, False, False]] and sum(map(sum, masks(want))) == 2
     non_jpeg = sum(Path(p).read_bytes()[:2] != b"\xff\xd8" for p in paths)
     assert counts["skipped"] == 4 and counts["device"] == 1
-    assert counts["pil"] + counts["pil_resize"] == non_jpeg == 1
+    assert counts["tiff"] + counts["pil_resize"] == non_jpeg == 1 and counts["pil"] == 0
 
 
 # The JPEG processes the device loader took on from PIL and from refusal:
@@ -649,7 +653,8 @@ def test_tiffs_take_libtiffs_pixels_at_full_size(tiff_corpus, name):
     counts = {}
     got = _by_key(native_loader.native_tile_batches([path], batch_size=2, tile=256, device="cpu", counts=counts))
     ref = _by_key(jn.native_tile_batches([path], batch_size=2, tile=256))
-    assert sorted(got) == sorted(ref) and counts == {"device": 0, "pil": 1, "pil_resize": 0, "skipped": 0}
+    assert sorted(got) == sorted(ref) and counts == {"device": 0, "tiff": 1, "tiff_jpeg": 0, "pil": 0,
+                                                     "pil_resize": 0, "skipped": 0}
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k])
     (batch,) = tloader.tile_batches([path], batch_size=1, tile=512, decode_threads=1)
@@ -707,7 +712,7 @@ def test_detect_files_use_native_matches_jax(corpus):
     tb, tc, tk, tspecs, stats = detect_files(paths, model, DetectConfig(**kw), batch_size=5, device="cpu",
                                              use_native=True)
     assert isinstance(stats, PipelineStats) and stats.loader == "device" and stats.tiles == 5
-    assert stats.files == {"device": 2, "pil": 0, "pil_resize": 0, "skipped": 0}
+    assert stats.files == {"device": 2, "tiff": 0, "tiff_jpeg": 0, "pil": 0, "pil_resize": 0, "skipped": 0}
     assert jpeg_cuda.decode_launches == 0  # the CPU path never touches the kernel
 
     def rows(b, c, k, specs):
