@@ -8,9 +8,10 @@
 //   TIFFFillStrip does).
 // - The codecs, here and linking nothing: none, PackBits (tif_packbits.c),
 //   LZW (tif_lzw.c, with the old-style bit-reversed codes of LZW_COMPAT),
-//   Deflate 8 and 32946 (an RFC 1950/1951 inflate, tif_zip.c's framing);
-//   Predictor 2 at 8 and 16 bits (tif_predict.c); 16-bit samples in the
-//   host's order after decoding (_TIFFSwab16BitData).
+//   Deflate 8 and 32946 (an RFC 1950/1951 inflate, tif_zip.c's framing,
+//   libdeflate's stopping point), WebP 50001 (webp_decode.cc, tif_webp.c's
+//   framing); Predictor 2 at 8 and 16 bits (tif_predict.c); 16-bit samples
+//   in the host's order after decoding (_TIFFSwab16BitData).
 // - tif_getimage.c's checks (TIFFRGBAImageOK, TIFFRGBAImageBegin,
 //   PickContigCase, PickSeparateCase) and its put routines: min-is-black
 //   and min-is-white at 1, 2, 4, 8 and 16 bits, palette at 1, 2, 4 and 8
@@ -30,11 +31,12 @@
 //   and grey as the components are (JCS_UNKNOWN).
 // Routing is by the tags and the data: what the RGBA interface refuses is
 // TIFF_SKIP; what libtiff decodes with a codec this file does not have
-// (CCITT, old JPEG, LZMA, ZSTD, WebP, LERC, JBIG, PixarLog, SGILog, NeXT,
+// (CCITT, old JPEG, LZMA, ZSTD, LERC, JBIG, PixarLog, SGILog, NeXT,
 // ThunderScan), or a JPEG layout the kernel does not take (planar, CMYK,
 // alpha, min-is-white), is TIFF_PIL.
 
 #include "tiff_decode.h"
+#include "webp_decode.h"
 
 #include <algorithm>
 #include <cmath>
@@ -58,17 +60,17 @@ enum Photometric {
 };
 enum Compression {
   CMP_NONE = 1, CMP_LZW = 5, CMP_JPEG = 7, CMP_DEFLATE = 8, CMP_DEFLATE_OLD = 32946, CMP_PACKBITS = 32773,
-  CMP_SGILOG = 34676, CMP_SGILOG24 = 34677,
+  CMP_SGILOG = 34676, CMP_SGILOG24 = 34677, CMP_WEBP = 50001,
 };
 enum Alpha { ALPHA_NONE = 0, ALPHA_ASSOC = 1, ALPHA_UNASSOC = 2 };
 
 // Compressions libtiff 4.5.0 decodes that this file does not: CCITT
 // (2, 3, 4, RLE-W), old JPEG, NeXT, ThunderScan, PixarLog (2), SGILog (2),
-// JBIG, LERC, LZMA, ZSTD, WebP.
+// JBIG, LERC, LZMA, ZSTD.
 bool pil_compression(int c) {
   switch (c) {
     case 2: case 3: case 4: case 32771: case 6: case 32766: case 32809: case 32908: case 32909:
-    case CMP_SGILOG: case CMP_SGILOG24: case 34661: case 34887: case 34925: case 50000: case 50001:
+    case CMP_SGILOG: case CMP_SGILOG24: case 34661: case 34887: case 34925: case 50000:
       return true;
     default:
       return false;
@@ -331,25 +333,25 @@ bool lzw_decode(const uint8_t* bp, size_t cc, uint8_t* op, size_t occ, bool comp
   return occ == 0;
 }
 
+// The bits of a deflate stream as libdeflate 1.14 reads them: past the
+// end of its input, zero bytes (up to 8 of them, as its bit buffer's refill
+// allows; the caller checks the limit at each block and symbol).
 struct Inflate {
   const uint8_t* p;
   const uint8_t* end;
   uint64_t bitbuf = 0;
   int bitcnt = 0;
-  bool eof = false;
+  uint64_t used = 0;  // bits consumed
 
   int bits(int need) {
     while (bitcnt < need) {
-      if (p >= end) {
-        eof = true;
-        return 0;
-      }
-      bitbuf |= uint64_t(*p++) << bitcnt;
+      bitbuf |= uint64_t(p < end ? *p++ : 0) << bitcnt;
       bitcnt += 8;
     }
     const int v = int(bitbuf & ((uint64_t(1) << need) - 1));
     bitbuf >>= need;
     bitcnt -= need;
+    used += uint64_t(need);
     return v;
   }
 
@@ -387,7 +389,6 @@ struct Inflate {
     int code = 0, first = 0, index = 0;
     for (int len = 1; len < 16; ++len) {
       code |= bits(1);
-      if (eof) return -1;
       const int count = h.count[len];
       if (code - count < first) return h.symbol[index + (code - first)];
       index += count;
@@ -399,16 +400,24 @@ struct Inflate {
   }
 };
 
-// RFC 1951 inflate of a zlib stream (RFC 1950's header and Adler-32), as
-// tif_zip.c drives zlib into a whole strip or tile: true when the stream
-// fills occ bytes, either ending there with its checksum right or going on
-// past them (zlib stops once out is full); else false, what came out
-// staying in out.
+// A zlib stream (RFC 1950's header and Adler-32 around RFC 1951 deflate)
+// into a whole strip or tile, as tif_zip.c 4.5.0 decodes it through
+// libdeflate_zlib_decompress_ex: true when the stream fills occ bytes,
+// either ending there with its checksum right or going on past them
+// (LIBDEFLATE_INSUFFICIENT_SPACE, which libtiff accepts; the literal, match
+// or stored block that does not fit is not written); else false, what came
+// out staying in out. libdeflate takes the deflate data as all but the last
+// four bytes (the checksum's place), reads zeros past them, and fails at
+// the refill before a block or symbol that starts more than one byte past
+// them: on a stream cut short, the symbols that start up to there are
+// written, zeros and all; a stored block that runs past them is not.
 bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
-  if (cc < 2) return false;
+  if (cc < 6) return false;
   const int cmf = src[0], flg = src[1];
   if ((cmf & 15) != 8 || (cmf >> 4) > 7 || (cmf * 256 + flg) % 31 != 0 || (flg & 0x20)) return false;
-  Inflate s{src + 2, src + cc};
+  const size_t kd = cc - 6;
+  const uint64_t limit = 8 * uint64_t(kd) + 8;  // the last bit a refill may start from
+  Inflate s{src + 2, src + 2 + kd};
   size_t got = 0;
   static const int16_t kLenBase[29] = {3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
                                        35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
@@ -422,22 +431,23 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
   Inflate::Huffman lit, dist;
   bool last = false;
   while (!last) {
+    if (s.used > limit) return false;
     last = s.bits(1) != 0;
     const int type = s.bits(2);
-    if (s.eof) return false;
-    if (type == 0) {  // stored
+    if (type == 0) {  // stored: aligned to a byte of the input, all of it there
+      const uint64_t at = (s.used + 7) / 8;
+      if (at > kd || kd - at < 4) return false;
+      const uint8_t* q = src + 2 + at;
+      const unsigned len = q[0] | q[1] << 8, nlen = q[2] | q[3] << 8;
+      if (len != (~nlen & 0xFFFF)) return false;
+      if (len > occ - got) return true;  // more output than occ: accepted
+      if (len > kd - at - 4) return false;
+      std::memcpy(out + got, q + 4, len);
+      got += len;
+      s.p = q + 4 + len;
       s.bitbuf = 0;
       s.bitcnt = 0;
-      if (s.end - s.p < 4) return false;
-      const unsigned len = s.p[0] | s.p[1] << 8, nlen = s.p[2] | s.p[3] << 8;
-      s.p += 4;
-      if (len != (~nlen & 0xFFFF)) return false;
-      const size_t avail = size_t(s.end - s.p);
-      const size_t take = std::min<size_t>({len, avail, occ - got});
-      std::memcpy(out + got, s.p, take);
-      got += take;
-      s.p += take;
-      if (take < len) return got == occ && take < avail;  // more output than occ: accepted
+      s.used = 8 * (at + 4 + len);
       continue;
     }
     if (type == 3) return false;
@@ -453,16 +463,16 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
       Inflate::build(&dist, lengths, 30, false);
     } else {  // dynamic
       const int nlen = s.bits(5) + 257, ndist = s.bits(5) + 1, ncode = s.bits(4) + 4;
-      if (s.eof || nlen > 286 || ndist > 30) return false;
+      if (nlen > 286 || ndist > 30) return false;
       static const uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
       uint8_t lengths[320] = {};
       for (int i = 0; i < ncode; ++i) lengths[kOrder[i]] = uint8_t(s.bits(3));
-      if (s.eof) return false;
       Inflate::Huffman lencode;
       if (!Inflate::build(&lencode, lengths, 19, true)) return false;
       int index = 0;
       uint8_t all[320] = {};
       while (index < nlen + ndist) {
+        if (s.used > limit) return false;
         const int sym = s.decode(lencode);
         if (sym < 0) return false;
         if (sym < 16) {
@@ -479,7 +489,7 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
         } else {
           rep = 11 + s.bits(7);
         }
-        if (s.eof || index + rep > nlen + ndist) return false;
+        if (index + rep > nlen + ndist) return false;
         while (rep--) all[index++] = uint8_t(len);
       }
       if (all[256] == 0) return false;  // no end-of-block code
@@ -487,6 +497,7 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
         return false;
     }
     while (true) {
+      if (s.used > limit) return false;
       int sym = s.decode(lit);
       if (sym < 0) return false;
       if (sym < 256) {
@@ -497,28 +508,54 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
       if (sym == 256) break;
       sym -= 257;
       if (sym >= 29) return false;
-      const int len = kLenBase[sym] + s.bits(kLenExtra[sym]);
+      const size_t len = size_t(kLenBase[sym] + s.bits(kLenExtra[sym]));
+      if (len > occ - got) return true;  // more output than occ: accepted, the match unwritten
       const int ds = s.decode(dist);
       if (ds < 0 || ds >= 30) return false;
       const size_t d = size_t(kDistBase[ds] + s.bits(kDistExtra[ds]));
-      if (s.eof || d > got) return false;
-      if (got + size_t(len) > occ) {
-        for (; got < occ; ++got) out[got] = out[got - d];
-        return true;
-      }
-      for (int k = 0; k < len; ++k, ++got) out[got] = out[got - d];
+      if (d > got) return false;
+      for (size_t k = 0; k < len; ++k, ++got) out[got] = out[got - d];
     }
   }
-  if (got != occ) return false;
-  // the Adler-32 of the output, big-endian, from the next whole byte
-  if (s.end - s.p < 4) return false;
+  // no zero byte consumed; all of occ; the Adler-32 of the output,
+  // big-endian, from the next whole byte
+  const uint64_t at = (s.used + 7) / 8;
+  if (at > kd || got != occ) return false;
   uint32_t a = 1, b = 0;
   for (size_t i = 0; i < occ; ++i) {
     a = (a + out[i]) % 65521;
     b = (b + a) % 65521;
   }
-  const uint32_t want = uint32_t(s.p[0]) << 24 | uint32_t(s.p[1]) << 16 | uint32_t(s.p[2]) << 8 | s.p[3];
+  const uint8_t* q = src + 2 + at;
+  const uint32_t want = uint32_t(q[0]) << 24 | uint32_t(q[1]) << 16 | uint32_t(q[2]) << 8 | q[3];
   return (b << 16 | a) == want;
+}
+
+// tif_webp.c 4.5.0's TWebPDecode of one strip or tile of seg_w x seg_h
+// pixels and spp samples (3 or 4) into out[0, occ). libwebp's incremental
+// decoder takes the stream in MODE_RGB for 3 samples and MODE_RGBA for 4
+// (4.5.0 checks neither the stream's size nor its alpha against the
+// tags), into out itself when occ is the whole segment, rows seg_w * spp
+// apart, else into a buffer of the codec's that lives across segments (buf)
+// and is copied out only when it holds occ bytes. A stream wider or taller
+// than the segment writes nothing; a narrower one leaves the rest of each
+// row as it was; one that fails or ends early leaves the rows libwebp had
+// let out. True where libtiff's decode succeeds: the rows let out (a
+// decoder that ran out of data counts too) hold occ bytes, and a whole
+// segment's are all of its rows.
+bool webp_segment(const uint8_t* src, size_t cc, uint8_t* out, uint64_t occ, uint32_t seg_w, uint32_t seg_h, int spp,
+                  std::vector<uint8_t>* buf) {
+  const uint64_t stride = uint64_t(seg_w) * uint64_t(spp), size = stride * seg_h;
+  const bool whole = occ == size;
+  if (!whole && buf->size() < size) buf->resize(size_t(size), 0);
+  if (occ % stride) return false;  // "Fractional scanlines cannot be read"
+  int rows = 0;  // WebPIDecGetRGB's current_y: the rows let out
+  uint8_t* dst = whole ? out : buf->data();
+  if (webp_decode(src, cc, spp, dst, size_t(stride), size_t(size), &rows) == WEBP_ERROR ||
+      occ > stride * uint64_t(rows) || (whole && uint64_t(rows) != occ / stride))
+    return false;
+  if (!whole) std::memcpy(out, dst, size_t(occ));
+  return true;
 }
 
 // ---------------------------------------------------------------- the image
@@ -539,6 +576,7 @@ struct Image {
   bool ycc_sub_tag = false;
   std::vector<uint16_t> cmap;  // 3 x (1 << bps): red, green, blue
   LzwMode lzw = LZW_UNSET;
+  std::vector<uint8_t> webp_buf;  // tif_webp.c's buffer for segments not read whole
 
   // libtiff's sizes (tif_strip.c, tif_tile.c)
   bool ycc_blocks() const { return photometric == PH_YCBCR && spp == 3 && contig_layout(); }
@@ -617,6 +655,13 @@ struct Image {
       case CMP_DEFLATE_OLD:
         ok = inflate_zlib(raw, cc, out, size_t(occ));
         break;
+      case CMP_WEBP: {  // TWebPPreDecode's segment size: a last strip's rows
+        const uint64_t row0 = tiled ? 0 : (seg % strips_per_plane()) * rows_per_strip();
+        const uint32_t seg_w = tiled ? tw : width;
+        const uint32_t seg_h = tiled ? th : uint32_t(std::min<uint64_t>(rows_per_strip(), height - row0));
+        ok = webp_segment(raw, cc, out, occ, seg_w, seg_h, spp, &webp_buf);
+        break;
+      }
       default:  // a scheme libtiff has no codec for: _TIFFNoStripDecode fails every segment
         ok = false;
         break;
@@ -979,6 +1024,14 @@ int choose(Image* im, Converter* cv) {
   if (ph == PH_YCBCR && im->planar == 1 && im->compression == CMP_JPEG) ph = PH_RGB;  // JPEGCOLORMODE_RGB
   if (im->compression == CMP_JPEG) return TIFF_JPEG;  // the segments decide (read_jpeg)
   if (pil_compression(im->compression)) return TIFF_PIL;
+  if (im->compression == CMP_WEBP) {
+    // TWebPSetupDecode (3 or 4 samples; 8 bits, or unsigned samples of any
+    // size) and TWebPPreDecode (segments of at most 16383 x 16383) fail
+    // every segment's TIFFFillStrip, the first one's failing the image
+    const uint64_t seg_w = im->tiled ? im->tw : im->width, seg_h = im->tiled ? im->th : im->rows_per_strip();
+    if ((im->spp != 3 && im->spp != 4) || (im->bps != 8 && im->sampleformat != 1) || seg_w > 16383 || seg_h > 16383)
+      return TIFF_SKIP;
+  }
   // a scheme outside libtiff's codec table gets its default state: the
   // image reads, every segment's decode fails (a zeroed buffer put)
   const int c = im->compression;
@@ -1428,8 +1481,9 @@ void read_tiff(const uint8_t* d, size_t n, bool pixels, TiffImage* out) {
 
 extern "C" {
 
-// One strip's codec alone (tests): compression 1, 5, 8/32946 or 32773 of
-// n bytes at src into occ bytes at out. Returns 1 when occ bytes came out.
+// One strip's codec alone (tests): compression 1, 5, 8/32946, 32773 or
+// 50001 (a segment of the stream's own size, 3 or 4 samples by occ) of n
+// bytes at src into occ bytes at out. Returns 1 when occ bytes came out.
 int aq_tiff_codec(int compression, const uint8_t* src, long n, uint8_t* out, long occ) {
   switch (compression) {
     case aq::CMP_NONE:
@@ -1439,6 +1493,15 @@ int aq_tiff_codec(int compression, const uint8_t* src, long n, uint8_t* out, lon
     case aq::CMP_PACKBITS: return aq::unpack_bits(src, size_t(n), out, size_t(occ)) ? 1 : 0;
     case aq::CMP_LZW: return aq::lzw_decode(src, size_t(n), out, size_t(occ), n >= 2 && src[0] == 0 && (src[1] & 1)) ? 1 : 0;
     case aq::CMP_DEFLATE: case aq::CMP_DEFLATE_OLD: return aq::inflate_zlib(src, size_t(n), out, size_t(occ)) ? 1 : 0;
+    case aq::CMP_WEBP: {
+      aq::WebpFeatures f;
+      if (!aq::webp_features(src, size_t(n), &f)) return 0;
+      const long px = long(f.width) * f.height;
+      const int spp = px > 0 && occ % px == 0 ? int(occ / px) : 0;
+      if (spp != 3 && spp != 4) return 0;
+      std::vector<uint8_t> buf;
+      return aq::webp_segment(src, size_t(n), out, uint64_t(occ), uint32_t(f.width), uint32_t(f.height), spp, &buf) ? 1 : 0;
+    }
     default: return 0;
   }
 }

@@ -22,8 +22,10 @@ libjpeg, and on a card the parallel half belongs on the card:
   same threads, without libtiff, giving the pixels of libtiff's RGBA
   interface (``TIFFReadRGBAImageOriented`` at ORIENTATION_TOPLEFT, the JAX
   package's tileloader.cc): classic and BigTIFF, strips and tiles, none,
-  LZW, Deflate and PackBits decoded there into RGB, which goes to the card
-  in one copy from a pinned buffer and is cut into tiles there; JPEG strips
+  LZW, Deflate, PackBits and WebP (``csrc/webp_decode.cc``: lossy VP8,
+  lossless VP8L and ALPH alpha, libwebp's pixels) decoded there into RGB,
+  which goes to the card in one copy from a pinned buffer and is cut into
+  tiles there; JPEG strips
   or tiles (compression 7) as entropy-decoded segments, decoded on the card
   by the same kernel into the raster that the tiles are cut from (a
   segment that fails, or whose stream is smaller than it, shows libtiff's
@@ -39,7 +41,7 @@ extended, progressive and multi-scan sequential, Huffman or arithmetic,
 grey, YCbCr or RGB-coded, sampling factors 1..4) goes to the card; a TIFF
 at full size goes through the reader ("tiff"), its JPEG segments through
 the kernel ("tiff_jpeg"), and a TIFF in a compression the reader does not
-decode (CCITT, old JPEG, LZMA, ZSTD, WebP, ...) or a JPEG layout the kernel
+decode (CCITT, old JPEG, LZMA, ZSTD, LERC, JBIG, ...) or a JPEG layout the kernel
 does not take through PIL on a host pool with libtiff's RGBA semantics
 (``data/geotiff.read_tiff_rgba``, "pil"); at scale every TIFF takes the
 Python loader's PIL resize ("pil_resize"), as the JAX module routes
@@ -82,7 +84,8 @@ from aquaculture_tpu_torch.data.loader import TileBatch, _emit_tiles
 from aquaculture_tpu_torch.geo import native_boolean
 
 SOURCE = os.path.join(native_boolean._CSRC, "jpeg_entropy.cc")
-TIFF_SOURCES = tuple(os.path.join(native_boolean._CSRC, f) for f in ("tiff_decode.cc", "tiff_decode.h"))
+TIFF_SOURCES = tuple(os.path.join(native_boolean._CSRC, f)
+                     for f in ("tiff_decode.cc", "tiff_decode.h", "webp_decode.cc", "webp_decode.h"))
 # no FMA contraction: the TIFF reader's colour conversions are libtiff's
 # float arithmetic, operation by operation
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread", "-ffp-contract=off")

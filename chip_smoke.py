@@ -97,7 +97,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
      equal facility files; on fold 0's train split the card's grid sweep
      equal to the plain per-combination loop on a 12-combination sub-grid
      (NaN in place); ``cli.evaluate`` on the card with the full 6,560-
-     combination grid over EVAL_FOLDS = 3 folds (the sweep's seconds per fold, the
+     combination grid over EVAL_FOLDS = 2 folds (the sweep's seconds per fold, the
      match matrix's host seconds, the fold rows, the held-out table, which
      must equal test_set_performance with --device cpu). The CPU references
      run in worker processes beside the card's side;
@@ -1574,12 +1574,45 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 # phase 7: int8 serving and the serving-accuracy harness
 # ---------------------------------------------------------------------------
 
+# The TIFF compressions the device loader leaves to PIL ("pil" route):
+# PIL's name for those PIL writes, and the mode it writes them from.
+PIL_ROUTE_COMPRESSIONS = (("group3", "1"), ("group4", "1"), ("tiff_ccitt", "1"), ("tiff_raw_16", "1"),
+                          ("tiff_thunderscan", "L"), ("tiff_sgilog", "RGB"), ("lzma", "RGB"), ("zstd", "RGB"))
+
+
+def pil_tiff_compressions() -> dict:
+    """Which compressions on the "pil" route PIL here writes and reads back
+    (a 16 x 16 file each, in a temporary directory): name -> "reads",
+    or what failed."""
+    from PIL import Image
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, mode in PIL_ROUTE_COMPRESSIONS:
+            path = os.path.join(d, f"{name}.tif")
+            img = Image.fromarray((np.arange(256) * 37 % 256).astype(np.uint8).reshape(16, 16)).convert(mode)
+            try:
+                img.save(path, compression=name)
+            except Exception as e:  # noqa: BLE001 (a report, gating nothing)
+                out[name] = f"does not write: {type(e).__name__}: {e}"
+                continue
+            try:
+                with Image.open(path) as back:
+                    back.load()
+                out[name] = "reads"
+            except Exception as e:  # noqa: BLE001
+                out[name] = f"writes, does not read: {type(e).__name__}: {e}"
+    return out
+
+
 def probe() -> dict:
     """What the card's machine offers later work: triton, CUTLASS's
     headers (a fused int8 conv), matplotlib (figures), libjpeg's and
     libtiff's headers and libraries (what the JAX package's C++ tile
     loader links; the port's device loader parses JPEG itself and needs
-    neither). Gates nothing."""
+    neither), the codec libraries libtiff would link (libwebp, libzstd,
+    liblzma, libLerc, libjbig), and which of the compressions the loader
+    leaves to PIL the machine's PIL reads. Gates nothing."""
     out = {}
     try:
         import triton
@@ -1604,7 +1637,14 @@ def probe() -> dict:
     except (OSError, subprocess.SubprocessError) as e:
         libs = [f"ldconfig failed: {e}"]
     out["libraries"] = {lib: sorted({ln.split()[0] for ln in libs if ln.strip().startswith(lib + ".so")})
-                        for lib in ("libjpeg", "libtiff")}
+                        for lib in ("libjpeg", "libtiff", "libwebp", "libzstd", "liblzma", "libLerc", "libjbig")}
+    try:
+        from PIL import features
+
+        out["pil"] = {"webp": features.version("webp"), "libtiff": features.version("libtiff")}
+    except ImportError as e:
+        out["pil"] = f"absent: {e}"
+    out["pil_route_compressions"] = pil_tiff_compressions()
     return out
 
 
@@ -2083,8 +2123,10 @@ EVAL_TILE_M = 200.0  # EPSG:3857 meters of one 1024 px tile (6 per 1200 m downlo
 DBSCAN_CHECKS = ((50.0, 5), (10.0, 1), (150.0, 10))
 # cli.evaluate's folds (the reference uses 5): the full grid is swept on
 # every fold, and each fold adds ~1.5 s of host work (the subsets, the
-# match matrix), so 3 folds keep the script within its 180 s
-EVAL_FOLDS = 3
+# match matrix) and a sweep; 2 folds keep each check (rows of both
+# splits, the held-out table) at the least depth that has a fold to hold
+# out against another
+EVAL_FOLDS = 2
 # the sub-grid on which the card's sweep is held against the plain loop
 EVAL_SUB_GRID = dict(confidence_thresholds=(0.6, 0.785, 1.005), distance_thresholds=(10.0, 50.0),
                      minimum_cluster_sizes=(1, 5))
@@ -3607,9 +3649,15 @@ def check_feed_routing(dev, d: str, distinct: list) -> dict:
 # download as aq-acquire wms stores it, and smaller files in the reader's
 # other routes: LZW with Predictor 2, Deflate and a BigTIFF (2048 px, PIL),
 # JPEG tiled at 256 with JPEGTables and JPEG in strips through libtiff (PIL;
-# 1024 px: their plain decode on the CPU is the slow half of the check)
+# 1024 px: their plain decode on the CPU is the slow half of the check),
+# and WebP (compression 50001, csrc/webp_decode.cc; segments from PIL's
+# WebP encoder): lossy RGB tiled at 512 (2048 px, GDAL's COMPRESS=WEBP
+# layout), lossless in strips of 128 rows and lossy RGBA with unassociated
+# alpha in strips of 256 (1024 px)
 TIFF_CASES = {"wms_6144": "tiff", "lzw_predictor_2048": "tiff", "deflate_2048": "tiff", "bigtiff_2048": "tiff",
-              "jpeg_tiles_256": "tiff_jpeg", "jpeg_strips": "tiff_jpeg"}
+              "jpeg_tiles_256": "tiff_jpeg", "jpeg_strips": "tiff_jpeg", "webp_lossy_tiles_2048": "tiff",
+              "webp_lossless_strips_1024": "tiff", "webp_rgba_1024": "tiff"}
+WEBP_HOST_CASES = ("webp_lossy_tiles_2048", "webp_lossless_strips_1024")
 TIFF_PASSES = 5  # the corpus linked 5 times over for its tiles/s (250 tiles of 1024 px)
 
 
@@ -3645,6 +3693,15 @@ def write_tiff_corpus(d: str) -> dict:
     with open(paths["jpeg_tiles_256"], "wb") as f:
         f.write(writer.tiff_bytes(segs, tags, tiled=True))
     Image.fromarray(small[1024:, 1024:]).save(paths["jpeg_strips"], compression="jpeg", quality=90)
+    webp = {"webp_lossy_tiles_2048": (small, dict(quality=80), dict(tile=(512, 512))),
+            "webp_lossless_strips_1024": (small[:1024, 1024:], dict(lossless=True, method=1), dict(rps=128)),
+            "webp_rgba_1024": (np.dstack([small[1024:, :1024], np.flipud(small[1024:, :1024, 1])]),
+                               dict(quality=75), dict(rps=256))}
+    for name, (img, enc, lay) in webp.items():
+        segs, tags = writer.webp_layout(np.ascontiguousarray(img), lambda b, enc=enc: writer.webp_pil(
+            np.ascontiguousarray(b), **enc), **lay)
+        with open(paths[name], "wb") as f:
+            f.write(writer.tiff_bytes(segs, tags, tiled="tile" in lay))
     return paths
 
 
@@ -3733,6 +3790,29 @@ def check_tiff_feed(dev, card: str, writer: tuple) -> dict:
     tiles = sum(int(b.valid.sum()) for b in card_b)
     return {"files": len(paths), "tiles": tiles, "counts": counts, "tiles_equal_cpu": True,
             "launches": launches, "kernels": kernels, "write_wait_s": write_wait_s, "paths": cases}
+
+
+def time_webp_host(cases: dict, card: str) -> dict:
+    """The WebP codec's host rate: WEBP_HOST_CASES read whole by
+    decode_image on the CPU (the loader threads' work), in megapixels a
+    second on one thread (3 reads) and on every core (2 reads a core)."""
+    from aquaculture_tpu_torch.data import native_loader
+
+    cores = os.cpu_count() or 1
+    out = {"cores": cores}
+    for name in WEBP_HOST_CASES:
+        path = cases[name]
+        img = native_loader.decode_image(path, "cpu")
+        mp = img.shape[0] * img.shape[1] / 1e6
+        row = {"mp": mp}
+        for threads, n in ((1, 3), (cores, 2 * cores)):
+            with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(lambda p: native_loader.decode_image(p, "cpu"), [path] * n))
+                row[f"mp_per_s_{threads}_threads"] = n * mp / (time.perf_counter() - t0)
+        out[name] = row
+    print(json.dumps({"metric": "webp_host_decode", **out, "card": card}), flush=True)
+    return out
 
 
 def tiff_feed_paths(d: str, cases: dict) -> list:
@@ -4073,6 +4153,7 @@ def run_feed_phase(dev, card: str, d: str, serving_tps: float, tiff_writer: tupl
     seconds["path"] = time.perf_counter() - t0 - sum(seconds.values())
     out["tiff"] = check_tiff_feed(dev, card, tiff_writer)
     cases = out["tiff"].pop("paths")
+    out["tiff"]["webp_host"] = time_webp_host(cases, card)
     seconds["tiff"] = time.perf_counter() - t0 - sum(seconds.values())
     out["tiff"].update(time_tiff_feed(tiff_feed_paths(d, cases), model, dev))
     shutil.rmtree(os.path.join(d, "tiff_corpus"))

@@ -3,17 +3,22 @@
 in turns on one card.
 
     python3 scripts/tiff_feed_ab.py --other DIR [--rounds 1] [--passes 8] [--wms 16] [--jpeg 1024]
-        [--min-seconds 5]
+        [--webp 0] [--min-seconds 5]
 
 DIR is the root of another checkout (for example the parent commit,
 unpacked with ``git archive`` under the git-ignored ``.archive_check/``).
 The corpora are written once, by this checkout's
 ``chip_smoke.write_tiff_corpus``, and linked under tile-codec names:
 - ``mixed``: its files but the BigTIFF, which checkouts before the TIFF
-  reader skip (a 6144 px uncompressed RGB download as aq-acquire wms
+  reader skip, and the WebP files, which checkouts before the WebP codec
+  hand to PIL (a 6144 px uncompressed RGB download as aq-acquire wms
   stores it; LZW with Predictor 2 and Deflate at 2048 px; JPEG tiled at
   256 and in strips at 1024 px), ``--passes`` times over (46 tiles of
   1024 px a pass);
+- ``webp``: its WebP files (lossy tiled at 512, 2048 px; lossless and
+  lossy RGBA in strips, 1024 px), ``--webp`` times over (6 tiles a pass;
+  0, the default, leaves it out: both sides must read WebP, so give a
+  checkout with the codec as DIR);
 - ``wms``: the 6144 px download alone, ``--wms`` times over (36 tiles a
   file), the pipeline's own input;
 - ``jpeg``: the control, a route the TIFF reader does not touch:
@@ -128,15 +133,17 @@ def child(root: str, corpora_json: str, min_s: float) -> None:
     print(json.dumps(out), flush=True)
 
 
-def write_corpora(d: str, passes: int, wms: int, jpeg: int) -> str:
+def write_corpora(d: str, passes: int, wms: int, jpeg: int, webp: int) -> str:
     sys.path.insert(0, HERE)
     import chip_smoke
 
     from aquaculture_tpu_torch.data.filenames import TileSpec, encode_tile_name
 
     cases = chip_smoke.write_tiff_corpus(d)
-    both = [n for n in cases if n != "bigtiff_2048"]
+    both = [n for n in cases if n != "bigtiff_2048" and not n.startswith("webp")]
     corpora = {"mixed": [cases[n] for _ in range(passes) for n in both], "wms": [cases["wms_6144"]] * wms}
+    if webp:
+        corpora["webp"] = [cases[n] for _ in range(webp) for n in cases if n.startswith("webp")]
     if jpeg:
         os.makedirs(os.path.join(d, "feed"))
         distinct = chip_smoke.write_feed_files(os.path.join(d, "feed"))[1]
@@ -162,6 +169,7 @@ def main(argv=None) -> int:
     ap.add_argument("--passes", type=int, default=8)
     ap.add_argument("--wms", type=int, default=16)
     ap.add_argument("--jpeg", type=int, default=1024)
+    ap.add_argument("--webp", type=int, default=0)
     ap.add_argument("--min-seconds", type=float, default=5.0)
     ap.add_argument("--child", nargs=3, metavar=("ROOT", "CORPORA", "MIN_S"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -173,7 +181,7 @@ def main(argv=None) -> int:
     card = card_line()
     d = tempfile.mkdtemp(prefix="tiff_feed_ab_")
     try:
-        return run(args, card, write_corpora(d, args.passes, args.wms, args.jpeg))
+        return run(args, card, write_corpora(d, args.passes, args.wms, args.jpeg, args.webp))
     finally:
         shutil.rmtree(d, ignore_errors=True)
 

@@ -407,6 +407,16 @@ CASES = {
     "short_third_raw": (lambda p: _short_case(p, cut=(2, lambda n: 100)), "tiff"),
     "short_lzw_strip": (lambda p: _short_case(p, compression=5, cut=(1, lambda n: n // 2)), "tiff"),
     "short_packbits_strip": (lambda p: _short_case(p, compression=32773, cut=(3, lambda n: n // 2)), "tiff"),
+    # libdeflate's stopping point: symbols that start up to a byte past the
+    # stream's end less its four checksum bytes, decoded from zeros; a stored
+    # block that runs past it unwritten
+    "short_deflate_strip_half": (lambda p: _short_case(p, compression=8, cut=(1, lambda n: n // 2)), "tiff"),
+    "short_deflate_strip_third": (lambda p: _short_case(p, compression=8, cut=(2, lambda n: n // 3)), "tiff"),
+    "short_deflate_strip_less_5": (lambda p: _short_case(p, compression=8, cut=(1, lambda n: n - 5)), "tiff"),
+    "short_deflate_strip_less_1": (lambda p: _short_case(p, compression=8, cut=(4, lambda n: n - 1)), "tiff"),
+    "short_deflate_strip_9_bytes": (lambda p: _short_case(p, compression=8, cut=(1, lambda n: 9)), "tiff"),
+    "short_deflate_stored_strip": (lambda p: _short_case(p, compression="deflate_stored",
+                                                         cut=(1, lambda n: n // 2)), "tiff"),
     # libtiff's own readings: its 4x4 tile routine's skew, the directory's
     # fatal values, extra samples, an unknown scheme, missing tags
     **{f"ycbcr_{h}{v}_tiles": ((lambda p, h=h, v=v: _ycbcr_tiles_case(p, hs=h, vs=v)), "tiff")

@@ -1,14 +1,23 @@
 """A TIFF writer byte by byte, for the cases PIL cannot write: tiles,
 planar files, big-endian and BigTIFF files, Predictor 2 at 16 bits, bit
 depths below 8, raw YCbCr in its sampled layout, JPEG tiles with their
-tables in JPEGTables, old-style LZW. Used by tests/test_torch_tiff.py and
-chip_smoke.py's feed phase; imports neither JAX nor the port.
+tables in JPEGTables, old-style LZW, WebP strips and tiles (PIL's WebP
+encoder, or libwebp's advanced API through a small C helper that g++
+builds against the system's libwebp: ``webp_encoder``). Used by
+tests/test_torch_tiff.py, tests/test_torch_tiff_webp.py and chip_smoke.py's
+feed phase; imports neither JAX nor the port.
 """
 
 from __future__ import annotations
 
+import ctypes
+import fcntl
+import hashlib
 import io
+import os
 import struct
+import subprocess
+import tempfile
 import zlib
 
 import numpy as np
@@ -155,7 +164,7 @@ def predict(rows: np.ndarray, stride: int, bps: int) -> np.ndarray:
 
 
 CODECS = {1: lambda b: b, 5: lzw, 8: zlib.compress, 32946: zlib.compress, 32773: packbits,
-          "lzw_compat": lambda b: lzw(b, compat=True)}
+          "lzw_compat": lambda b: lzw(b, compat=True), "deflate_stored": lambda b: zlib.compress(b, 0)}
 
 
 def layout(px: np.ndarray, bps: int, *, planar: bool = False, tile=None, rps: int = 37, order: str = "<",
@@ -181,7 +190,7 @@ def layout(px: np.ndarray, bps: int, *, planar: bool = False, tile=None, rps: in
             if predictor == 2:
                 rows = predict(rows, s, bps)
             segments.append(encode(pack_samples(rows, bps, order)))
-    code = 5 if compression == "lzw_compat" else compression
+    code = {"lzw_compat": 5, "deflate_stored": 8}.get(compression, compression)
     tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [bps] * spp), 259: (3, [code]), 277: (3, [spp]),
             284: (3, [2 if planar else 1])}
     if predictor != 1:
@@ -246,3 +255,171 @@ def jpeg_tiles(px: np.ndarray, tw: int, th: int, mode: str, tables: bool = True)
                 table = t
             segs.append(data)
     return segs, table
+
+
+def webp_pil(px: np.ndarray, **kw) -> bytes:
+    """One WebP stream of px (H, W, 3 or 4) from PIL's encoder (``quality``,
+    ``method``, ``lossless``, ...)."""
+    buf = io.BytesIO()
+    Image.fromarray(px).save(buf, "WEBP", **kw)
+    return buf.getvalue()
+
+
+# libwebp's advanced encoder API: the coding tools PIL does not expose.
+WEBP_ENCODER = r"""
+#include <string.h>
+#include <webp/encode.h>
+/* o: lossless quality method filter_type filter_strength sharpness partitions
+   segments alpha_compression alpha_filtering alpha_quality exact */
+int aq_webp_encode(const uint8_t* px, int w, int h, int ch, const int* o, uint8_t* out, int cap) {
+  WebPConfig c;
+  if (!WebPConfigInit(&c)) return -1;
+  c.lossless = o[0]; c.quality = (float)o[1]; c.method = o[2];
+  c.filter_type = o[3]; c.filter_strength = o[4]; c.filter_sharpness = o[5];
+  c.partitions = o[6]; c.segments = o[7]; c.alpha_compression = o[8];
+  c.alpha_filtering = o[9]; c.alpha_quality = o[10]; c.exact = o[11];
+  c.autofilter = 0;
+  if (!WebPValidateConfig(&c)) return -2;
+  WebPPicture p;
+  if (!WebPPictureInit(&p)) return -3;
+  p.width = w; p.height = h; p.use_argb = 1;
+  if (!(ch == 4 ? WebPPictureImportRGBA(&p, px, w * 4) : WebPPictureImportRGB(&p, px, w * 3))) return -4;
+  WebPMemoryWriter wr;
+  WebPMemoryWriterInit(&wr);
+  p.writer = WebPMemoryWrite;
+  p.custom_ptr = &wr;
+  int ok = WebPEncode(&c, &p), n = (int)wr.size;
+  WebPPictureFree(&p);
+  if (!ok) n = -5;
+  else if (n > cap) n = -6;
+  else memcpy(out, wr.mem, wr.size);
+  WebPMemoryWriterClear(&wr);
+  return n;
+}
+"""
+
+_WEBP_OPTIONS = ("lossless", "quality", "method", "filter_type", "filter_strength", "sharpness", "partitions",
+                 "segments", "alpha_compression", "alpha_filtering", "alpha_quality", "exact")
+_WEBP_DEFAULTS = dict(lossless=0, quality=75, method=4, filter_type=1, filter_strength=60, sharpness=0,
+                      partitions=0, segments=4, alpha_compression=1, alpha_filtering=1, alpha_quality=100, exact=0)
+
+
+def webp_encoder():
+    """A function px (H, W, 3 or 4) uint8, **options -> WebP bytes through
+    libwebp's WebPConfig (``_WEBP_OPTIONS``: filter type, strength and
+    sharpness, token partitions as log2, segments, ALPH compression,
+    filter and quality, ...), or None where no compiler or libwebp is
+    here. The library is built once in the temp directory, under a lock."""
+    tag = hashlib.sha1(WEBP_ENCODER.encode()).hexdigest()[:12]
+    tmp = tempfile.gettempdir()
+    so = os.path.join(tmp, f"aq_webp_encoder_{tag}.so")
+    with open(os.path.join(tmp, "aq_webp_encoder.lock"), "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(so):
+                src = os.path.join(tmp, f"aq_webp_encoder_{tag}.c")
+                with open(src, "w") as f:
+                    f.write(WEBP_ENCODER)
+                built = subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-o", so + ".tmp", src, "-lwebp"],
+                                       capture_output=True)
+                if built.returncode != 0:
+                    return None
+                os.replace(so + ".tmp", so)
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(so)
+    lib.aq_webp_encode.restype = ctypes.c_int
+
+    def encode(px: np.ndarray, **kw) -> bytes:
+        px = np.ascontiguousarray(px, np.uint8)
+        h, w, ch = px.shape
+        opts = dict(_WEBP_DEFAULTS, **kw)
+        o = (ctypes.c_int * len(_WEBP_OPTIONS))(*[int(opts[k]) for k in _WEBP_OPTIONS])
+        out = np.zeros(w * h * ch * 2 + 65536, np.uint8)
+        n = lib.aq_webp_encode(px.ctypes.data_as(ctypes.c_void_p), w, h, ch, o,
+                               out.ctypes.data_as(ctypes.c_void_p), len(out))
+        if n <= 0:
+            raise RuntimeError(f"aq_webp_encode failed ({n})")
+        return out[:n].tobytes()
+
+    return encode
+
+
+def webp_layout(px: np.ndarray, encode, *, tile=None, rps: int = 64) -> tuple:
+    """WebP strips (the last one shorter) or tiles (full size, the edges
+    padded with zeros) of px (H, W, 3 or 4), each encode(block) -> bytes;
+    returns (segments, tags): 8-bit RGB, ExtraSamples 2 (unassociated
+    alpha) on four samples."""
+    h, w, spp = px.shape
+    if tile:
+        tw, th = tile
+        ny, nx = -(-h // th), -(-w // tw)
+        padded = np.zeros((ny * th, nx * tw, spp), np.uint8)
+        padded[:h, :w] = px
+        segments = [encode(padded[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw])
+                    for ty in range(ny) for tx in range(nx)]
+    else:
+        segments = [encode(px[y:y + rps]) for y in range(0, h, rps)]
+    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [8] * spp), 259: (3, [50001]), 262: (3, [2]), 277: (3, [spp]),
+            284: (3, [1])}
+    if spp == 4:
+        tags[338] = (3, [2])
+    if tile:
+        tags[322], tags[323] = (3, [tile[0]]), (3, [tile[1]])
+    else:
+        tags[278] = (3, [rps])
+    return segments, tags
+
+
+def _riff(chunks) -> bytes:
+    body = b"WEBP" + b"".join(tag + struct.pack("<I", len(data)) + data + (b"\0" if len(data) % 2 else b"")
+                              for tag, data in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def _chunk(stream: bytes, tag: bytes) -> bytes:
+    """The payload of a simple RIFF WebP's first chunk named tag."""
+    at = 12
+    while at + 8 <= len(stream):
+        n = struct.unpack("<I", stream[at + 4:at + 8])[0]
+        if stream[at:at + 4] == tag:
+            return stream[at + 8:at + 8 + n]
+        at += 8 + n + (n & 1)
+    raise ValueError(f"no {tag!r} chunk")
+
+
+def alpha_filter(alpha: np.ndarray, method: int) -> np.ndarray:
+    """ALPH's prediction (0 none, 1 horizontal, 2 vertical, 3 gradient) as
+    libwebp's encoder applies it: the residuals libwebp's unfilters undo."""
+    a = alpha.astype(np.int32)
+    pred = np.zeros_like(a)
+    if method:
+        pred[0, 1:] = a[0, :-1]  # the first row: horizontal from 0
+        if method == 1:
+            pred[1:, 0] = a[:-1, 0]
+            pred[1:, 1:] = a[1:, :-1]
+        elif method == 2:
+            pred[1:] = a[:-1]
+        else:
+            pred[1:, 0] = a[:-1, 0]
+            grad = a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1]
+            pred[1:, 1:] = np.clip(grad, 0, 255)
+    return ((a - pred) % 256).astype(np.uint8)
+
+
+def webp_with_alph(rgb: np.ndarray, alpha: np.ndarray, *, method: int = 0, filt: int = 0, pre: int = 0,
+                   quality: int = 80) -> bytes:
+    """A VP8X file: PIL's lossy VP8 stream of rgb and an ALPH chunk of
+    alpha built here, raw (method 0) or VP8L-coded (1: PIL's lossless
+    stream of the residuals as grey, without its 5-byte header), with the
+    given prediction filter and pre-processing bits."""
+    h, w = alpha.shape
+    vp8 = _chunk(webp_pil(rgb, quality=quality), b"VP8 ")
+    res = alpha_filter(alpha, filt)
+    if method == 0:
+        payload = res.tobytes()
+    else:
+        payload = _chunk(webp_pil(np.repeat(res[..., None], 3, -1), lossless=True), b"VP8L")[5:]
+    alph = bytes([method | filt << 2 | pre << 4]) + payload
+    vp8x = struct.pack("<I", 0x10) + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+    return _riff([(b"VP8X", vp8x), (b"ALPH", alph), (b"VP8 ", vp8)])
