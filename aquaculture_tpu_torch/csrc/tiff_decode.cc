@@ -10,8 +10,11 @@
 //   LZW (tif_lzw.c, with the old-style bit-reversed codes of LZW_COMPAT),
 //   Deflate 8 and 32946 (an RFC 1950/1951 inflate, tif_zip.c's framing,
 //   libdeflate's stopping point), WebP 50001 (webp_decode.cc, tif_webp.c's
-//   framing); Predictor 2 at 8 and 16 bits (tif_predict.c); 16-bit samples
-//   in the host's order after decoding (_TIFFSwab16BitData).
+//   framing), NeXT 32766, ThunderScan 32809, PixarLog 32909 (the same
+//   inflate at zlib's stopping point) and SGILog 34676/34677
+//   (tiff_legacy.cc), JBIG 34661 (jbig_decode.cc: jbigkit's decoder, one
+//   layer and one plane); Predictor 2 at 8 and 16 bits (tif_predict.c);
+//   16-bit samples in the host's order after decoding (_TIFFSwab16BitData).
 // - tif_getimage.c's checks (TIFFRGBAImageOK, TIFFRGBAImageBegin,
 //   PickContigCase, PickSeparateCase) and its put routines: min-is-black
 //   and min-is-white at 1, 2, 4, 8 and 16 bits, palette at 1, 2, 4 and 8
@@ -30,12 +33,14 @@
 //   YCbCr through libjpeg's colour conversion (JPEGCOLORMODE_RGB), and RGB
 //   and grey as the components are (JCS_UNKNOWN).
 // Routing is by the tags and the data: what the RGBA interface refuses is
-// TIFF_SKIP; what libtiff decodes with a codec this file does not have
-// (CCITT, old JPEG, LZMA, ZSTD, LERC, JBIG, PixarLog, SGILog, NeXT,
-// ThunderScan), or a JPEG layout the kernel does not take (planar, CMYK,
+// TIFF_SKIP; what libtiff decodes with a codec this reader does not have
+// (CCITT, old JPEG, LZMA, ZSTD, LERC, and JBIG of several resolution layers
+// or bit planes), or a JPEG layout the kernel does not take (planar, CMYK,
 // alpha, min-is-white), is TIFF_PIL.
 
 #include "tiff_decode.h"
+#include "jbig_decode.h"
+#include "tiff_legacy.h"
 #include "webp_decode.h"
 
 #include <algorithm>
@@ -60,17 +65,16 @@ enum Photometric {
 };
 enum Compression {
   CMP_NONE = 1, CMP_LZW = 5, CMP_JPEG = 7, CMP_DEFLATE = 8, CMP_DEFLATE_OLD = 32946, CMP_PACKBITS = 32773,
-  CMP_SGILOG = 34676, CMP_SGILOG24 = 34677, CMP_WEBP = 50001,
+  CMP_NEXT = 32766, CMP_THUNDER = 32809, CMP_PIXARLOG = 32909, CMP_SGILOG = 34676, CMP_SGILOG24 = 34677,
+  CMP_JBIG = 34661, CMP_WEBP = 50001,
 };
 enum Alpha { ALPHA_NONE = 0, ALPHA_ASSOC = 1, ALPHA_UNASSOC = 2 };
 
-// Compressions libtiff 4.5.0 decodes that this file does not: CCITT
-// (2, 3, 4, RLE-W), old JPEG, NeXT, ThunderScan, PixarLog (2), SGILog (2),
-// JBIG, LERC, LZMA, ZSTD.
+// Compressions libtiff 4.5.0 decodes that this reader does not: CCITT
+// (2, 3, 4, RLE-W), old JPEG, LERC, LZMA, ZSTD.
 bool pil_compression(int c) {
   switch (c) {
-    case 2: case 3: case 4: case 32771: case 6: case 32766: case 32809: case 32908: case 32909:
-    case CMP_SGILOG: case CMP_SGILOG24: case 34661: case 34887: case 34925: case 50000:
+    case 2: case 3: case 4: case 32771: case 6: case 34887: case 34925: case 50000:
       return true;
     default:
       return false;
@@ -335,15 +339,21 @@ bool lzw_decode(const uint8_t* bp, size_t cc, uint8_t* op, size_t occ, bool comp
 
 // The bits of a deflate stream as libdeflate 1.14 reads them: past the
 // end of its input, zero bytes (up to 8 of them, as its bit buffer's refill
-// allows; the caller checks the limit at each block and symbol).
+// allows; the caller checks the limit at each block and symbol). Strict, as
+// zlib reads them: a read past the end stalls the stream instead.
 struct Inflate {
   const uint8_t* p;
   const uint8_t* end;
   uint64_t bitbuf = 0;
   int bitcnt = 0;
   uint64_t used = 0;  // bits consumed
+  bool strict = false, stalled = false;
 
   int bits(int need) {
+    if (strict && (stalled || uint64_t(bitcnt) + 8 * uint64_t(end - p) < uint64_t(need))) {
+      stalled = true;
+      return 0;
+    }
     while (bitcnt < need) {
       bitbuf |= uint64_t(p < end ? *p++ : 0) << bitcnt;
       bitcnt += 8;
@@ -358,14 +368,22 @@ struct Inflate {
   struct Huffman {
     int16_t count[16];
     int16_t symbol[320];
+    int maxlen = 15;     // the longest code
+    bool empty = false;  // no codes at all
   };
 
   // Canonical codes from lengths; false for an over-subscribed set, or an
-  // incomplete one but for a single code (as zlib refuses them).
-  static bool build(Huffman* h, const uint8_t* length, int n, bool lit) {
+  // incomplete one but for a single code (as zlib refuses them). zlib_codes:
+  // the code-length code as zlib's inflate_table(CODES) takes it, where no
+  // codes at all pass and an incomplete set does not.
+  static bool build(Huffman* h, const uint8_t* length, int n, bool lit, bool zlib_codes = false) {
     std::fill(h->count, h->count + 16, 0);
     for (int s = 0; s < n; ++s) h->count[length[s]]++;
-    if (h->count[0] == n) return !lit;  // no codes: fine for distances alone
+    h->empty = h->count[0] == n;
+    h->maxlen = 0;
+    for (int len = 1; len < 16; ++len)
+      if (h->count[len]) h->maxlen = len;
+    if (h->empty) return !lit || zlib_codes;  // no codes: fine for distances alone
     int left = 1;
     for (int len = 1; len < 16; ++len) {
       left <<= 1;
@@ -380,14 +398,21 @@ struct Inflate {
     if (left > 0) {
       int codes = 0;
       for (int len = 1; len < 16; ++len) codes += h->count[len];
-      if (!(codes == 1 && h->count[1] == 1)) return false;
+      if (zlib_codes || !(codes == 1 && h->count[1] == 1)) return false;
     }
     return true;
   }
 
+  // A symbol, or -2 for a code outside the set (strict: found as zlib finds
+  // it, after the longest code's bits; a set of no codes takes one bit).
   int decode(const Huffman& h) {
+    if (strict && h.empty) {
+      bits(1);
+      return -2;
+    }
     int code = 0, first = 0, index = 0;
-    for (int len = 1; len < 16; ++len) {
+    const int top = strict ? h.maxlen : 15;
+    for (int len = 1; len <= top; ++len) {
       code |= bits(1);
       const int count = h.count[len];
       if (code - count < first) return h.symbol[index + (code - first)];
@@ -400,24 +425,34 @@ struct Inflate {
   }
 };
 
-// A zlib stream (RFC 1950's header and Adler-32 around RFC 1951 deflate)
-// into a whole strip or tile, as tif_zip.c 4.5.0 decodes it through
-// libdeflate_zlib_decompress_ex: true when the stream fills occ bytes,
-// either ending there with its checksum right or going on past them
-// (LIBDEFLATE_INSUFFICIENT_SPACE, which libtiff accepts; the literal, match
-// or stored block that does not fit is not written); else false, what came
-// out staying in out. libdeflate takes the deflate data as all but the last
-// four bytes (the checksum's place), reads zeros past them, and fails at
-// the refill before a block or symbol that starts more than one byte past
-// them: on a stream cut short, the symbols that start up to there are
-// written, zeros and all; a stored block that runs past them is not.
-bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
-  if (cc < 6) return false;
+}  // namespace
+
+// tif_zip.c 4.5.0 decodes a whole strip or tile through
+// libdeflate_zlib_decompress_ex (INFLATE_LIBDEFLATE): true when the stream
+// fills occ bytes, either ending there with its checksum right or going on
+// past them (LIBDEFLATE_INSUFFICIENT_SPACE, which libtiff accepts; the
+// literal, match or stored block that does not fit is not written); else
+// false, what came out staying in out. libdeflate takes the deflate data as
+// all but the last four bytes (the checksum's place), reads zeros past them,
+// and fails at the refill before a block or symbol that starts more than one
+// byte past them: on a stream cut short, the symbols that start up to there
+// are written, zeros and all; a stored block that runs past them is not.
+//
+// tif_pixarlog.c calls zlib's inflate() until occ bytes are out
+// (INFLATE_ZLIB): the data are all cc bytes; a stream whose data end, that
+// ends early or that is refused fails; once occ bytes are out, decoding goes
+// on only up to the next byte it would write, so that a refusal before it
+// (an invalid code or distance, a block header, a wrong Adler-32 at the
+// stream's end) still fails it, and nothing past it is read.
+bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int as) {
+  const bool zl = as == INFLATE_ZLIB;
+  if (cc < (zl ? 2u : 6u)) return false;
   const int cmf = src[0], flg = src[1];
   if ((cmf & 15) != 8 || (cmf >> 4) > 7 || (cmf * 256 + flg) % 31 != 0 || (flg & 0x20)) return false;
-  const size_t kd = cc - 6;
+  const size_t kd = zl ? cc - 2 : cc - 6;
   const uint64_t limit = 8 * uint64_t(kd) + 8;  // the last bit a refill may start from
   Inflate s{src + 2, src + 2 + kd};
+  s.strict = zl;
   size_t got = 0;
   static const int16_t kLenBase[29] = {3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
                                        35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
@@ -431,19 +466,27 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
   Inflate::Huffman lit, dist;
   bool last = false;
   while (!last) {
-    if (s.used > limit) return false;
+    if (!zl && s.used > limit) return false;
     last = s.bits(1) != 0;
     const int type = s.bits(2);
-    if (type == 0) {  // stored: aligned to a byte of the input, all of it there
+    if (s.stalled) return got == occ;
+    if (type == 0) {  // stored: aligned to a byte of the input
       const uint64_t at = (s.used + 7) / 8;
-      if (at > kd || kd - at < 4) return false;
+      if (at > kd || kd - at < 4) return zl && got == occ;
       const uint8_t* q = src + 2 + at;
       const unsigned len = q[0] | q[1] << 8, nlen = q[2] | q[3] << 8;
       if (len != (~nlen & 0xFFFF)) return false;
-      if (len > occ - got) return true;  // more output than occ: accepted
-      if (len > kd - at - 4) return false;
-      std::memcpy(out + got, q + 4, len);
-      got += len;
+      if (zl) {  // copied as far as the data and the room go
+        const size_t n = std::min<size_t>({len, size_t(kd - at - 4), occ - got});
+        std::memcpy(out + got, q + 4, n);
+        got += n;
+        if (n < len) return got == occ;
+      } else {  // all of it there
+        if (len > occ - got) return true;  // more output than occ: accepted
+        if (len > kd - at - 4) return false;
+        std::memcpy(out + got, q + 4, len);
+        got += len;
+      }
       s.p = q + 4 + len;
       s.bitbuf = 0;
       s.bitcnt = 0;
@@ -463,42 +506,42 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
       Inflate::build(&dist, lengths, 30, false);
     } else {  // dynamic
       const int nlen = s.bits(5) + 257, ndist = s.bits(5) + 1, ncode = s.bits(4) + 4;
+      if (s.stalled) return got == occ;
       if (nlen > 286 || ndist > 30) return false;
       static const uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
       uint8_t lengths[320] = {};
       for (int i = 0; i < ncode; ++i) lengths[kOrder[i]] = uint8_t(s.bits(3));
+      if (s.stalled) return got == occ;
       Inflate::Huffman lencode;
-      if (!Inflate::build(&lencode, lengths, 19, true)) return false;
+      if (!Inflate::build(&lencode, lengths, 19, true, zl)) return false;
       int index = 0;
       uint8_t all[320] = {};
       while (index < nlen + ndist) {
-        if (s.used > limit) return false;
-        const int sym = s.decode(lencode);
+        if (!zl && s.used > limit) return false;
+        int sym = s.decode(lencode);
+        if (zl && lencode.empty) sym = 0;  // zlib's table of no codes reads as lengths of 0
+        if (s.stalled) return got == occ;
         if (sym < 0) return false;
         if (sym < 16) {
           all[index++] = uint8_t(sym);
           continue;
         }
-        int len = 0, rep;
-        if (sym == 16) {
-          if (index == 0) return false;
-          len = all[index - 1];
-          rep = 3 + s.bits(2);
-        } else if (sym == 17) {
-          rep = 3 + s.bits(3);
-        } else {
-          rep = 11 + s.bits(7);
-        }
+        if (sym == 16 && index == 0 && !zl) return false;
+        const int rep = sym == 16 ? 3 + s.bits(2) : sym == 17 ? 3 + s.bits(3) : 11 + s.bits(7);
+        if (s.stalled) return got == occ;
+        if (sym == 16 && index == 0) return false;  // zlib reads the count first
+        const int len = sym == 16 ? all[index - 1] : 0;
         if (index + rep > nlen + ndist) return false;
-        while (rep--) all[index++] = uint8_t(len);
+        for (int k = 0; k < rep; ++k) all[index++] = uint8_t(len);
       }
       if (all[256] == 0) return false;  // no end-of-block code
       if (!Inflate::build(&lit, all, nlen, true) || !Inflate::build(&dist, all + nlen, ndist, false))
         return false;
     }
     while (true) {
-      if (s.used > limit) return false;
+      if (!zl && s.used > limit) return false;
       int sym = s.decode(lit);
+      if (s.stalled) return got == occ;
       if (sym < 0) return false;
       if (sym < 256) {
         if (got == occ) return true;  // more output than occ: accepted
@@ -509,27 +552,35 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ) {
       sym -= 257;
       if (sym >= 29) return false;
       const size_t len = size_t(kLenBase[sym] + s.bits(kLenExtra[sym]));
-      if (len > occ - got) return true;  // more output than occ: accepted, the match unwritten
+      if (s.stalled) return got == occ;
+      if (!zl && len > occ - got) return true;  // more output than occ: accepted, the match unwritten
       const int ds = s.decode(dist);
+      if (s.stalled) return got == occ;
       if (ds < 0 || ds >= 30) return false;
       const size_t d = size_t(kDistBase[ds] + s.bits(kDistExtra[ds]));
+      if (s.stalled) return got == occ;
       if (d > got) return false;
-      for (size_t k = 0; k < len; ++k, ++got) out[got] = out[got - d];
+      const size_t n = std::min(len, occ - got);  // zlib writes what fits
+      for (size_t k = 0; k < n; ++k, ++got) out[got] = out[got - d];
+      if (n < len) return true;
     }
   }
-  // no zero byte consumed; all of occ; the Adler-32 of the output,
-  // big-endian, from the next whole byte
+  // the Adler-32 of the output, big-endian, from the next whole byte (zlib:
+  // where all four bytes are there); libdeflate also wants no zero byte
+  // consumed and all of occ
   const uint64_t at = (s.used + 7) / 8;
-  if (at > kd || got != occ) return false;
+  if (zl ? at > kd || kd - at < 4 : at > kd || got != occ) return zl && got == occ;
   uint32_t a = 1, b = 0;
-  for (size_t i = 0; i < occ; ++i) {
+  for (size_t i = 0; i < got; ++i) {
     a = (a + out[i]) % 65521;
     b = (b + a) % 65521;
   }
   const uint8_t* q = src + 2 + at;
   const uint32_t want = uint32_t(q[0]) << 24 | uint32_t(q[1]) << 16 | uint32_t(q[2]) << 8 | q[3];
-  return (b << 16 | a) == want;
+  return (b << 16 | a) == want && got == occ;
 }
+
+namespace {
 
 // tif_webp.c 4.5.0's TWebPDecode of one strip or tile of seg_w x seg_h
 // pixels and spp samples (3 or 4) into out[0, occ). libwebp's incremental
@@ -577,6 +628,8 @@ struct Image {
   std::vector<uint16_t> cmap;  // 3 x (1 << bps): red, green, blue
   LzwMode lzw = LZW_UNSET;
   std::vector<uint8_t> webp_buf;  // tif_webp.c's buffer for segments not read whole
+  std::vector<uint16_t> pixar_buf;  // tif_pixarlog.c's buffer of 11-bit words
+  int sgilog = SGILOG_L16;          // the SGILog row decoder (LogLuvSetupDecode)
 
   // libtiff's sizes (tif_strip.c, tif_tile.c)
   bool ycc_blocks() const { return photometric == PH_YCBCR && spp == 3 && contig_layout(); }
@@ -630,7 +683,7 @@ struct Image {
     const uint8_t* raw = ifd->d + offsets[seg];
     const size_t cc = size_t(counts[seg]);
     std::vector<uint8_t> flipped;
-    if (fillorder == 2) {
+    if (fillorder == 2 && compression != CMP_JBIG) {  // JBIG sets TIFF_NOBITREV: its decode reverses
       flipped.assign(raw, raw + cc);
       for (auto& b : flipped) {
         b = uint8_t((b * 0x0202020202ULL & 0x010884422010ULL) % 1023);
@@ -653,7 +706,7 @@ struct Image {
         break;
       case CMP_DEFLATE:
       case CMP_DEFLATE_OLD:
-        ok = inflate_zlib(raw, cc, out, size_t(occ));
+        ok = inflate_zlib(raw, cc, out, size_t(occ), INFLATE_LIBDEFLATE);
         break;
       case CMP_WEBP: {  // TWebPPreDecode's segment size: a last strip's rows
         const uint64_t row0 = tiled ? 0 : (seg % strips_per_plane()) * rows_per_strip();
@@ -662,6 +715,31 @@ struct Image {
         ok = webp_segment(raw, cc, out, occ, seg_w, seg_h, spp, &webp_buf);
         break;
       }
+      case CMP_NEXT:  // rows of the image's scanline, runs of the segment's width
+        ok = next_decode(raw, cc, out, occ, scanline(), tiled ? tw : width);
+        break;
+      case CMP_THUNDER:  // no tile decoder: _TIFFNoTileDecode fails every tile
+        ok = !tiled && thunder_decode(raw, cc, out, occ, scanline(), width);
+        break;
+      case CMP_PIXARLOG: {  // PixarLogSetupDecode's stride and buffer (rows of a strip, in a tile too)
+        PixarLogShape shape;
+        shape.stride = contig_layout() ? spp : 1;
+        shape.width = width;
+        shape.sixteen = bps == 16;
+        shape.swab = !ifd->le;
+        shape.tbuf_size = 2 * uint64_t(shape.stride) * width * rows_per_strip() + 2 * uint64_t(shape.stride);
+        ok = pixarlog_decode(raw, cc, out, occ, shape, &pixar_buf);
+        break;
+      }
+      case CMP_SGILOG:
+      case CMP_SGILOG24:  // LogLuvInitState's buffer: a tile's pixels, or a strip's
+        ok = sgilog_decode(raw, cc, out, occ, rowbytes, sgilog,
+                           tiled ? uint64_t(tw) * th : uint64_t(width) * rows_per_strip());
+        break;
+      case CMP_JBIG:  // JBIGDecode reverses the bits at FillOrder 1 (isFillOrder on the host's flags); no
+                      // tile decoder: _TIFFNoTileDecode fails every tile
+        ok = !tiled && jbig_decode(raw, cc, fillorder == 1, out, occ);
+        break;
       default:  // a scheme libtiff has no codec for: _TIFFNoStripDecode fails every segment
         ok = false;
         break;
@@ -690,7 +768,7 @@ struct Image {
           }
         }
       }
-    } else if (swab) {
+    } else if (swab && compression != CMP_PIXARLOG) {  // PixarLog's words are the host's already
       for (uint64_t i = 0; i + 1 < occ; i += 2) std::swap(out[i], out[i + 1]);
     }
     return true;
@@ -1024,6 +1102,41 @@ int choose(Image* im, Converter* cv) {
   if (ph == PH_YCBCR && im->planar == 1 && im->compression == CMP_JPEG) ph = PH_RGB;  // JPEGCOLORMODE_RGB
   if (im->compression == CMP_JPEG) return TIFF_JPEG;  // the segments decide (read_jpeg)
   if (pil_compression(im->compression)) return TIFF_PIL;
+  // setup and pre-decode refusals fail every segment's TIFFFillStrip, the
+  // first one's failing the image
+  switch (im->compression) {
+    case CMP_NEXT:  // NeXTPreDecode: 2-bit samples only
+      if (im->bps != 2) return TIFF_SKIP;
+      break;
+    case CMP_THUNDER:  // ThunderSetupDecode: 4-bit samples only
+      if (im->bps != 4) return TIFF_SKIP;
+      break;
+    case CMP_PIXARLOG:  // PixarLogGuessDataFmt: 8 or 16 unsigned (or untyped) bits
+      if ((im->bps != 8 && im->bps != 16) || (im->sampleformat != 1 && im->sampleformat != 4)) return TIFF_SKIP;
+      break;
+    case CMP_SGILOG:
+    case CMP_SGILOG24:  // LogLuvSetupDecode; TIFFRGBAImageBegin's SGILOGDATAFMT_8BIT: 8-bit grey or RGB
+      if (im->photometric == PH_LOGL) {
+        if (im->spp != 1) return TIFF_SKIP;  // LogL16InitState
+        im->sgilog = SGILOG_L16;
+        ph = PH_MINISBLACK;
+      } else if (im->photometric == PH_LOGLUV) {
+        im->sgilog = im->compression == CMP_SGILOG24 ? SGILOG_LUV24 : SGILOG_LUV32;
+        ph = PH_RGB;
+      } else {
+        return TIFF_SKIP;  // "Inappropriate photometric interpretation"
+      }
+      im->bps = 8;
+      break;
+    case CMP_JBIG:  // JBIGSetupDecode: TIFFNumberOfStrips (from RowsPerStrip, in a tiled file too) is 1
+      if (im->strips_per_plane() * (im->planar == 2 ? uint64_t(im->spp) : 1) != 1) return TIFF_SKIP;
+      if (!im->tiled && !im->counts.empty() && im->readable(0) &&  // BIEs of several layers or planes
+          jbig_layered(f.d + im->offsets[0], size_t(im->counts[0]), im->fillorder == 1))
+        return TIFF_PIL;
+      break;
+    default:
+      break;
+  }
   if (im->compression == CMP_WEBP) {
     // TWebPSetupDecode (3 or 4 samples; 8 bits, or unsigned samples of any
     // size) and TWebPPreDecode (segments of at most 16383 x 16383) fail
@@ -1035,7 +1148,7 @@ int choose(Image* im, Converter* cv) {
   // a scheme outside libtiff's codec table gets its default state: the
   // image reads, every segment's decode fails (a zeroed buffer put)
   const int c = im->compression;
-  const bool predicting = c == CMP_LZW || c == CMP_DEFLATE || c == CMP_DEFLATE_OLD;
+  const bool predicting = c == CMP_LZW || c == CMP_DEFLATE || c == CMP_DEFLATE_OLD || c == CMP_PIXARLOG;
   if (predicting && im->predictor != 1 && !(im->predictor == 2 && (im->bps == 8 || im->bps == 16)))
     return TIFF_SKIP;  // PredictorSetup refuses: every segment fails
   if (!predicting) im->predictor = 1;  // no predictor on the other codecs
@@ -1481,9 +1594,11 @@ void read_tiff(const uint8_t* d, size_t n, bool pixels, TiffImage* out) {
 
 extern "C" {
 
-// One strip's codec alone (tests): compression 1, 5, 8/32946, 32773 or
-// 50001 (a segment of the stream's own size, 3 or 4 samples by occ) of n
-// bytes at src into occ bytes at out. Returns 1 when occ bytes came out.
+// One strip's codec alone (tests): compression 1, 5, 8/32946, 32773,
+// 50001 (a segment of the stream's own size, 3 or 4 samples by occ), 32909
+// (PixarLog's zlib stream inflated, its words not yet accumulated) or
+// 34661 (a BIE in jbigkit's bit order) of n bytes at src into occ bytes at
+// out. Returns 1 where libtiff's decode succeeds.
 int aq_tiff_codec(int compression, const uint8_t* src, long n, uint8_t* out, long occ) {
   switch (compression) {
     case aq::CMP_NONE:
@@ -1492,7 +1607,7 @@ int aq_tiff_codec(int compression, const uint8_t* src, long n, uint8_t* out, lon
       return 1;
     case aq::CMP_PACKBITS: return aq::unpack_bits(src, size_t(n), out, size_t(occ)) ? 1 : 0;
     case aq::CMP_LZW: return aq::lzw_decode(src, size_t(n), out, size_t(occ), n >= 2 && src[0] == 0 && (src[1] & 1)) ? 1 : 0;
-    case aq::CMP_DEFLATE: case aq::CMP_DEFLATE_OLD: return aq::inflate_zlib(src, size_t(n), out, size_t(occ)) ? 1 : 0;
+    case aq::CMP_DEFLATE: case aq::CMP_DEFLATE_OLD: return aq::inflate_zlib(src, size_t(n), out, size_t(occ), aq::INFLATE_LIBDEFLATE) ? 1 : 0;
     case aq::CMP_WEBP: {
       aq::WebpFeatures f;
       if (!aq::webp_features(src, size_t(n), &f)) return 0;
@@ -1502,6 +1617,8 @@ int aq_tiff_codec(int compression, const uint8_t* src, long n, uint8_t* out, lon
       std::vector<uint8_t> buf;
       return aq::webp_segment(src, size_t(n), out, uint64_t(occ), uint32_t(f.width), uint32_t(f.height), spp, &buf) ? 1 : 0;
     }
+    case aq::CMP_PIXARLOG: return aq::inflate_zlib(src, size_t(n), out, size_t(occ), aq::INFLATE_ZLIB) ? 1 : 0;
+    case aq::CMP_JBIG: return aq::jbig_decode(src, size_t(n), false, out, uint64_t(occ)) ? 1 : 0;
     default: return 0;
   }
 }

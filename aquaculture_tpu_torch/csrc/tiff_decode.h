@@ -57,6 +57,19 @@ struct TiffImage {
 // Read a TIFF's first image: route it and, when pixels is true, decode it.
 void read_tiff(const uint8_t* d, size_t n, bool pixels, TiffImage* out);
 
+// An RFC 1950 zlib stream of cc bytes at src into out[0, occ), read as
+// tif_zip.c 4.5.0 reads a Deflate strip through libdeflate 1.14
+// (INFLATE_LIBDEFLATE), or as zlib 1.2.13's inflate() fills a buffer of occ
+// bytes for tif_pixarlog.c (INFLATE_ZLIB). True where that decode succeeds.
+enum InflateAs { INFLATE_LIBDEFLATE = 0, INFLATE_ZLIB = 1 };
+bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int as);
+
+// T.81 Table D.2 (T.82 Table 24) in jaricom.c's layout: Qe_Value << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is
+// libjpeg's fixed 0.5 bin. Shared by jpeg_entropy.cc's arithmetic decoder
+// and jbig_decode.cc's.
+extern const int32_t kAriTab[114];
+
 // Entropy-decode one JPEG stream at 8/8 with the tables of a TIFF's
 // JPEGTables in front (tables may be null): fills meta and appends the
 // coefficients to coef (when coef is not null; the markers after a

@@ -22,8 +22,10 @@ libjpeg, and on a card the parallel half belongs on the card:
   same threads, without libtiff, giving the pixels of libtiff's RGBA
   interface (``TIFFReadRGBAImageOriented`` at ORIENTATION_TOPLEFT, the JAX
   package's tileloader.cc): classic and BigTIFF, strips and tiles, none,
-  LZW, Deflate, PackBits and WebP (``csrc/webp_decode.cc``: lossy VP8,
-  lossless VP8L and ALPH alpha, libwebp's pixels) decoded there into RGB,
+  LZW, Deflate, PackBits, WebP (``csrc/webp_decode.cc``: lossy VP8,
+  lossless VP8L and ALPH alpha, libwebp's pixels), NeXT, ThunderScan,
+  PixarLog and SGILog (``csrc/tiff_legacy.cc``) and JBIG
+  (``csrc/jbig_decode.cc``: jbigkit's decoder) decoded there into RGB,
   which goes to the card in one copy from a pinned buffer and is cut into
   tiles there; JPEG strips
   or tiles (compression 7) as entropy-decoded segments, decoded on the card
@@ -41,8 +43,9 @@ extended, progressive and multi-scan sequential, Huffman or arithmetic,
 grey, YCbCr or RGB-coded, sampling factors 1..4) goes to the card; a TIFF
 at full size goes through the reader ("tiff"), its JPEG segments through
 the kernel ("tiff_jpeg"), and a TIFF in a compression the reader does not
-decode (CCITT, old JPEG, LZMA, ZSTD, LERC, JBIG, ...) or a JPEG layout the kernel
-does not take through PIL on a host pool with libtiff's RGBA semantics
+decode (CCITT, old JPEG, LZMA, ZSTD, LERC, and JBIG of several resolution
+layers or planes) or a JPEG layout the kernel does not take through PIL on
+a host pool with libtiff's RGBA semantics
 (``data/geotiff.read_tiff_rgba``, "pil"); at scale every TIFF takes the
 Python loader's PIL resize ("pil_resize"), as the JAX module routes
 non-JPEG files; a JPEG that libjpeg refuses (12-bit, CMYK, lossless,
@@ -85,7 +88,8 @@ from aquaculture_tpu_torch.geo import native_boolean
 
 SOURCE = os.path.join(native_boolean._CSRC, "jpeg_entropy.cc")
 TIFF_SOURCES = tuple(os.path.join(native_boolean._CSRC, f)
-                     for f in ("tiff_decode.cc", "tiff_decode.h", "webp_decode.cc", "webp_decode.h"))
+                     for f in ("tiff_decode.cc", "tiff_decode.h", "webp_decode.cc", "webp_decode.h", "tiff_legacy.cc",
+                               "tiff_legacy.h", "jbig_decode.cc", "jbig_decode.h"))
 # no FMA contraction: the TIFF reader's colour conversions are libtiff's
 # float arithmetic, operation by operation
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread", "-ffp-contract=off")

@@ -1577,7 +1577,7 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 # The TIFF compressions the device loader leaves to PIL ("pil" route):
 # PIL's name for those PIL writes, and the mode it writes them from.
 PIL_ROUTE_COMPRESSIONS = (("group3", "1"), ("group4", "1"), ("tiff_ccitt", "1"), ("tiff_raw_16", "1"),
-                          ("tiff_thunderscan", "L"), ("tiff_sgilog", "RGB"), ("lzma", "RGB"), ("zstd", "RGB"))
+                          ("lzma", "RGB"), ("zstd", "RGB"))
 
 
 def pil_tiff_compressions() -> dict:
@@ -3659,6 +3659,13 @@ TIFF_CASES = {"wms_6144": "tiff", "lzw_predictor_2048": "tiff", "deflate_2048": 
               "webp_lossless_strips_1024": "tiff", "webp_rgba_1024": "tiff"}
 WEBP_HOST_CASES = ("webp_lossy_tiles_2048", "webp_lossless_strips_1024")
 TIFF_PASSES = 5  # the corpus linked 5 times over for its tiles/s (250 tiles of 1024 px)
+# Files of the codecs a host without libtiff or jbigkit cannot write:
+# tests/data/torch_tiff/, as tests/torch_tiff_writer.py's
+# write_legacy_fixtures wrote them (NeXT, ThunderScan, PixarLog at 8 and 16
+# bits, LogL, LogLuv, LogLuv24, JBIG from libtiff's encoder and from
+# jbigkit's with AT moves and SDRST), and pixels.json: the route and the
+# sha256 of libtiff 4.5.0's RGB pixels of each
+LEGACY_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "torch_tiff")
 
 
 def tiff_writer():
@@ -3751,14 +3758,53 @@ def tiff_jpeg_kernel(path: str, dev, rate: float, card: str) -> dict:
     return row
 
 
+def check_legacy_fixtures(dev) -> dict:
+    """LEGACY_FIXTURES through native_tile_batches at full size (64 px
+    tiles) on the card and on the CPU: every file on the route pixels.json
+    gives ("tiff"), the card's tiles torch.equal to the CPU's batch for
+    batch, and each file's pixels (decode_image, this host's reader) of the
+    sha256 that pixels.json gives libtiff's, which holds this host's exp
+    and log (PixarLog's and SGILog's tables) to libtiff's. Untimed."""
+    import hashlib
+
+    import torch
+
+    from aquaculture_tpu_torch.data import native_loader
+
+    with open(os.path.join(LEGACY_FIXTURES, "pixels.json")) as f:
+        table = json.load(f)
+    paths = [os.path.join(LEGACY_FIXTURES, name) for name in sorted(table)]
+    counts, cpu_counts = {}, {}
+    card_b = list(native_loader.native_tile_batches(paths, batch_size=8, tile=64, device=dev, counts=counts))
+    torch.cuda.synchronize()
+    cpu_b = list(native_loader.native_tile_batches(paths, batch_size=8, tile=64, device="cpu", counts=cpu_counts))
+    want = {r: 0 for r in native_loader.ROUTES}
+    for row in table.values():
+        want[row["route"]] += 1
+    if counts != want or cpu_counts != want:
+        fail(f"NeXT/ThunderScan/PixarLog/SGILog/JBIG fixtures: counts {counts} (CPU {cpu_counts}), expected {want}")
+    if len(card_b) != len(cpu_b) or not all(torch.equal(a.images.cpu(), b.images) and
+                                            a.valid.tolist() == b.valid.tolist() for a, b in zip(card_b, cpu_b)):
+        fail("NeXT/ThunderScan/PixarLog/SGILog/JBIG fixtures: the card's tiles != the CPU route's")
+    for name, path in zip(sorted(table), paths):
+        px = native_loader.decode_image(path, "cpu")
+        digest = None if px is None else hashlib.sha256(px.contiguous().numpy().tobytes()).hexdigest()
+        if digest != table[name]["sha256"] or list(px.shape) != table[name]["shape"]:
+            fail(f"{name}: this host's pixels are not libtiff's (sha256 {digest})")
+    return {"files": len(paths), "tiles": sum(int(b.valid.sum()) for b in card_b), "counts": counts,
+            "tiles_equal_cpu": True, "pixels_equal_libtiff": True}
+
+
 def check_tiff_feed(dev, card: str, writer: tuple) -> dict:
     """The TIFF corpus (``start_tiff_corpus``'s) through native_tile_batches
     at full size (1024 px tiles, batch 8) on the card and on the CPU: each
     file on its route (TIFF_CASES), the card's tiles torch.equal to the
     CPU's batch for batch, jpeg_decode launched once per JPEG-compressed
     file (the count zeroed just before the card's run, read just after; the
-    batches hold no JPEG of their own); then each such file's segments
-    through the kernel against its plain version, timed."""
+    batches hold no JPEG of their own); the committed fixtures of the
+    codecs a host without libtiff cannot write (``check_legacy_fixtures``);
+    then each JPEG-compressed file's segments through the kernel against
+    its plain version, timed."""
     import torch
 
     from aquaculture_tpu_torch.data import jpeg_cuda, native_loader
@@ -3784,12 +3830,14 @@ def check_tiff_feed(dev, card: str, writer: tuple) -> dict:
         fail("TIFF corpus: the card's tiles != the CPU route's")
     if launches != want["tiff_jpeg"]:
         fail(f"jpeg_decode launched {launches} times for {want['tiff_jpeg']} JPEG-compressed TIFFs")
+    legacy = check_legacy_fixtures(dev)
     rate = int_ops_per_s()
     kernels = {name: tiff_jpeg_kernel(cases[name], dev, rate, card) for name, r in TIFF_CASES.items()
                if r == "tiff_jpeg"}
     tiles = sum(int(b.valid.sum()) for b in card_b)
     return {"files": len(paths), "tiles": tiles, "counts": counts, "tiles_equal_cpu": True,
-            "launches": launches, "kernels": kernels, "write_wait_s": write_wait_s, "paths": cases}
+            "launches": launches, "kernels": kernels, "legacy_fixtures": legacy, "write_wait_s": write_wait_s,
+            "paths": cases}
 
 
 def time_webp_host(cases: dict, card: str) -> dict:

@@ -30,7 +30,7 @@ from PIL import Image
 
 from aquaculture_tpu_torch.data import jpeg_cuda, jpeg_plain, native_loader
 from torch_jax_native import jax_native_loader
-from torch_tiff_writer import jpeg_tiles, layout, lzw, tiff_bytes, ycbcr_blocks
+from torch_tiff_writer import image, jpeg_tiles, layout, lzw, tiff_bytes, ycbcr_blocks
 
 PREFIX = "2014_3857_1.000_0.000"  # a tile-codec name, so that each file has a TileSpec
 ROUTE_NAMES = {jpeg_plain.TIFF_RASTER: "tiff", jpeg_plain.TIFF_JPEG: "tiff_jpeg",
@@ -43,18 +43,6 @@ def jn():
     if jn is None:
         pytest.skip("native/libaquatile.so does not build here")
     return jn
-
-
-def image(seed: int, h: int = 200, w: int = 300, c: int = 3) -> np.ndarray:
-    """A seeded image that compresses as imagery does: a smooth field plus
-    texture."""
-    if c > 4:
-        return np.concatenate([image(seed, h, w, 3), image(seed + 1, h, w, c - 3)], -1)
-    rng = np.random.default_rng(seed)
-    coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, c), dtype=np.uint8)
-    up = np.asarray(Image.fromarray(coarse.squeeze(-1) if c == 1 else coarse).resize((w, h), Image.BILINEAR))
-    img = up.reshape(h, w, c).astype(np.int16) + rng.integers(-12, 13, (h, w, c), dtype=np.int16)
-    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 # ---------------------------------------------------------------- cases

@@ -3,9 +3,13 @@ planar files, big-endian and BigTIFF files, Predictor 2 at 16 bits, bit
 depths below 8, raw YCbCr in its sampled layout, JPEG tiles with their
 tables in JPEGTables, old-style LZW, WebP strips and tiles (PIL's WebP
 encoder, or libwebp's advanced API through a small C helper that g++
-builds against the system's libwebp: ``webp_encoder``). Used by
-tests/test_torch_tiff.py, tests/test_torch_tiff_webp.py and chip_smoke.py's
-feed phase; imports neither JAX nor the port.
+builds against the system's libwebp: ``webp_encoder``), NeXT and
+ThunderScan opcodes. ``libtiff_file`` writes a file through the system's
+libtiff itself (ctypes: TIFFSetField, TIFFWriteEncodedStrip/Tile and the
+raw writes), for its PixarLog, SGILog and JBIG encoders; ``jbig_encoder``
+builds jbigkit's encoder for BIEs with the options libtiff does not set.
+Used by tests/test_torch_tiff*.py and chip_smoke.py's feed phase; imports
+neither JAX nor the port.
 """
 
 from __future__ import annotations
@@ -24,6 +28,18 @@ import numpy as np
 from PIL import Image
 
 _FORMATS = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 8: "h", 11: "f", 12: "d", 16: "Q"}
+
+
+def image(seed: int, h: int = 200, w: int = 300, c: int = 3) -> np.ndarray:
+    """A seeded image that compresses as imagery does: a smooth field plus
+    texture."""
+    if c > 4:
+        return np.concatenate([image(seed, h, w, 3), image(seed + 1, h, w, c - 3)], -1)
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, c), dtype=np.uint8)
+    up = np.asarray(Image.fromarray(coarse.squeeze(-1) if c == 1 else coarse).resize((w, h), Image.BILINEAR))
+    img = up.reshape(h, w, c).astype(np.int16) + rng.integers(-12, 13, (h, w, c), dtype=np.int16)
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def _pack_values(typ: int, values, order: str) -> bytes:
@@ -172,24 +188,13 @@ def layout(px: np.ndarray, bps: int, *, planar: bool = False, tile=None, rps: in
     """Strips or tiles of px (H, W, S) samples, compressed; returns
     (segments, layout tags). Tiles are padded with zeros to full size."""
     h, w, spp = px.shape
-    planes = [px[..., p:p + 1] for p in range(spp)] if planar else [px]
     segments = []
     encode = CODECS[compression]
-    for plane in planes:
-        s = plane.shape[2]
-        if tile:
-            tw, th = tile
-            ny, nx = -(-h // th), -(-w // tw)
-            padded = np.zeros((ny * th, nx * tw, s), plane.dtype)
-            padded[:h, :w] = plane
-            blocks = [padded[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw] for ty in range(ny) for tx in range(nx)]
-        else:
-            blocks = [plane[y:y + rps] for y in range(0, h, rps)]
-        for b in blocks:
-            rows = b.reshape(b.shape[0], -1)
-            if predictor == 2:
-                rows = predict(rows, s, bps)
-            segments.append(encode(pack_samples(rows, bps, order)))
+    for b in blocks(px, tile=tile, rps=rps, planar=planar):
+        rows = b.reshape(b.shape[0], -1)
+        if predictor == 2:
+            rows = predict(rows, b.shape[2], bps)
+        segments.append(encode(pack_samples(rows, bps, order)))
     code = {"lzw_compat": 5, "deflate_stored": 8}.get(compression, compression)
     tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [bps] * spp), 259: (3, [code]), 277: (3, [spp]),
             284: (3, [2 if planar else 1])}
@@ -423,3 +428,280 @@ def webp_with_alph(rgb: np.ndarray, alpha: np.ndarray, *, method: int = 0, filt:
     alph = bytes([method | filt << 2 | pre << 4]) + payload
     vp8x = struct.pack("<I", 0x10) + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
     return _riff([(b"VP8X", vp8x), (b"ALPH", alph), (b"VP8 ", vp8)])
+
+
+# ---------------------------------------------------------------- libtiff
+
+# codec pseudo-tags (tiff.h)
+TAG_PIXARLOGDATAFMT, TAG_PIXARLOGQUALITY, TAG_SGILOGDATAFMT, TAG_SGILOGENCODE = 65549, 65558, 65560, 65561
+_UINT32_TAGS = {256, 257, 278, 322, 323}
+
+
+def libtiff():
+    """The system's libtiff through ctypes, or None where it does not load."""
+    try:
+        lib = ctypes.CDLL("libtiff.so.6")
+    except OSError:
+        return None
+    vp = ctypes.c_void_p
+    lib.TIFFOpen.restype, lib.TIFFOpen.argtypes = vp, [ctypes.c_char_p, ctypes.c_char_p]
+    for name in ("TIFFWriteEncodedStrip", "TIFFWriteEncodedTile", "TIFFWriteRawStrip", "TIFFWriteRawTile"):
+        f = getattr(lib, name)
+        f.restype, f.argtypes = ctypes.c_ssize_t, [vp, ctypes.c_uint32, vp, ctypes.c_ssize_t]
+    lib.TIFFClose.restype, lib.TIFFClose.argtypes = None, [vp]
+    lib.TIFFSetErrorHandler.restype = vp
+    lib.TIFFSetWarningHandler.restype = vp
+    lib.TIFFSetErrorHandler(None)
+    lib.TIFFSetWarningHandler(None)
+    return lib
+
+
+def libtiff_file(path, tags: dict, segments, *, raw: bool = False, tiled: bool = False, mode: str = "w") -> bool:
+    """Write one image through libtiff: tags {tag: int, or a list for
+    ExtraSamples} set with Compression first (so that its codec's
+    pseudo-tags are known), then each segment's bytes through
+    TIFFWriteEncodedStrip/Tile (the codec encodes them) or, raw, the raw
+    writes. mode: TIFFOpen's ("w", "wb" big-endian, "w8" BigTIFF). False
+    where libtiff refuses a tag or a write."""
+    lib = libtiff()
+    tif = lib.TIFFOpen(str(path).encode(), mode.encode())
+    if not tif:
+        return False
+    ok = True
+    for tag in sorted(tags, key=lambda t: (t != 259, t)):
+        v = tags[tag]
+        if isinstance(v, (list, tuple)):
+            arr = (ctypes.c_uint16 * len(v))(*v)
+            ok &= lib.TIFFSetField(ctypes.c_void_p(tif), ctypes.c_uint32(tag), ctypes.c_int(len(v)), arr) == 1
+        else:
+            val = ctypes.c_uint32(v) if tag in _UINT32_TAGS else ctypes.c_int(v)
+            ok &= lib.TIFFSetField(ctypes.c_void_p(tif), ctypes.c_uint32(tag), val) == 1
+    write = {(False, False): lib.TIFFWriteEncodedStrip, (False, True): lib.TIFFWriteEncodedTile,
+             (True, False): lib.TIFFWriteRawStrip, (True, True): lib.TIFFWriteRawTile}[raw, tiled]
+    for i, seg in enumerate(segments):
+        seg = bytes(seg)
+        buf = ctypes.create_string_buffer(seg, len(seg))
+        ok &= write(tif, i, buf, len(seg)) != -1
+    lib.TIFFClose(tif)
+    return bool(ok)
+
+
+def blocks(px: np.ndarray, *, tile=None, rps: int = 16, planar: bool = False) -> list:
+    """px (H, W, S) cut as libtiff lays out strips (the last one shorter) or
+    tiles (the edges padded with zeros), each plane apart when planar."""
+    h, w = px.shape[:2]
+    planes = [px[..., p:p + 1] for p in range(px.shape[2])] if planar else [px]
+    out = []
+    for plane in planes:
+        if tile:
+            tw, th = tile
+            ny, nx = -(-h // th), -(-w // tw)
+            pad = np.zeros((ny * th, nx * tw) + plane.shape[2:], plane.dtype)
+            pad[:h, :w] = plane
+            out += [pad[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw] for ty in range(ny) for tx in range(nx)]
+        else:
+            out += [plane[y:y + rps] for y in range(0, h, rps)]
+    return out
+
+
+# ---------------------------------------------------------------- NeXT, ThunderScan
+
+def next_row(row: np.ndarray, mode: str) -> bytes:
+    """One row of 2-bit pixels as a NeXT opcode: "literal" (0x00 and the
+    packed row), "span" (0x40, the packed row's bytes that are not white,
+    over white) or "runs" (<grey:2><count:6> bytes)."""
+    packed = pack_samples(row[None], 2, "<")
+    if mode == "literal":
+        return b"\0" + packed
+    if mode == "span":
+        keep = [i for i, b in enumerate(packed) if b != 0xFF] or [0]
+        a, b = keep[0], keep[-1] + 1
+        return b"\x40" + struct.pack(">HH", a, b - a) + packed[a:b]
+    out, i = bytearray(), 0
+    while i < len(row):
+        j = i
+        while j < len(row) and row[j] == row[i] and j - i < 63:
+            j += 1
+        out.append(int(row[i]) << 6 | (j - i))  # counts of 1..63: never the opcodes 0x00 and 0x40
+        i = j
+    return bytes(out)
+
+
+def thunder_row(row: np.ndarray) -> bytes:
+    """One row of 4-bit pixels as ThunderScan codes: runs of the last pixel
+    (never to the row's end: libtiff writes no pixel of a run that fills
+    the row exactly), three 2-bit or two 3-bit deltas where they reach, raw
+    pixels otherwise."""
+    out, last, i, n = bytearray(), 0, 0, len(row)
+    code2, code3 = {0: 0, 1: 1, -1: 3}, {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    while i < n:
+        j = i
+        while j < n - 1 and row[j] == last and j - i < 63:
+            j += 1
+        if j - i >= 2:
+            out.append(j - i)
+            i = j
+            continue
+        seq = [last] + [int(x) for x in row[i:i + 3]]
+        steps = [seq[k + 1] - seq[k] for k in range(len(seq) - 1)]
+        if len(steps) == 3 and all(d in code2 for d in steps):
+            out.append(0x40 | code2[steps[0]] << 4 | code2[steps[1]] << 2 | code2[steps[2]])
+            last, i = seq[3], i + 3
+        elif len(steps) >= 2 and all(d in code3 for d in steps[:2]):
+            out.append(0x80 | code3[steps[0]] << 3 | code3[steps[1]])
+            last, i = seq[2], i + 2
+        else:
+            last = int(row[i])
+            out.append(0xC0 | last)
+            i += 1
+    return bytes(out)
+
+
+# ---------------------------------------------------------------- jbigkit
+
+JBIG_ENCODER = r"""
+#include <stdlib.h>
+#include <string.h>
+#include <jbig.h>
+struct sink { unsigned char* out; long cap, n; };
+static void put(unsigned char* start, size_t len, void* file) {
+  struct sink* s = (struct sink*)file;
+  if (s->n + (long)len <= s->cap) memcpy(s->out + s->n, start, len);
+  s->n += (long)len;
+}
+/* bits: rows of ceil(w / 8) bytes, MSB first, 1 black; yd1: the height the
+   BIH announces (a NEWLEN marker gives h); comment: a COMMENT segment;
+   layers: differential resolution layers (D) */
+long aq_jbig_encode(unsigned char* bits, unsigned long w, unsigned long h, int order, int options,
+                    long l0, int mx, unsigned long yd1, unsigned char* comment, unsigned long comment_len,
+                    int layers, unsigned char* out, long cap) {
+  struct jbg_enc_state e;
+  struct sink s = {out, cap, 0};
+  unsigned char* planes[1] = {bits};
+  jbg_enc_init(&e, w, h, 1, planes, put, &s);
+  if (layers) jbg_enc_layers(&e, layers);
+  jbg_enc_options(&e, order, options, l0, mx, 0);
+  if (yd1) e.yd1 = yd1;
+  if (comment_len) {
+    e.comment = comment;
+    e.comment_len = comment_len;
+  }
+  jbg_enc_out(&e);
+  jbg_enc_free(&e);
+  return s.n <= cap ? s.n : -1;
+}
+"""
+
+
+def jbig_encoder():
+    """A function bits (H, W) of 0/1, order, options, l0, mx, yd1, comment,
+    layers -> a BIE through jbigkit's jbg_enc_options (one plane; yd1 a
+    taller height announced in the BIH and a NEWLEN marker with the true
+    one; a COMMENT segment; layers > 0 differential layers), or None where
+    no compiler or libjbig is here. Built once in the temp
+    directory, under a lock."""
+    tag = hashlib.sha1(JBIG_ENCODER.encode()).hexdigest()[:12]
+    tmp = tempfile.gettempdir()
+    so = os.path.join(tmp, f"aq_jbig_encoder_{tag}.so")
+    with open(os.path.join(tmp, "aq_jbig_encoder.lock"), "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(so):
+                src = os.path.join(tmp, f"aq_jbig_encoder_{tag}.c")
+                with open(src, "w") as f:
+                    f.write(JBIG_ENCODER)
+                built = subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-o", so + ".tmp", src, "-ljbig"],
+                                       capture_output=True)
+                if built.returncode != 0:
+                    return None
+                os.replace(so + ".tmp", so)
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+    lib = ctypes.CDLL(so)
+    lib.aq_jbig_encode.restype = ctypes.c_long
+    lib.aq_jbig_encode.argtypes = [ctypes.c_void_p, ctypes.c_ulong, ctypes.c_ulong, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_long, ctypes.c_int, ctypes.c_ulong, ctypes.c_char_p, ctypes.c_ulong,
+                                   ctypes.c_int, ctypes.c_void_p, ctypes.c_long]
+
+    def encode(bits: np.ndarray, order: int = 3, options: int = 0x1C, l0: int = 0, mx: int = 8, yd1: int = 0,
+               comment: bytes = b"", layers: int = 0) -> bytes:
+        h, w = bits.shape
+        packed = np.ascontiguousarray(np.packbits(bits.astype(np.uint8), axis=1))
+        out = np.zeros(packed.size * 4 + len(comment) + 65536, np.uint8)
+        n = lib.aq_jbig_encode(packed.ctypes.data, w, h, order, options, l0, mx, yd1, comment, len(comment),
+                               layers, out.ctypes.data, out.size)
+        if n <= 0:
+            raise RuntimeError("aq_jbig_encode failed")
+        return out[:n].tobytes()
+
+    return encode
+
+
+def reverse_bits(data: bytes) -> bytes:
+    """Each byte's bits in the other order (libtiff's JBIG strips at
+    FillOrder 1)."""
+    table = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+    return bytes(data).translate(table)
+
+
+# ---------------------------------------------------------------- fixtures
+
+def write_legacy_fixtures(d: str) -> dict:
+    """One small file of each codec and mode a host without libtiff and
+    jbigkit cannot write, under d: name -> path.
+    NeXT (mixed opcodes, min-is-white) and ThunderScan strips written
+    here; PixarLog RGB at 8 bits and grey at 16 bits big-endian, LogL,
+    LogLuv and LogLuv24 through libtiff's encoders; JBIG through libtiff's
+    (its defaults: TPBON, three-line template) and through jbigkit's with
+    the two-line template, AT moves on a periodic pattern, SDRST, a
+    COMMENT and a NEWLEN. tests/data/torch_tiff/ holds them, with
+    pixels.json."""
+    h, w = 64, 96
+    out = {}
+
+    def path(name):
+        out[name] = os.path.join(d, f"{name}.tif")
+        return out[name]
+
+    rng = np.random.default_rng(11)
+    grey2 = np.minimum(image(12, h, w, 1)[..., 0] // 64, 3)
+    grey2[:, 40:60] = 1
+    rows = [next_row(grey2[r], ("literal", "span", "runs")[r % 3]) for r in range(h)]
+    libtiff_file(path("next"), {256: w, 257: h, 258: 2, 259: 32766, 262: 0, 277: 1, 278: 16},
+                 [b"".join(rows[y:y + 16]) for y in range(0, h, 16)], raw=True)
+    grey4 = image(13, h, w, 1)[..., 0] // 16
+    rows = [thunder_row(grey4[r]) for r in range(h)]
+    libtiff_file(path("thunder"), {256: w, 257: h, 258: 4, 259: 32809, 262: 1, 277: 1, 278: 16},
+                 [b"".join(rows[y:y + 16]) for y in range(0, h, 16)], raw=True)
+    rgb = image(14, h, w, 3)
+    libtiff_file(path("pixarlog_rgb8"), {256: w, 257: h, 259: 32909, 262: 2, 277: 3, 278: 16,
+                                         TAG_PIXARLOGDATAFMT: 0},
+                 [np.ascontiguousarray(b).tobytes() for b in blocks(rgb, rps=16)])
+    g16 = image(15, h, w, 1).astype(np.uint16) * 257 + rng.integers(0, 257, (h, w, 1)).astype(np.uint16)
+    libtiff_file(path("pixarlog_grey16_mm"), {256: w, 257: h, 259: 32909, 262: 1, 277: 1, 278: 24,
+                                              TAG_PIXARLOGDATAFMT: 4},
+                 [np.ascontiguousarray(b).tobytes() for b in blocks(g16, rps=24)], mode="wb")
+    lum = (image(16, h, w, 1)[..., 0].astype(np.int16) * 24 + 11000).astype(np.int16)
+    lum24 = (image(16, h, w, 1)[..., 0].astype(np.int16) * 6 + 4500).astype(np.int16)  # LogLuv24's 10-bit range
+    u = (0.17 + image(17, h, w, 1)[..., 0] / 3000.0) * 32768
+    v = (0.43 + image(18, h, w, 1)[..., 0] / 3000.0) * 32768
+    luv = np.stack([lum, u.astype(np.int16), v.astype(np.int16)], -1)
+    luv24 = np.stack([lum24, u.astype(np.int16), v.astype(np.int16)], -1)
+    for name, comp, ph, px in (("sgilog_l16", 34676, 32844, lum[..., None]), ("sgilog_luv32", 34676, 32845, luv),
+                               ("sgilog_luv24", 34677, 32845, luv24)):
+        libtiff_file(path(name), {256: w, 257: h, 259: comp, 262: ph, 277: px.shape[2], 278: 16,
+                                  TAG_SGILOGDATAFMT: 1, TAG_SGILOGENCODE: 0},
+                     [np.ascontiguousarray(b).tobytes() for b in blocks(px, rps=16)])
+    yy, xx = np.mgrid[0:h, 0:w]
+    bits = ((grey2 >= 2) ^ ((xx // 5 + yy // 3) % 7 == 0)).astype(np.uint8)
+    libtiff_file(path("jbig"), {256: w, 257: h, 258: 1, 259: 34661, 262: 0, 277: 1, 278: h},
+                 [np.packbits(bits, axis=1).tobytes()])
+    hj, wj = 128, 256  # AT moves need stripes of a few thousand pixels
+    yy, xx = np.mgrid[0:hj, 0:wj]
+    period = rng.integers(0, 2, (hj, 9)).astype(np.uint8)[yy, xx % 9]
+    bie = jbig_encoder()(period, options=0x40 | 0x20 | 0x08 | 0x200, l0=32, mx=16, yd1=hj + 7,
+                         comment=b"jbigkit 2.1")
+    with open(path("jbig_lrltwo_at_sdrst"), "wb") as f:
+        f.write(tiff_bytes([reverse_bits(bie)], {256: (3, [wj]), 257: (3, [hj]), 258: (3, [1]), 259: (3, [34661]),
+                                                 262: (3, [0]), 277: (3, [1]), 278: (3, [hj])}))
+    return out
