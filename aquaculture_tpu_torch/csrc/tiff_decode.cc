@@ -9,12 +9,18 @@
 // - The codecs, here and linking nothing: none, PackBits (tif_packbits.c),
 //   LZW (tif_lzw.c, with the old-style bit-reversed codes of LZW_COMPAT),
 //   Deflate 8 and 32946 (an RFC 1950/1951 inflate, tif_zip.c's framing,
-//   libdeflate's stopping point), WebP 50001 (webp_decode.cc, tif_webp.c's
-//   framing), NeXT 32766, ThunderScan 32809, PixarLog 32909 (the same
-//   inflate at zlib's stopping point) and SGILog 34676/34677
-//   (tiff_legacy.cc), JBIG 34661 (jbig_decode.cc: jbigkit's decoder, one
-//   layer and one plane); Predictor 2 at 8 and 16 bits (tif_predict.c);
-//   16-bit samples in the host's order after decoding (_TIFFSwab16BitData).
+//   libdeflate 1.14's stopping point and fast-loop overrun), WebP 50001
+//   (webp_decode.cc, tif_webp.c's framing), NeXT 32766, ThunderScan 32809,
+//   PixarLog 32909 (the same inflate at zlib's stopping point) and SGILog
+//   34676/34677 (tiff_legacy.cc), JBIG 34661 (jbig_decode.cc: jbigkit's
+//   decoder, one layer and one plane), ZSTD 50000 (zstd_decode.cc,
+//   tif_zstd.c's loop), LERC 34887 (lerc_decode.cc, tif_lerc.c's checks,
+//   bare or in its Deflate or ZSTD wrapper); Predictor 2 at 8 and 16 bits
+//   (tif_predict.c); 16-bit samples in the host's order after decoding
+//   (_TIFFSwab16BitData).
+// - TIFFReadDirectory's StripByteCounts rules: missing, they are estimated
+//   or the file refused (estimate_counts); short ones repaired, one
+//   uncompressed strip chopped (repair_strips, chop_strip).
 // - tif_getimage.c's checks (TIFFRGBAImageOK, TIFFRGBAImageBegin,
 //   PickContigCase, PickSeparateCase) and its put routines: min-is-black
 //   and min-is-white at 1, 2, 4, 8 and 16 bits, palette at 1, 2, 4 and 8
@@ -34,14 +40,16 @@
 //   and grey as the components are (JCS_UNKNOWN).
 // Routing is by the tags and the data: what the RGBA interface refuses is
 // TIFF_SKIP; what libtiff decodes with a codec this reader does not have
-// (CCITT, old JPEG, LZMA, ZSTD, LERC, and JBIG of several resolution layers
-// or bit planes), or a JPEG layout the kernel does not take (planar, CMYK,
-// alpha, min-is-white), is TIFF_PIL.
+// (CCITT, old JPEG, LZMA, and JBIG of several resolution layers or bit
+// planes), or a JPEG layout the kernel does not take (planar, CMYK, alpha,
+// min-is-white), is TIFF_PIL.
 
 #include "tiff_decode.h"
 #include "jbig_decode.h"
+#include "lerc_decode.h"
 #include "tiff_legacy.h"
 #include "webp_decode.h"
+#include "zstd_decode.h"
 
 #include <algorithm>
 #include <cmath>
@@ -57,7 +65,7 @@ enum Tag : uint16_t {
   TAG_STRIP_COUNTS = 279, TAG_PLANAR = 284, TAG_PREDICTOR = 317, TAG_WHITEPOINT = 318,
   TAG_COLORMAP = 320, TAG_TILE_W = 322, TAG_TILE_H = 323, TAG_TILE_OFFSETS = 324, TAG_TILE_COUNTS = 325,
   TAG_INKSET = 332, TAG_EXTRASAMPLES = 338, TAG_SAMPLEFORMAT = 339, TAG_JPEGTABLES = 347,
-  TAG_YCC_COEFS = 529, TAG_YCC_SUB = 530, TAG_REFBW = 532,
+  TAG_YCC_COEFS = 529, TAG_YCC_SUB = 530, TAG_REFBW = 532, TAG_LERC_PARAMETERS = 50674,
 };
 enum Photometric {
   PH_MINISWHITE = 0, PH_MINISBLACK = 1, PH_RGB = 2, PH_PALETTE = 3, PH_SEPARATED = 5, PH_YCBCR = 6,
@@ -66,15 +74,15 @@ enum Photometric {
 enum Compression {
   CMP_NONE = 1, CMP_LZW = 5, CMP_JPEG = 7, CMP_DEFLATE = 8, CMP_DEFLATE_OLD = 32946, CMP_PACKBITS = 32773,
   CMP_NEXT = 32766, CMP_THUNDER = 32809, CMP_PIXARLOG = 32909, CMP_SGILOG = 34676, CMP_SGILOG24 = 34677,
-  CMP_JBIG = 34661, CMP_WEBP = 50001,
+  CMP_JBIG = 34661, CMP_WEBP = 50001, CMP_LERC = 34887, CMP_LZMA = 34925, CMP_ZSTD = 50000,
 };
 enum Alpha { ALPHA_NONE = 0, ALPHA_ASSOC = 1, ALPHA_UNASSOC = 2 };
 
 // Compressions libtiff 4.5.0 decodes that this reader does not: CCITT
-// (2, 3, 4, RLE-W), old JPEG, LERC, LZMA, ZSTD.
+// (2, 3, 4, RLE-W), old JPEG, LZMA.
 bool pil_compression(int c) {
   switch (c) {
-    case 2: case 3: case 4: case 32771: case 6: case 34887: case 34925: case 50000:
+    case 2: case 3: case 4: case 32771: case 6: case 34925:
       return true;
     default:
       return false;
@@ -98,6 +106,9 @@ struct Ifd {
     uint64_t count = 0, at = kBad;  // at: where the values lie, kBad outside the file
   };
   std::map<int, Entry> tags;
+  uint64_t entries = 0;       // the IFD's entry count
+  uint64_t out_of_line = 0;   // the bytes of the values that do not fit in their entries
+  bool unknown_type = false;  // an entry of a type libtiff has no width for
 
   uint64_t rd(uint64_t o, int size) const {
     uint64_t v = 0;
@@ -123,6 +134,7 @@ struct Ifd {
     if (off < 8 || off > n || n - off < head) return false;
     const uint64_t count = rd(off, int(head));
     if (count == 0 || count > 4096 || (n - off - head) / ent < count) return false;  // tif_dirread.c's sanity limit
+    entries = count;
     for (uint64_t i = 0; i < count; ++i) {
       const uint64_t p = off + head + i * ent;
       const int tag = int(rd(p, 2));
@@ -130,6 +142,8 @@ struct Ifd {
       e.type = int(rd(p + 2, 2));
       e.count = rd(p + 4, big ? 8 : 4);
       const int sz = type_size(e.type);
+      unknown_type |= sz == 0;
+      if (sz && e.count > inl / uint64_t(sz)) out_of_line += std::min<uint64_t>(e.count, uint64_t(1) << 48) * uint64_t(sz);
       if (sz == 0 || e.count > (uint64_t(1) << 40)) continue;  // an unknown type: the tag is ignored
       const uint64_t bytes = e.count * uint64_t(sz), vp = p + (big ? 12 : 8);
       const uint64_t at = bytes <= inl ? vp : rd(vp, int(inl));
@@ -337,10 +351,9 @@ bool lzw_decode(const uint8_t* bp, size_t cc, uint8_t* op, size_t occ, bool comp
   return occ == 0;
 }
 
-// The bits of a deflate stream as libdeflate 1.14 reads them: past the
-// end of its input, zero bytes (up to 8 of them, as its bit buffer's refill
-// allows; the caller checks the limit at each block and symbol). Strict, as
-// zlib reads them: a read past the end stalls the stream instead.
+// The bits of a deflate stream: past the end of its input, zero bytes (as
+// libdeflate reads them; Libdeflate below counts them against its limit),
+// or strict, as zlib reads them: a read past the end stalls the stream.
 struct Inflate {
   const uint8_t* p;
   const uint8_t* end;
@@ -403,16 +416,15 @@ struct Inflate {
     return true;
   }
 
-  // A symbol, or -2 for a code outside the set (strict: found as zlib finds
-  // it, after the longest code's bits; a set of no codes takes one bit).
+  // A symbol, or -2 for a code outside the set, found as zlib finds it:
+  // after the longest code's bits; a set of no codes takes one bit.
   int decode(const Huffman& h) {
-    if (strict && h.empty) {
+    if (h.empty) {
       bits(1);
       return -2;
     }
     int code = 0, first = 0, index = 0;
-    const int top = strict ? h.maxlen : 15;
-    for (int len = 1; len <= top; ++len) {
+    for (int len = 1; len <= h.maxlen; ++len) {
       code |= bits(1);
       const int count = h.count[len];
       if (code - count < first) return h.symbol[index + (code - first)];
@@ -425,6 +437,283 @@ struct Inflate {
   }
 };
 
+// libdeflate 1.14's libdeflate_zlib_decompress(_ex) on x86-64, as tif_zip.c
+// and tif_lerc.c call it. Its bit reader and the points where it refills
+// (REFILL_BITS: past the data it reads zero bytes, and fails on the ninth),
+// its decode tables' rules (an empty code reads as symbol 0, one code of
+// length 1 takes both codewords, any other incomplete code fails; no
+// end-of-block code is required; litlen 286-287 and offsets 30-31 read as
+// their neighbours), and its fast loop: while the input is 25 bytes from
+// its end and the output 299, it decodes in iterations of up to three
+// literals or two and a match, and copies a match by whole words past its
+// end (libdeflate's intentional overrun). Where the stream then fails,
+// those bytes stay in the output as libtiff's buffer keeps them.
+enum LdResult { LD_SUCCESS = 0, LD_BAD_DATA = 1, LD_SHORT_OUTPUT = 2, LD_INSUFFICIENT_SPACE = 3 };
+
+struct Libdeflate {
+  Inflate s;
+  uint64_t kd = 0, L = 0, ovr = 0;  // the data's bytes; bytes loaded into the bit buffer; zero bytes past the data
+
+  uint64_t bitsleft() const { return 8 * (L + ovr) - s.used; }
+  // REFILL_BITS: whole words while 8 bytes remain, else a byte at a time
+  bool refill() {
+    if (kd - L >= 8) {
+      L = (s.used + 7) / 8 + 7;
+      return true;
+    }
+    while (bitsleft() < 56) {
+      if (L < kd) ++L;
+      else if (++ovr > 8) return false;
+    }
+    return true;
+  }
+
+  struct Code {
+    Inflate::Huffman h;
+    int single = -1;  // an empty code (symbol 0) or one code of length 1: every codeword its symbol
+  };
+  static bool build(Code* c, const uint8_t* len, int n) {
+    Inflate::Huffman& h = c->h;
+    std::fill(h.count, h.count + 16, 0);
+    for (int i = 0; i < n; ++i) h.count[len[i]]++;
+    int left = 1, used = 0;
+    for (int l = 1; l < 16; ++l) {
+      left <<= 1;
+      left -= h.count[l];
+      if (left < 0) return false;
+      used += h.count[l];
+    }
+    c->single = -1;
+    if (left > 0) {
+      if (used == 0) {
+        c->single = 0;
+        return true;
+      }
+      if (used != 1 || h.count[1] != 1) return false;
+      for (int i = 0; i < n; ++i)
+        if (len[i]) c->single = i;
+      return true;
+    }
+    int16_t offs[16];
+    offs[1] = 0;
+    for (int l = 1; l < 15; ++l) offs[l + 1] = int16_t(offs[l] + h.count[l]);
+    for (int i = 0; i < n; ++i)
+      if (len[i]) h.symbol[offs[len[i]]++] = int16_t(i);
+    return true;
+  }
+  // a symbol of a built code; *bits its codeword's length
+  int decode(const Code& c, int* bits) {
+    if (c.single >= 0) {
+      s.bits(1);
+      *bits = 1;
+      return c.single;
+    }
+    int code = 0, first = 0, index = 0;
+    for (int l = 1; l < 16; ++l) {
+      code |= s.bits(1);
+      const int count = c.h.count[l];
+      if (code - count < first) {
+        *bits = l;
+        return c.h.symbol[index + (code - first)];
+      }
+      index += count;
+      first += count;
+      first <<= 1;
+      code <<= 1;
+    }
+    return -1;  // not reached: a complete code decodes every codeword
+  }
+
+  // The deflate data of kd bytes at data into out[0, occ): *got the bytes
+  // written by sequential output (the overrun aside).
+  int run(const uint8_t* data, uint64_t n, uint8_t* out, size_t occ, size_t* got_ret) {
+    static const uint16_t kLenBase[31] = {3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
+                                          35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258, 258, 258};
+    static const uint8_t kLenExtra[31] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2,
+                                          3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0, 0, 0};
+    static const uint16_t kDistBase[32] = {1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193,
+                                           257, 385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145,
+                                           8193, 12289, 16385, 24577, 24577, 24577};
+    static const uint8_t kDistExtra[32] = {0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6,
+                                           7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13, 13, 13};
+    s = Inflate{data, data + n};
+    kd = n;
+    L = ovr = 0;
+    const uint64_t in_fast_end = kd - std::min<uint64_t>(kd, 25);  // FASTLOOP_MAX_BYTES_READ
+    const size_t out_fast_end = occ - std::min<size_t>(occ, 299);   // FASTLOOP_MAX_BYTES_WRITTEN
+    size_t got = 0;
+    Code lit, dist;
+    bool last = false;
+    auto word = [&](size_t dst, size_t src) {
+      uint64_t w;
+      std::memcpy(&w, out + src, 8);
+      std::memcpy(out + dst, &w, 8);
+    };
+    while (!last) {
+      if (!refill()) return LD_BAD_DATA;
+      last = s.bits(1) != 0;
+      const int type = s.bits(2);
+      if (type == 0) {  // stored: realigned to the byte after the header
+        const uint64_t at = (s.used + 7) / 8;
+        if (at > kd || kd - at < 4) return LD_BAD_DATA;
+        const unsigned len = data[at] | data[at + 1] << 8, nlen = data[at + 2] | data[at + 3] << 8;
+        if (len != (~nlen & 0xFFFF)) return LD_BAD_DATA;
+        if (len > occ - got) return LD_INSUFFICIENT_SPACE;
+        if (len > kd - at - 4) return LD_BAD_DATA;
+        std::memcpy(out + got, data + at + 4, len);
+        got += len;
+        L = at + 4 + len;
+        ovr = 0;
+        s.p = data + L;
+        s.bitbuf = 0;
+        s.bitcnt = 0;
+        s.used = 8 * L;
+        continue;
+      }
+      if (type == 3) return LD_BAD_DATA;
+      uint8_t lens[320 + 138] = {};
+      int nlen = 288, ndist = 32;
+      if (type == 1) {
+        int i = 0;
+        for (; i < 144; ++i) lens[i] = 8;
+        for (; i < 256; ++i) lens[i] = 9;
+        for (; i < 280; ++i) lens[i] = 7;
+        for (; i < 288; ++i) lens[i] = 8;
+        for (i = 0; i < 32; ++i) lens[288 + i] = 5;
+      } else {
+        nlen = s.bits(5) + 257;
+        ndist = s.bits(5) + 1;
+        const int ncode = s.bits(4) + 4;
+        static const uint8_t kOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15};
+        uint8_t pre[19] = {};
+        pre[kOrder[0]] = uint8_t(s.bits(3));
+        if (!refill()) return LD_BAD_DATA;
+        for (int i = 1; i < ncode; ++i) pre[kOrder[i]] = uint8_t(s.bits(3));
+        Code precode;
+        if (!build(&precode, pre, 19)) return LD_BAD_DATA;
+        int i = 0;
+        while (i < nlen + ndist) {
+          if (bitsleft() < 14 && !refill()) return LD_BAD_DATA;
+          int bits;
+          const int sym = decode(precode, &bits);
+          if (sym < 16) {
+            lens[i++] = uint8_t(sym);
+            continue;
+          }
+          if (sym == 16 && i == 0) return LD_BAD_DATA;
+          const int rep = sym == 16 ? 3 + s.bits(2) : sym == 17 ? 3 + s.bits(3) : 11 + s.bits(7);
+          const uint8_t v = sym == 16 ? lens[i - 1] : 0;
+          for (int k = 0; k < rep; ++k) lens[i++] = v;  // a run past the last length is ignored
+        }
+        std::memmove(lens + 288, lens + nlen, size_t(ndist));
+      }
+      if (!build(&dist, lens + 288, ndist) || !build(&lit, lens, nlen)) return LD_BAD_DATA;
+      // the fast loop
+      bool block_done = false;
+      if (L < in_fast_end && got < out_fast_end) {
+        L = (s.used + 7) / 8 + 7;
+        do {
+          int bits, sym = decode(lit, &bits);
+          if (sym < 0) return LD_BAD_DATA;
+          for (int k = 0; k < 3 && sym < 256 && bits <= 11; ++k) {  // up to three fast literals
+            out[got++] = uint8_t(sym);
+            if (k == 2) {
+              sym = -1;
+              break;
+            }
+            sym = decode(lit, &bits);
+          }
+          if (sym >= 0) {
+            if (sym < 256) {  // a literal through a subtable
+              out[got++] = uint8_t(sym);
+            } else if (sym == 256) {
+              block_done = true;
+              break;
+            } else {
+              sym -= 257;
+              const size_t len = size_t(kLenBase[sym] + s.bits(kLenExtra[sym]));
+              const int ds = decode(dist, &bits);
+              const size_t d = size_t(kDistBase[ds] + s.bits(kDistExtra[ds]));
+              if (d > got) return LD_BAD_DATA;
+              size_t dst = got, src = got - d;
+              const size_t end = got + len;
+              if (d >= 8) {
+                do {
+                  for (int k = 0; k < 5; ++k, dst += 8, src += 8) word(dst, src);
+                } while (dst < end);
+              } else if (d == 1) {
+                const uint8_t v = out[src];
+                do {
+                  std::memset(out + dst, v, 32);
+                  dst += 32;
+                } while (dst < end);
+              } else {
+                word(dst, src);
+                dst += d, src += d;
+                word(dst, src);
+                dst += d, src += d;
+                do {
+                  word(dst, src);
+                  dst += d, src += d;
+                  word(dst, src);
+                  dst += d, src += d;
+                } while (dst < end);
+              }
+              got = end;
+            }
+          }
+          L = (s.used + 7) / 8 + 7;
+        } while (L < in_fast_end && got < out_fast_end);
+      }
+      // the generic loop
+      while (!block_done) {
+        if (!refill()) return LD_BAD_DATA;
+        int bits, sym = decode(lit, &bits);
+        if (sym < 256) {
+          if (got == occ) return LD_INSUFFICIENT_SPACE;
+          out[got++] = uint8_t(sym);
+          continue;
+        }
+        if (sym == 256) break;
+        sym -= 257;
+        const size_t len = size_t(kLenBase[sym] + s.bits(kLenExtra[sym]));
+        if (len > occ - got) return LD_INSUFFICIENT_SPACE;
+        const int ds = decode(dist, &bits);
+        const size_t d = size_t(kDistBase[ds] + s.bits(kDistExtra[ds]));
+        if (d > got) return LD_BAD_DATA;
+        for (size_t k = 0; k < len; ++k, ++got) out[got] = out[got - d];
+      }
+    }
+    if ((s.used + 7) / 8 > kd) return LD_BAD_DATA;  // a zero byte past the data consumed
+    *got_ret = got;
+    return LD_SUCCESS;
+  }
+};
+
+// libdeflate_zlib_decompress_ex(d, src, cc, out, occ, NULL, produced): with
+// produced null, all of occ must come out (tif_zip.c); else up to occ may
+// (tif_lerc.c), *produced the bytes.
+int libdeflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, size_t* produced) {
+  if (cc < 6) return LD_BAD_DATA;
+  const int cmf = src[0], flg = src[1];
+  if ((cmf * 256 + flg) % 31 != 0 || (cmf & 15) != 8 || (cmf >> 4) > 7 || (flg & 0x20)) return LD_BAD_DATA;
+  Libdeflate ld;
+  size_t got = 0;
+  const int r = ld.run(src + 2, cc - 6, out, occ, &got);
+  if (r != LD_SUCCESS) return r;
+  if (!produced && got != occ) return LD_SHORT_OUTPUT;
+  uint32_t a = 1, b = 0;
+  for (size_t i = 0; i < got; ++i) {
+    a = (a + out[i]) % 65521;
+    b = (b + a) % 65521;
+  }
+  const uint8_t* q = src + 2 + (ld.s.used + 7) / 8;
+  const uint32_t want = uint32_t(q[0]) << 24 | uint32_t(q[1]) << 16 | uint32_t(q[2]) << 8 | q[3];
+  if ((b << 16 | a) != want) return LD_BAD_DATA;
+  if (produced) *produced = got;
+  return LD_SUCCESS;
+}
+
 }  // namespace
 
 // tif_zip.c 4.5.0 decodes a whole strip or tile through
@@ -432,11 +721,8 @@ struct Inflate {
 // fills occ bytes, either ending there with its checksum right or going on
 // past them (LIBDEFLATE_INSUFFICIENT_SPACE, which libtiff accepts; the
 // literal, match or stored block that does not fit is not written); else
-// false, what came out staying in out. libdeflate takes the deflate data as
-// all but the last four bytes (the checksum's place), reads zeros past them,
-// and fails at the refill before a block or symbol that starts more than one
-// byte past them: on a stream cut short, the symbols that start up to there
-// are written, zeros and all; a stored block that runs past them is not.
+// false, what came out staying in out, the fast loop's overrun included
+// (Libdeflate above).
 //
 // tif_pixarlog.c calls zlib's inflate() until occ bytes are out
 // (INFLATE_ZLIB): the data are all cc bytes; a stream whose data end, that
@@ -445,14 +731,16 @@ struct Inflate {
 // (an invalid code or distance, a block header, a wrong Adler-32 at the
 // stream's end) still fails it, and nothing past it is read.
 bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int as) {
-  const bool zl = as == INFLATE_ZLIB;
-  if (cc < (zl ? 2u : 6u)) return false;
+  if (as == INFLATE_LIBDEFLATE) {
+    const int r = libdeflate_zlib(src, cc, out, occ, nullptr);
+    return r == LD_SUCCESS || r == LD_INSUFFICIENT_SPACE;
+  }
+  if (cc < 2) return false;
   const int cmf = src[0], flg = src[1];
   if ((cmf & 15) != 8 || (cmf >> 4) > 7 || (cmf * 256 + flg) % 31 != 0 || (flg & 0x20)) return false;
-  const size_t kd = zl ? cc - 2 : cc - 6;
-  const uint64_t limit = 8 * uint64_t(kd) + 8;  // the last bit a refill may start from
+  const size_t kd = cc - 2;
   Inflate s{src + 2, src + 2 + kd};
-  s.strict = zl;
+  s.strict = true;
   size_t got = 0;
   static const int16_t kLenBase[29] = {3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
                                        35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258};
@@ -466,27 +754,20 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int a
   Inflate::Huffman lit, dist;
   bool last = false;
   while (!last) {
-    if (!zl && s.used > limit) return false;
     last = s.bits(1) != 0;
     const int type = s.bits(2);
     if (s.stalled) return got == occ;
     if (type == 0) {  // stored: aligned to a byte of the input
       const uint64_t at = (s.used + 7) / 8;
-      if (at > kd || kd - at < 4) return zl && got == occ;
+      if (at > kd || kd - at < 4) return got == occ;
       const uint8_t* q = src + 2 + at;
       const unsigned len = q[0] | q[1] << 8, nlen = q[2] | q[3] << 8;
       if (len != (~nlen & 0xFFFF)) return false;
-      if (zl) {  // copied as far as the data and the room go
-        const size_t n = std::min<size_t>({len, size_t(kd - at - 4), occ - got});
-        std::memcpy(out + got, q + 4, n);
-        got += n;
-        if (n < len) return got == occ;
-      } else {  // all of it there
-        if (len > occ - got) return true;  // more output than occ: accepted
-        if (len > kd - at - 4) return false;
-        std::memcpy(out + got, q + 4, len);
-        got += len;
-      }
+      // copied as far as the data and the room go
+      const size_t n = std::min<size_t>({len, size_t(kd - at - 4), occ - got});
+      std::memcpy(out + got, q + 4, n);
+      got += n;
+      if (n < len) return got == occ;
       s.p = q + 4 + len;
       s.bitbuf = 0;
       s.bitcnt = 0;
@@ -513,20 +794,18 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int a
       for (int i = 0; i < ncode; ++i) lengths[kOrder[i]] = uint8_t(s.bits(3));
       if (s.stalled) return got == occ;
       Inflate::Huffman lencode;
-      if (!Inflate::build(&lencode, lengths, 19, true, zl)) return false;
+      if (!Inflate::build(&lencode, lengths, 19, true, true)) return false;
       int index = 0;
       uint8_t all[320] = {};
       while (index < nlen + ndist) {
-        if (!zl && s.used > limit) return false;
         int sym = s.decode(lencode);
-        if (zl && lencode.empty) sym = 0;  // zlib's table of no codes reads as lengths of 0
+        if (lencode.empty) sym = 0;  // zlib's table of no codes reads as lengths of 0
         if (s.stalled) return got == occ;
         if (sym < 0) return false;
         if (sym < 16) {
           all[index++] = uint8_t(sym);
           continue;
         }
-        if (sym == 16 && index == 0 && !zl) return false;
         const int rep = sym == 16 ? 3 + s.bits(2) : sym == 17 ? 3 + s.bits(3) : 11 + s.bits(7);
         if (s.stalled) return got == occ;
         if (sym == 16 && index == 0) return false;  // zlib reads the count first
@@ -539,12 +818,11 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int a
         return false;
     }
     while (true) {
-      if (!zl && s.used > limit) return false;
       int sym = s.decode(lit);
       if (s.stalled) return got == occ;
       if (sym < 0) return false;
       if (sym < 256) {
-        if (got == occ) return true;  // more output than occ: accepted
+        if (got == occ) return true;  // the next byte it would write
         out[got++] = uint8_t(sym);
         continue;
       }
@@ -553,7 +831,6 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int a
       if (sym >= 29) return false;
       const size_t len = size_t(kLenBase[sym] + s.bits(kLenExtra[sym]));
       if (s.stalled) return got == occ;
-      if (!zl && len > occ - got) return true;  // more output than occ: accepted, the match unwritten
       const int ds = s.decode(dist);
       if (s.stalled) return got == occ;
       if (ds < 0 || ds >= 30) return false;
@@ -565,11 +842,10 @@ bool inflate_zlib(const uint8_t* src, size_t cc, uint8_t* out, size_t occ, int a
       if (n < len) return true;
     }
   }
-  // the Adler-32 of the output, big-endian, from the next whole byte (zlib:
-  // where all four bytes are there); libdeflate also wants no zero byte
-  // consumed and all of occ
+  // the Adler-32 of the output, big-endian, from the next whole byte, where
+  // all four bytes are there
   const uint64_t at = (s.used + 7) / 8;
-  if (zl ? at > kd || kd - at < 4 : at > kd || got != occ) return zl && got == occ;
+  if (at > kd || kd - at < 4) return got == occ;
   uint32_t a = 1, b = 0;
   for (size_t i = 0; i < got; ++i) {
     a = (a + out[i]) % 65521;
@@ -616,7 +892,7 @@ struct Image {
   uint32_t width = 0, height = 0;
   int bps = 1, spp = 1, compression = 1, photometric = -1, fillorder = 1, orientation = 1, planar = 1;
   int predictor = 1, inkset = 1, sampleformat = 1;
-  int extras = 0, sampleinfo0 = 0;
+  int extras = 0, sampleinfo0 = 0, sampleinfo_last = 0;
   uint64_t rps = 0xFFFFFFFFu;
   bool tiled = false;
   uint32_t tw = 0, th = 0;
@@ -630,6 +906,9 @@ struct Image {
   std::vector<uint8_t> webp_buf;  // tif_webp.c's buffer for segments not read whole
   std::vector<uint16_t> pixar_buf;  // tif_pixarlog.c's buffer of 11-bit words
   int sgilog = SGILOG_L16;          // the SGILog row decoder (LogLuvSetupDecode)
+  int lerc_add = 0, lerc_dt = 0;    // LercParameters' additional compression; GetLercDataType
+  uint64_t lerc_alloc = 0;          // tif_lerc.c's compressed_size: it only grows
+  bool fill_failed = false;         // the last decode failed in TIFFFillStrip: its buffer untouched
 
   // libtiff's sizes (tif_strip.c, tif_tile.c)
   bool ycc_blocks() const { return photometric == PH_YCBCR && spp == 3 && contig_layout(); }
@@ -677,9 +956,64 @@ struct Image {
     return compression == CMP_NONE && fillorder == 1 && !(bps == 16 && !ifd->le) && counts[seg] >= occ;
   }
 
+  // tif_lerc.c 4.5.0's LERCPreDecode and LERCDecode of segment seg: the
+  // blob (after its Deflate or Zstandard wrapper, into a buffer of
+  // tif_lerc.c's size) held to the segment (lerc_getBlobInfo: type, depth,
+  // columns, rows, one band, its size), decoded, and where one 8-bit
+  // unassociated alpha sample ends a contiguous pixel and the blob's depth
+  // leaves it out, rebuilt from Lerc's mask as 255 * valid. A failure there
+  // is TIFFFillStrip's (fill_failed); occ past the segment, LERCDecode's.
+  bool lerc(size_t seg, const uint8_t* raw, size_t cc, uint8_t* out, uint64_t occ) {
+    fill_failed = true;
+    const uint64_t row0 = tiled ? 0 : (seg % strips_per_plane()) * rows_per_strip();
+    const uint32_t sw = tiled ? tw : width;
+    const uint32_t sh = tiled ? th : uint32_t(std::min<uint64_t>(rows_per_strip(), height - row0));
+    const bool contig = planar == 1;
+    const uint64_t size = uint64_t(sw) * sh * uint64_t(bps / 8) * (contig ? uint64_t(spp) : 1);
+    const uint64_t zstd_bound = size + (size >> 8) + (size < (128u << 10) ? ((128u << 10) - size) >> 11 : 0);
+    const uint64_t alloc = std::max<uint64_t>(256 + size + size / 3, zstd_bound);
+    if (alloc > 0xFFFFFFFFu) return false;  // "Too large uncompressed strip/tile"
+    const uint8_t* blob = raw;
+    size_t blen = cc;
+    std::vector<uint8_t> unwrapped;
+    if (lerc_add != 0) {
+      lerc_alloc = std::max(lerc_alloc, alloc);
+      unwrapped.resize(size_t(lerc_alloc));
+      if (lerc_add == 1) {  // libdeflate_zlib_decompress, its actual size asked for
+        if (libdeflate_zlib(raw, cc, unwrapped.data(), unwrapped.size(), &blen) != LD_SUCCESS) return false;
+      } else {  // ZSTD_decompress
+        const int64_t got = zstd_decompress(raw, cc, unwrapped.data(), unwrapped.size());
+        if (got < 0) return false;
+        blen = size_t(got);
+      }
+      blob = unwrapped.data();
+    }
+    LercInfo info;
+    if (!lerc_info(blob, blen, &info)) return false;
+    const bool use_mask = contig && extras > 0 && sampleinfo_last == ALPHA_UNASSOC && lerc_dt == 1 &&
+                          info.depth == spp - 1;
+    const int ndims = contig ? spp - (use_mask ? 1 : 0) : 1;
+    if (info.data_type != lerc_dt || info.depth != ndims || uint32_t(info.cols) != sw || uint32_t(info.rows) != sh ||
+        info.bands != 1 || info.blob_size != blen)
+      return false;
+    std::vector<uint8_t> px(static_cast<size_t>(size)), mask(use_mask ? size_t(sw) * sh : 0);
+    if (!lerc_decode(blob, blen, ndims, int(sw), int(sh), lerc_dt, px.data(), use_mask ? mask.data() : nullptr))
+      return false;
+    fill_failed = false;
+    if (use_mask)  // the samples moved up, from the last pixel down
+      for (size_t i = size_t(sw) * sh; i-- > 0;) {
+        std::memmove(px.data() + i * size_t(spp), px.data() + i * size_t(spp - 1), size_t(spp - 1));
+        px[i * size_t(spp) + size_t(spp) - 1] = uint8_t(255 * mask[i]);
+      }
+    if (occ > size) return false;  // "Too many bytes read"
+    std::memcpy(out, px.data(), size_t(occ));
+    return true;
+  }
+
   // Decode segment seg into out[0, occ) (rowbytes a row, for the
   // predictor). False where libtiff's decode fails: what was written stays.
   bool decode(size_t seg, uint8_t* out, uint64_t occ, uint64_t rowbytes) {
+    fill_failed = false;
     const uint8_t* raw = ifd->d + offsets[seg];
     const size_t cc = size_t(counts[seg]);
     std::vector<uint8_t> flipped;
@@ -707,6 +1041,12 @@ struct Image {
       case CMP_DEFLATE:
       case CMP_DEFLATE_OLD:
         ok = inflate_zlib(raw, cc, out, size_t(occ), INFLATE_LIBDEFLATE);
+        break;
+      case CMP_ZSTD:
+        ok = zstd_tiff_decode(raw, cc, out, size_t(occ));
+        break;
+      case CMP_LERC:
+        ok = lerc(seg, raw, cc, out, occ);
         break;
       case CMP_WEBP: {  // TWebPPreDecode's segment size: a last strip's rows
         const uint64_t row0 = tiled ? 0 : (seg % strips_per_plane()) * rows_per_strip();
@@ -1101,7 +1441,9 @@ int choose(Image* im, Converter* cv) {
   if (ph == PH_RGB && cc < 3) return TIFF_SKIP;
   if (ph == PH_YCBCR && im->planar == 1 && im->compression == CMP_JPEG) ph = PH_RGB;  // JPEGCOLORMODE_RGB
   if (im->compression == CMP_JPEG) return TIFF_JPEG;  // the segments decide (read_jpeg)
-  if (pil_compression(im->compression)) return TIFF_PIL;
+  // a compression left to PIL still takes libtiff's refusals: its put
+  // routine and its predictor
+  const bool pil = pil_compression(im->compression);
   // setup and pre-decode refusals fail every segment's TIFFFillStrip, the
   // first one's failing the image
   switch (im->compression) {
@@ -1137,6 +1479,14 @@ int choose(Image* im, Converter* cv) {
     default:
       break;
   }
+  if (im->compression == CMP_LERC) {
+    // GetLercDataType (8 or 16 bits, unsigned or signed) and an additional
+    // compression tif_lerc.c handles: else every segment's pre-decode fails
+    const int sf = im->sampleformat;
+    if ((sf != 1 && sf != 2) || (im->bps != 8 && im->bps != 16) || im->lerc_add < 0 || im->lerc_add > 2)
+      return TIFF_SKIP;
+    im->lerc_dt = (im->bps == 8 ? 0 : 2) + (sf == 1 ? 1 : 0);
+  }
   if (im->compression == CMP_WEBP) {
     // TWebPSetupDecode (3 or 4 samples; 8 bits, or unsigned samples of any
     // size) and TWebPPreDecode (segments of at most 16383 x 16383) fail
@@ -1148,7 +1498,8 @@ int choose(Image* im, Converter* cv) {
   // a scheme outside libtiff's codec table gets its default state: the
   // image reads, every segment's decode fails (a zeroed buffer put)
   const int c = im->compression;
-  const bool predicting = c == CMP_LZW || c == CMP_DEFLATE || c == CMP_DEFLATE_OLD || c == CMP_PIXARLOG;
+  const bool predicting = c == CMP_LZW || c == CMP_DEFLATE || c == CMP_DEFLATE_OLD || c == CMP_PIXARLOG ||
+                          c == CMP_LZMA || c == CMP_ZSTD;
   if (predicting && im->predictor != 1 && !(im->predictor == 2 && (im->bps == 8 || im->bps == 16)))
     return TIFF_SKIP;  // PredictorSetup refuses: every segment fails
   if (!predicting) im->predictor = 1;  // no predictor on the other codecs
@@ -1252,7 +1603,7 @@ int choose(Image* im, Converter* cv) {
     cv->lab.init(white.data());
   }
   cv->put = put;
-  return put == PUT_NONE ? TIFF_SKIP : TIFF_RASTER;
+  return put == PUT_NONE ? TIFF_SKIP : pil ? TIFF_PIL : TIFF_RASTER;
 }
 
 // gtStripContig / gtTileContig / gtStripSeparate / gtTileSeparate into
@@ -1293,14 +1644,15 @@ bool get_image(Image* im, const Converter& cv, uint8_t* rgb) {
         if (!have) {
           if (!im->readable(s)) return false;
           buf.assign(size_t(seg_bytes), 0);
-          have = true;
           src = buf.data();
         }
         if (im->readable(s)) {
           if (im->stored(s, occ)) src = im->ifd->d + im->offsets[s];  // as decoded, read in place
           // an uncompressed segment that fails writes nothing: the last one stays
           else if (im->decode(s, buf.data(), occ, rowbytes) || im->compression != CMP_NONE) src = buf.data();
+          if (!have && im->fill_failed) return false;  // no buffer yet: the image fails
         }
+        have = true;
         cv.contig(cp, cstride, npix, nrow, fromskew, src);
       } else {
         // planes 0 .. colorchannels - 1, then the alpha (or K) plane at 3 x size
@@ -1310,7 +1662,7 @@ bool get_image(Image* im, const Converter& cv, uint8_t* rgb) {
           if (!im->readable(s0)) return false;
           buf.assign(size_t((alpha ? 4 : 3) * size), 0);
           have = true;
-          im->decode(s0, buf.data(), occ, rowbytes);
+          if (!im->decode(s0, buf.data(), occ, rowbytes) && im->fill_failed) return false;
         } else if (im->readable(s0)) {
           im->decode(s0, buf.data(), occ, rowbytes);
         }
@@ -1333,23 +1685,11 @@ bool get_image(Image* im, const Converter& cv, uint8_t* rgb) {
   return true;
 }
 
-// tif_dirread.c on uncompressed strips, which changes only what a short or
-// mislabelled file reads: byte counts it takes for wrong recomputed from
-// the image's size (ByteCountLooksBad for one strip; differing first two
-// counts for several), then one strip chopped into strips of about 8 KiB
-// (ChopUpSingleUncompressedStrip), each read on its own.
-void repair_strips(Image* im) {
+// ChopUpSingleUncompressedStrip: one contiguous uncompressed strip read as
+// strips of about 8 KiB.
+void chop_strip(Image* im) {
   auto& counts = im->counts;
   auto& offsets = im->offsets;
-  const uint64_t n = im->ifd->n, line = im->scanline();
-  if (counts.size() == 1) {
-    const uint64_t off = offsets[0], cnt = counts[0];
-    const bool bad = off != 0 && (cnt == 0 || (off <= n && cnt > n - off) || cnt < line * im->height);
-    if (bad) counts[0] = line * im->height;
-  } else if (im->planar == 1 && counts.size() > 2 && counts[0] != counts[1] && counts[0] != 0 && counts[1] != 0) {
-    const uint64_t rows = im->height / im->strips_per_plane();
-    for (auto& c : counts) c = line * rows;
-  }
   if (counts.size() != 1 || im->planar != 1) return;
   const uint32_t block = im->ycc_blocks() ? uint32_t(im->ycc_v) : 1;
   const uint64_t block_bytes = im->strip_bytes(block);
@@ -1370,6 +1710,58 @@ void repair_strips(Image* im) {
     left -= bytes;
   }
   im->rps = rows;
+}
+
+// tif_dirread.c on uncompressed strips, which changes only what a short or
+// mislabelled file reads: byte counts it takes for wrong recomputed from
+// the image's size (ByteCountLooksBad for one strip; differing first two
+// counts for several), then one strip chopped into strips of about 8 KiB
+// (ChopUpSingleUncompressedStrip), each read on its own.
+void repair_strips(Image* im) {
+  auto& counts = im->counts;
+  auto& offsets = im->offsets;
+  const uint64_t n = im->ifd->n, line = im->scanline();
+  if (counts.size() == 1) {
+    const uint64_t off = offsets[0], cnt = counts[0];
+    const bool bad = off != 0 && (cnt == 0 || (off <= n && cnt > n - off) || cnt < line * im->height);
+    if (bad) counts[0] = line * im->height;
+  } else if (im->planar == 1 && counts.size() > 2 && counts[0] != counts[1] && counts[0] != 0 && counts[1] != 0) {
+    const uint64_t rows = im->height / im->strips_per_plane();
+    for (auto& c : counts) c = line * rows;
+  }
+  chop_strip(im);
+}
+
+// TIFFReadDirectory without StripByteCounts (TileByteCounts): a
+// contiguous image of several segments (compressed or not), or planes whose
+// segments are not one a sample, is MissingRequired (false: the file does
+// not open); else EstimateStripByteCounts: a compressed image's segments
+// each the file less its header and directory (a plane's share of it),
+// the last clipped to the file; an uncompressed one's a tile, or its rows.
+// One uncompressed strip is then chopped as a counted one is.
+bool estimate_counts(Image* im) {
+  const Ifd& f = *im->ifd;
+  const uint64_t segs = im->offsets.size();
+  if ((im->planar == 1 && segs > 1) || (im->planar == 2 && segs != uint64_t(im->spp)))
+    return false;
+  uint64_t each;
+  if (im->compression != CMP_NONE) {
+    if (f.unknown_type) return false;  // "Cannot determine size of unknown tag type"
+    const uint64_t space = (f.big ? 16 + 8 + f.entries * 20 + 8 : 8 + 2 + f.entries * 12 + 4) + f.out_of_line;
+    each = f.n < space ? f.n : f.n - space;
+    if (im->planar == 2) each /= uint64_t(im->spp);
+  } else if (im->tiled) {
+    each = im->tile_bytes();
+  } else {
+    each = im->scanline() * (im->height / im->strips_per_plane());
+  }
+  im->counts.assign(size_t(segs), each);
+  if (im->compression != CMP_NONE) {
+    const uint64_t last = im->offsets.back();
+    if (last > f.n || each > f.n - last) im->counts.back() = last >= f.n ? 0 : f.n - last;
+  }
+  if (!im->tiled && im->compression == CMP_NONE) chop_strip(im);
+  return true;
 }
 
 // Read the tags libtiff's RGBA interface reads. False where TIFFOpen
@@ -1412,6 +1804,7 @@ bool read_fields(const Ifd& f, Image* im) {
     }
     im->extras = int(v.size());
     im->sampleinfo0 = int(v[0]);
+    im->sampleinfo_last = int(v.back());
   }
   // tif_dirread.c: channels past the photometric's colours are extra samples
   static const std::map<int, int> kColours = {{PH_MINISWHITE, 1}, {PH_MINISBLACK, 1}, {PH_PALETTE, 1},
@@ -1421,9 +1814,12 @@ bool read_fields(const Ifd& f, Image* im) {
     auto it = kColours.find(im->photometric >= 0 ? im->photometric : PH_MINISWHITE);
     if (it != kColours.end() && im->spp - im->extras > it->second) {
       if (im->extras == 0) im->sampleinfo0 = 0;
+      im->sampleinfo_last = 0;  // the samples added are unspecified
       im->extras = im->spp - it->second;
     }
   }
+  if (im->compression == CMP_LERC && f.uints(TAG_LERC_PARAMETERS, &v) && v.size() >= 2)  // version, compression
+    im->lerc_add = v[1] > 2 ? -1 : int(v[1]);
   if (f.uints(TAG_YCC_SUB, &v) && v.size() >= 2) {
     im->ycc_h = int(v[0]);
     im->ycc_v = int(v[1]);
@@ -1448,13 +1844,17 @@ bool read_fields(const Ifd& f, Image* im) {
   const int cnts_tag = im->tiled ? TAG_TILE_COUNTS : TAG_STRIP_COUNTS;
   if (!f.uints(offs_tag, &im->offsets) && !f.uints(im->tiled ? TAG_STRIP_OFFSETS : TAG_TILE_OFFSETS, &im->offsets))
     return false;
-  if (!f.uints(cnts_tag, &im->counts) && !f.uints(im->tiled ? TAG_STRIP_COUNTS : TAG_TILE_COUNTS, &im->counts))
-    im->counts.clear();
+  const bool have_counts =
+      f.uints(cnts_tag, &im->counts) || f.uints(im->tiled ? TAG_STRIP_COUNTS : TAG_TILE_COUNTS, &im->counts);
   const uint64_t planes = im->planar == 2 ? uint64_t(im->spp) : 1;
   const uint64_t segs = planes * (im->tiled ? uint64_t(im->across()) * im->down() : im->strips_per_plane());
   im->offsets.resize(size_t(segs), 0);  // missing entries read as 0 (TIFFFetchStripThing)
-  if (!im->counts.empty()) im->counts.resize(size_t(segs), 0);
-  if (!im->tiled && im->compression == CMP_NONE && !im->counts.empty()) repair_strips(im);
+  if (have_counts) {
+    im->counts.resize(size_t(segs), 0);
+    if (!im->tiled && im->compression == CMP_NONE) repair_strips(im);
+  } else if (!estimate_counts(im)) {
+    return false;
+  }
   return true;
 }
 
@@ -1477,7 +1877,7 @@ int read_jpeg(const Image& im, bool pixels, TiffImage* out) {
   else if (im.photometric == PH_RGB && im.spp == 3) color = COLOR_RGB;
   else if (im.photometric == PH_MINISBLACK && im.spp == 1) color = COLOR_GREY;
   else return TIFF_PIL;
-  if (im.bps != 8 || im.extras != 0 || im.counts.empty()) return TIFF_PIL;
+  if (im.bps != 8 || im.extras != 0) return TIFF_PIL;
   const Ifd::Entry* t = f.find(TAG_JPEGTABLES);
   const uint8_t* tables = t ? f.d + t->at : nullptr;
   const size_t tlen = t ? size_t(t->count * uint64_t(type_size(t->type))) : 0;
@@ -1567,7 +1967,6 @@ void read_tiff(const uint8_t* d, size_t n, bool pixels, TiffImage* out) {
   cv.im = &im;
   if (!f.parse() || !read_fields(f, &im)) return;
   int route = choose(&im, &cv);
-  if (route == TIFF_RASTER && im.counts.empty()) route = TIFF_PIL;  // StripByteCounts estimated: not here
   if (route == TIFF_JPEG) route = read_jpeg(im, pixels, out);
   if (route == TIFF_RASTER && uint64_t(im.width) * im.height > (uint64_t(1) << 31) / 3) route = TIFF_SKIP;
   out->meta[M_WIDTH] = out->meta[M_OUT_W] = int32_t(im.width);
@@ -1594,7 +1993,7 @@ void read_tiff(const uint8_t* d, size_t n, bool pixels, TiffImage* out) {
 
 extern "C" {
 
-// One strip's codec alone (tests): compression 1, 5, 8/32946, 32773,
+// One strip's codec alone (tests): compression 1, 5, 8/32946, 32773, 50000,
 // 50001 (a segment of the stream's own size, 3 or 4 samples by occ), 32909
 // (PixarLog's zlib stream inflated, its words not yet accumulated) or
 // 34661 (a BIE in jbigkit's bit order) of n bytes at src into occ bytes at
@@ -1619,6 +2018,7 @@ int aq_tiff_codec(int compression, const uint8_t* src, long n, uint8_t* out, lon
     }
     case aq::CMP_PIXARLOG: return aq::inflate_zlib(src, size_t(n), out, size_t(occ), aq::INFLATE_ZLIB) ? 1 : 0;
     case aq::CMP_JBIG: return aq::jbig_decode(src, size_t(n), false, out, uint64_t(occ)) ? 1 : 0;
+    case aq::CMP_ZSTD: return aq::zstd_tiff_decode(src, size_t(n), out, size_t(occ)) ? 1 : 0;
     default: return 0;
   }
 }

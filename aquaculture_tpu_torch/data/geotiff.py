@@ -151,7 +151,11 @@ def read_tiff_rgba(path: str) -> np.ndarray:
     them (``TIFFReadRGBAImageOriented(..., ORIENTATION_TOPLEFT)``, the JAX
     package's tileloader.cc), from PIL's decode and the file's tags:
     - unassociated alpha (ExtraSamples 2) premultiplied, (c * a + 127) // 255
-      (tif_getimage.c's UaToAa table); other alpha as stored;
+      (tif_getimage.c's UaToAa table); associated alpha (ExtraSamples 1)
+      decoded without PIL's un-premultiplying rawmode, so that the colour
+      samples come out as stored (putRGBAAcontig8bittile);
+    - CMYK (Photometric 5) from PIL's raw samples by
+      putRGBcontig8bitCMYKtile's (255 - K) * (255 - C) // 255;
     - 16-bit grey reduced to its high byte (put16bitbwtile);
     - orientations 5-8 as libtiff lays them out: the stored rows flipped as
       for 1-4 (5 as stored, 6 mirrored, 7 turned half round, 8 upside
@@ -162,11 +166,17 @@ def read_tiff_rgba(path: str) -> np.ndarray:
     with Image.open(path) as im:
         orientation = im.tag_v2.get(TAG_ORIENTATION, 1)
         unassociated = tuple(im.tag_v2.get(TAG_EXTRA_SAMPLES, ()))[:1] == (EXTRASAMPLE_UNASSALPHA,)
+        # PIL's "RGBa" rawmode divides by the alpha as it unpacks; "RGBA" keeps the samples
+        im.tile = [t._replace(args=("RGBA" + t.args[0][4:],) + tuple(t.args[1:]))
+                   if t.args and str(t.args[0]).startswith("RGBa") else t for t in im.tile]
         im.load()
         applied = TAG_ORIENTATION not in im.tag_v2  # PIL drops the tag once it has applied it
         if im.mode == "RGBA" and unassociated:
             rgba = np.asarray(im).astype(np.uint32)
             arr = ((rgba[..., :3] * rgba[..., 3:] + 127) // 255).astype(np.uint8)
+        elif im.mode == "CMYK":
+            cmyk = np.asarray(im).astype(np.uint32)
+            arr = ((255 - cmyk[..., 3:]) * (255 - cmyk[..., :3]) // 255).astype(np.uint8)
         elif im.mode.startswith("I;16"):
             arr = np.repeat((np.asarray(im).astype(np.uint16) >> 8).astype(np.uint8)[..., None], 3, -1)
         else:

@@ -89,7 +89,8 @@ from aquaculture_tpu_torch.geo import native_boolean
 SOURCE = os.path.join(native_boolean._CSRC, "jpeg_entropy.cc")
 TIFF_SOURCES = tuple(os.path.join(native_boolean._CSRC, f)
                      for f in ("tiff_decode.cc", "tiff_decode.h", "webp_decode.cc", "webp_decode.h", "tiff_legacy.cc",
-                               "tiff_legacy.h", "jbig_decode.cc", "jbig_decode.h"))
+                               "tiff_legacy.h", "jbig_decode.cc", "jbig_decode.h", "zstd_decode.cc", "zstd_decode.h",
+                               "lerc_decode.cc", "lerc_decode.h"))
 # no FMA contraction: the TIFF reader's colour conversions are libtiff's
 # float arithmetic, operation by operation
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread", "-ffp-contract=off")

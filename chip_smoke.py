@@ -1577,7 +1577,7 @@ def run_train_phase(dev, card: str, tile_dir: str, n_tiles: int) -> dict:
 # The TIFF compressions the device loader leaves to PIL ("pil" route):
 # PIL's name for those PIL writes, and the mode it writes them from.
 PIL_ROUTE_COMPRESSIONS = (("group3", "1"), ("group4", "1"), ("tiff_ccitt", "1"), ("tiff_raw_16", "1"),
-                          ("lzma", "RGB"), ("zstd", "RGB"))
+                          ("lzma", "RGB"))
 
 
 def pil_tiff_compressions() -> dict:
@@ -3659,12 +3659,14 @@ TIFF_CASES = {"wms_6144": "tiff", "lzw_predictor_2048": "tiff", "deflate_2048": 
               "webp_lossless_strips_1024": "tiff", "webp_rgba_1024": "tiff"}
 WEBP_HOST_CASES = ("webp_lossy_tiles_2048", "webp_lossless_strips_1024")
 TIFF_PASSES = 5  # the corpus linked 5 times over for its tiles/s (250 tiles of 1024 px)
-# Files of the codecs a host without libtiff or jbigkit cannot write:
-# tests/data/torch_tiff/, as tests/torch_tiff_writer.py's
+# Files of the codecs a host without libtiff, libLerc or jbigkit cannot
+# write: tests/data/torch_tiff/, as tests/torch_tiff_writer.py's
 # write_legacy_fixtures wrote them (NeXT, ThunderScan, PixarLog at 8 and 16
 # bits, LogL, LogLuv, LogLuv24, JBIG from libtiff's encoder and from
-# jbigkit's with AT moves and SDRST), and pixels.json: the route and the
-# sha256 of libtiff 4.5.0's RGB pixels of each
+# jbigkit's with AT moves and SDRST, LERC bare, in Deflate and in ZSTD,
+# ZSTD, and associated alpha and CMYK in LZMA and JPEG, which stay on the
+# PIL route), and pixels.json: the route and the sha256 of libtiff 4.5.0's
+# RGB pixels of each
 LEGACY_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "torch_tiff")
 
 
@@ -3761,10 +3763,11 @@ def tiff_jpeg_kernel(path: str, dev, rate: float, card: str) -> dict:
 def check_legacy_fixtures(dev) -> dict:
     """LEGACY_FIXTURES through native_tile_batches at full size (64 px
     tiles) on the card and on the CPU: every file on the route pixels.json
-    gives ("tiff"), the card's tiles torch.equal to the CPU's batch for
-    batch, and each file's pixels (decode_image, this host's reader) of the
-    sha256 that pixels.json gives libtiff's, which holds this host's exp
-    and log (PixarLog's and SGILog's tables) to libtiff's. Untimed."""
+    gives ("tiff", or "pil" for the layouts left to PIL), the card's tiles
+    torch.equal to the CPU's batch for batch, and each file's pixels
+    (decode_image: this host's reader, or its PIL) of the sha256 that
+    pixels.json gives libtiff's, which holds this host's exp and log
+    (PixarLog's and SGILog's tables) and its PIL to libtiff's. Untimed."""
     import hashlib
 
     import torch
@@ -3782,10 +3785,10 @@ def check_legacy_fixtures(dev) -> dict:
     for row in table.values():
         want[row["route"]] += 1
     if counts != want or cpu_counts != want:
-        fail(f"NeXT/ThunderScan/PixarLog/SGILog/JBIG fixtures: counts {counts} (CPU {cpu_counts}), expected {want}")
+        fail(f"TIFF fixtures: counts {counts} (CPU {cpu_counts}), expected {want}")
     if len(card_b) != len(cpu_b) or not all(torch.equal(a.images.cpu(), b.images) and
                                             a.valid.tolist() == b.valid.tolist() for a, b in zip(card_b, cpu_b)):
-        fail("NeXT/ThunderScan/PixarLog/SGILog/JBIG fixtures: the card's tiles != the CPU route's")
+        fail("TIFF fixtures: the card's tiles != the CPU route's")
     for name, path in zip(sorted(table), paths):
         px = native_loader.decode_image(path, "cpu")
         digest = None if px is None else hashlib.sha256(px.contiguous().numpy().tobytes()).hexdigest()
@@ -3860,6 +3863,49 @@ def time_webp_host(cases: dict, card: str) -> dict:
                 row[f"mp_per_s_{threads}_threads"] = n * mp / (time.perf_counter() - t0)
         out[name] = row
     print(json.dumps({"metric": "webp_host_decode", **out, "card": card}), flush=True)
+    return out
+
+
+def time_lerc_zstd_host(d: str, card: str) -> dict:
+    """LERC's and Zstandard's host rate: a 1024 px file of each, 64 copies
+    of the 128 px tile of the committed fixture (rate_tile_lerc.tif, LERC
+    v4 lossless; rate_tile_zstd.tif), read whole by decode_image on the CPU
+    on one thread (3 reads), in megapixels a second; each read must give
+    the tile's pixels (pixels.json's digest holds the tile). Untimed."""
+    import struct
+
+    from aquaculture_tpu_torch.data import native_loader
+
+    writer = tiff_writer()
+    out = {}
+    for codec, compression in (("lerc", 34887), ("zstd", 50000)):
+        tile_path = os.path.join(LEGACY_FIXTURES, f"rate_tile_{codec}.tif")
+        with open(tile_path, "rb") as f:
+            data = f.read()
+        ifd = struct.unpack("<I", data[4:8])[0]
+        entries = {}
+        for k in range(struct.unpack("<H", data[ifd:ifd + 2])[0]):
+            tag, typ, _, value = struct.unpack("<HHII", data[ifd + 2 + 12 * k:ifd + 14 + 12 * k])
+            entries[tag] = value & 0xFFFF if typ == 3 else value
+        blob = data[entries[324]:entries[324] + entries[325]]
+        tags = {256: (3, [1024]), 257: (3, [1024]), 258: (3, [8, 8, 8]), 259: (3, [compression]), 262: (3, [2]),
+                277: (3, [3]), 322: (3, [128]), 323: (3, [128])}
+        if compression == 34887:
+            tags[50674] = (4, [4, 0])
+        path = os.path.join(d, f"rate_{codec}_1024.tif")
+        with open(path, "wb") as f:
+            f.write(writer.tiff_bytes([blob] * 64, tags, tiled=True))
+        tile = native_loader.decode_image(tile_path, "cpu").numpy()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            img = native_loader.decode_image(path, "cpu")
+        seconds = (time.perf_counter() - t0) / 3
+        if img is None or not np.array_equal(img.numpy(), np.tile(tile, (8, 8, 1))):
+            fail(f"the {codec} 1024 px file does not give its tile's pixels")
+        out[codec] = {"mp": 1024 * 1024 / 1e6, "mp_per_s_1_thread": 1024 * 1024 / 1e6 / seconds,
+                      "file_bytes": os.path.getsize(path)}
+        os.remove(path)
+    print(json.dumps({"metric": "lerc_zstd_host_decode", **out, "card": card}), flush=True)
     return out
 
 
@@ -4202,6 +4248,7 @@ def run_feed_phase(dev, card: str, d: str, serving_tps: float, tiff_writer: tupl
     out["tiff"] = check_tiff_feed(dev, card, tiff_writer)
     cases = out["tiff"].pop("paths")
     out["tiff"]["webp_host"] = time_webp_host(cases, card)
+    out["tiff"]["lerc_zstd_host"] = time_lerc_zstd_host(d, card)
     seconds["tiff"] = time.perf_counter() - t0 - sum(seconds.values())
     out["tiff"].update(time_tiff_feed(tiff_feed_paths(d, cases), model, dev))
     shutil.rmtree(os.path.join(d, "tiff_corpus"))

@@ -541,8 +541,9 @@ def test_sixteen_bit_takes_libtiffs_rounding(what, tmp_path, jn):
 @pytest.mark.parametrize("compression", ["tiff_ccitt", "group3", "group4", "tiff_raw_16", "tiff_lzma", "tiff_zstd"])
 def test_compressions_left_to_pil_give_libtiffs_pixels(compression, tmp_path, jn):
     """The compressions the reader leaves to PIL (CCITT 2, 3, 4 and RLE-W on
-    bilevel files, LZMA and ZSTD on RGB) are routed by their tags and give
-    libtiff's pixels here through PIL's own libtiff."""
+    bilevel files, LZMA on RGB) are routed by their tags and give libtiff's
+    pixels here through PIL's own libtiff; ZSTD, which PIL wrote here, goes
+    through the reader's own decoder (csrc/zstd_decode.cc) instead."""
     p = tmp_path / f"{compression}.tif"
     img = Image.fromarray(image(50)[..., 0]).convert("1") if "lz" not in compression and "zstd" not in compression \
         else Image.fromarray(image(51))
@@ -550,8 +551,73 @@ def test_compressions_left_to_pil_give_libtiffs_pixels(compression, tmp_path, jn
         img.save(p, compression=compression.replace("tiff_lzma", "lzma").replace("tiff_zstd", "zstd"))
     except OSError:
         pytest.skip(f"PIL's libtiff here does not write {compression}")
+    want = jpeg_plain.TIFF_RASTER if compression == "tiff_zstd" else jpeg_plain.TIFF_PIL
+    assert native_loader.probe(str(p))[jpeg_plain.T_ROUTE] == want
+    np.testing.assert_array_equal(native_loader.decode_image(str(p), "cpu").numpy(), jn.decode_image(str(p)))
+
+
+# ---------------------------------------------------------------- PIL's alpha and CMYK, StripByteCounts
+
+@pytest.mark.parametrize("comp", [34925, 7])
+@pytest.mark.parametrize("kind", ["associated_alpha", "cmyk"])
+def test_pil_route_keeps_libtiffs_alpha_and_cmyk(kind, comp, tmp_path, jn):
+    """An 80 x 64 RGBA file with ExtraSamples [1] and an 80 x 64 CMYK file,
+    LZMA or JPEG (layouts the reader leaves to PIL), give libtiff's pixels:
+    the stored colour of associated alpha (PIL un-premultiplied it) and
+    putRGBcontig8bitCMYKtile's (255 - K) * (255 - C) // 255 (PIL's CMYK
+    conversion rounds otherwise)."""
+    from torch_tiff_writer import blocks, libtiff, libtiff_file
+
+    if libtiff() is None:
+        pytest.skip("no libtiff.so.6 here")
+    px = image(60, 64, 80, 4)
+    if kind == "associated_alpha":
+        px[..., :3] = (px[..., :3].astype(np.uint32) * px[..., 3:] // 255).astype(np.uint8)
+    tags = {256: 80, 257: 64, 258: 8, 259: comp, 262: 2 if kind == "associated_alpha" else 5, 277: 4, 278: 16}
+    if kind == "associated_alpha":
+        tags[338] = [1]
+    p = tmp_path / f"{kind}_{comp}.tif"
+    assert libtiff_file(p, tags, [np.ascontiguousarray(b).tobytes() for b in blocks(px, rps=16)])
     assert native_loader.probe(str(p))[jpeg_plain.T_ROUTE] == jpeg_plain.TIFF_PIL
     np.testing.assert_array_equal(native_loader.decode_image(str(p), "cpu").numpy(), jn.decode_image(str(p)))
+
+
+def _without_counts(path, *, rps=16, compression=1, planar=False, tile=None) -> None:
+    """An 80 x 64 RGB file with no StripByteCounts (TileByteCounts)."""
+    segs, tags = layout(image(61, 64, 80), 8, rps=rps, compression=compression, planar=planar, tile=tile)
+    tags[262] = (3, [2])
+    path.write_bytes(tiff_bytes(segs, tags, tiled=bool(tile), omit=(325 if tile else 279,)))
+
+
+@pytest.mark.parametrize("case,route", [
+    ("four_strips", "skipped"), ("one_strip", "tiff"), ("four_strips_deflate", "skipped"),
+    ("one_strip_deflate", "tiff"), ("planar_strip_a_sample", "tiff"), ("planar_two_strips_a_sample", "skipped"),
+    ("one_tile", "tiff"), ("four_tiles_lzw", "skipped")])
+def test_missing_strip_byte_counts_as_libtiff(case, route, tmp_path, jn):
+    """A file without StripByteCounts takes TIFFReadDirectory's rule: a
+    contiguous image of several segments or planes of several strips a
+    sample is MissingRequired (skipped: the parent gave its tiles through
+    PIL); else the counts are estimated (EstimateStripByteCounts: the file
+    less its directory for a compressed segment, the rows or the tile
+    uncompressed) and the reader decodes it as libtiff does."""
+    p = tmp_path / f"{PREFIX}_1_0_0.tif"
+    {"four_strips": lambda: _without_counts(p),
+     "one_strip": lambda: _without_counts(p, rps=64),
+     "four_strips_deflate": lambda: _without_counts(p, compression=8),
+     "one_strip_deflate": lambda: _without_counts(p, rps=64, compression=8),
+     "planar_strip_a_sample": lambda: _without_counts(p, rps=64, planar=True),
+     "planar_two_strips_a_sample": lambda: _without_counts(p, rps=32, planar=True),
+     "one_tile": lambda: _without_counts(p, tile=(80, 64)),
+     "four_tiles_lzw": lambda: _without_counts(p, compression=5, tile=(48, 32))}[case]()
+    want = jn.decode_image(str(p))
+    got = native_loader.decode_image(str(p), "cpu")
+    assert (want is None) == (route == "skipped") and (got is None) == (want is None)
+    if want is not None:
+        np.testing.assert_array_equal(got.numpy(), want)
+    counts = {}
+    tiles = _tiles(native_loader.native_tile_batches([str(p)], batch_size=2, tile=32, device="cpu", counts=counts))
+    assert tiles == _tiles(jn.native_tile_batches([str(p)], batch_size=2, tile=32))
+    assert counts[route] == 1 and counts["pil"] == 0
 
 
 # ---------------------------------------------------------------- the loader
@@ -658,6 +724,66 @@ def test_codecs_on_pil_strips(compression, tmp_path):
     for i, strip in enumerate(_strips(p)):
         want = px[i * rps:(i + 1) * rps].tobytes()
         assert _codec(code, strip, len(want)) == (1, want)
+
+
+def _libdeflate_tif_zip():
+    """libdeflate_zlib_decompress(d, in, n, out, occ, NULL) as tif_zip.c
+    4.5.0 calls it (success or LIBDEFLATE_INSUFFICIENT_SPACE accepted), from
+    the libdeflate.so.0 the system's libtiff links; None where missing."""
+    try:
+        ld = ctypes.CDLL("libdeflate.so.0")
+    except OSError:
+        return None
+    vp = ctypes.c_void_p
+    ld.libdeflate_alloc_decompressor.restype = vp
+    ld.libdeflate_zlib_decompress.argtypes = [vp, vp, ctypes.c_size_t, vp, ctypes.c_size_t, vp]
+    dec = ld.libdeflate_alloc_decompressor()
+
+    def run(src: bytes, out: np.ndarray) -> bool:
+        buf = ctypes.create_string_buffer(src, max(1, len(src)))
+        return ld.libdeflate_zlib_decompress(dec, buf, len(src), out.ctypes.data, out.size, None) in (0, 3)
+    return run
+
+
+def _level1_strip(seed: int) -> tuple:
+    px = image(102 + seed, 37, 96).tobytes()
+    return px, zlib.compress(px, 1)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_deflate_stops_where_libdeflate_stops(seed):
+    """aq_tiff_codec(8) == libdeflate 1.14 as tif_zip.c calls it at every
+    cut point of a level-1 strip, into a prefilled buffer: the same success
+    and every byte, the bytes a match copied by whole words in libdeflate's
+    fast loop leaves past a later failure included (the parent stopped at
+    the failing symbol and differed at 124 of 31,356 cut points)."""
+    run = _libdeflate_tif_zip()
+    if run is None:
+        pytest.skip("no libdeflate.so.0 here")
+    px, stream = _level1_strip(seed)
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, 256, len(px)).astype(np.uint8)
+    lib = native_loader.build()
+    for n in range(6, len(stream) + 1):
+        want, got = pre.copy(), pre.copy()
+        ok = run(stream[:n], want)
+        buf = ctypes.create_string_buffer(stream[:n], n)
+        assert (lib.aq_tiff_codec(8, ctypes.cast(buf, ctypes.c_void_p), n, got.ctypes.data, len(px)) == 1) == ok, n
+        assert np.array_equal(got, want), n
+
+
+def test_deflate_overrun_in_a_file_is_libtiffs(tmp_path, jn):
+    """Files whose second level-1 strip is cut at each of 60 points (with
+    this zlib's stream, four of them leave libdeflate's overrun in
+    libtiff's strip buffer past the failure) give the JAX loader's
+    pixels."""
+    px, stream = _level1_strip(0)
+    first = zlib.compress(image(101, 37, 96).tobytes(), 1)
+    for n in range(4540, 4600):
+        p = tmp_path / f"cut_{n}.tif"
+        p.write_bytes(tiff_bytes([first, stream[:n]], {256: (3, [96]), 257: (3, [74]), 258: (3, [8, 8, 8]),
+                                                       259: (3, [8]), 262: (3, [2]), 277: (3, [3]), 278: (3, [37])}))
+        np.testing.assert_array_equal(native_loader.decode_image(str(p), "cpu").numpy(), jn.decode_image(str(p)))
 
 
 def test_old_style_lzw_decodes():

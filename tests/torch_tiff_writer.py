@@ -6,8 +6,10 @@ encoder, or libwebp's advanced API through a small C helper that g++
 builds against the system's libwebp: ``webp_encoder``), NeXT and
 ThunderScan opcodes. ``libtiff_file`` writes a file through the system's
 libtiff itself (ctypes: TIFFSetField, TIFFWriteEncodedStrip/Tile and the
-raw writes), for its PixarLog, SGILog and JBIG encoders; ``jbig_encoder``
-builds jbigkit's encoder for BIEs with the options libtiff does not set.
+raw writes), for its PixarLog, SGILog, JBIG, LERC, ZSTD and LZMA
+encoders; ``jbig_encoder`` builds jbigkit's encoder for BIEs with the
+options libtiff does not set; ``lerc_blob`` is libLerc's encoder at the
+codec versions libtiff does not write.
 Used by tests/test_torch_tiff*.py and chip_smoke.py's feed phase; imports
 neither JAX nor the port.
 """
@@ -48,11 +50,12 @@ def _pack_values(typ: int, values, order: str) -> bytes:
     return struct.pack(order + _FORMATS[typ] * len(values), *values)
 
 
-def tiff_bytes(segments, tags: dict, *, big: bool = False, order: str = "<", tiled: bool = False) -> bytes:
+def tiff_bytes(segments, tags: dict, *, big: bool = False, order: str = "<", tiled: bool = False,
+               omit=()) -> bytes:
     """A TIFF of one IFD: the segments' bytes (strips, or tiles when tiled)
     back to back after the header, then the IFD and the tag values that do
     not fit in their entries. tags: {tag: (type, values)}; the offsets and
-    byte counts are added here."""
+    byte counts are added here, but for the tags in omit."""
     head = (b"II" if order == "<" else b"MM") + (
         struct.pack(order + "HHHQ", 43, 8, 0, 0) if big else struct.pack(order + "HI", 42, 0))
     data = bytearray(head)
@@ -66,7 +69,7 @@ def tiff_bytes(segments, tags: dict, *, big: bool = False, order: str = "<", til
     wide = 16 if big else 4
     tags[324 if tiled else 273] = (wide, offsets)
     tags[325 if tiled else 279] = (wide, [len(s) for s in segments])
-    entries = sorted(tags.items())
+    entries = sorted((t, v) for t, v in tags.items() if t not in omit)
     inline = 8 if big else 4
     ifd_at = len(data)
     ifd_size = (8 if big else 2) + len(entries) * (20 if big else 12) + (8 if big else 4)
@@ -434,6 +437,8 @@ def webp_with_alph(rgb: np.ndarray, alpha: np.ndarray, *, method: int = 0, filt:
 
 # codec pseudo-tags (tiff.h)
 TAG_PIXARLOGDATAFMT, TAG_PIXARLOGQUALITY, TAG_SGILOGDATAFMT, TAG_SGILOGENCODE = 65549, 65558, 65560, 65561
+# LERC's and ZSTD's pseudo-tags (tif_lerc.c, tif_zstd.c): MaxZError is a double
+TAG_ZSTD_LEVEL, TAG_LERC_VERSION, TAG_LERC_ADD_COMPRESSION, TAG_LERC_MAXZERROR = 65564, 65565, 65566, 65567
 _UINT32_TAGS = {256, 257, 278, 322, 323}
 
 
@@ -457,9 +462,10 @@ def libtiff():
 
 
 def libtiff_file(path, tags: dict, segments, *, raw: bool = False, tiled: bool = False, mode: str = "w") -> bool:
-    """Write one image through libtiff: tags {tag: int, or a list for
-    ExtraSamples} set with Compression first (so that its codec's
-    pseudo-tags are known), then each segment's bytes through
+    """Write one image through libtiff: tags {tag: int, a float (passed as
+    a double, as LERC's MaxZError wants), or a list for ExtraSamples} set
+    with Compression first (so that its codec's pseudo-tags are known),
+    then each segment's bytes through
     TIFFWriteEncodedStrip/Tile (the codec encodes them) or, raw, the raw
     writes. mode: TIFFOpen's ("w", "wb" big-endian, "w8" BigTIFF). False
     where libtiff refuses a tag or a write."""
@@ -474,7 +480,8 @@ def libtiff_file(path, tags: dict, segments, *, raw: bool = False, tiled: bool =
             arr = (ctypes.c_uint16 * len(v))(*v)
             ok &= lib.TIFFSetField(ctypes.c_void_p(tif), ctypes.c_uint32(tag), ctypes.c_int(len(v)), arr) == 1
         else:
-            val = ctypes.c_uint32(v) if tag in _UINT32_TAGS else ctypes.c_int(v)
+            val = ctypes.c_double(v) if isinstance(v, float) else ctypes.c_uint32(v) if tag in _UINT32_TAGS \
+                else ctypes.c_int(v)
             ok &= lib.TIFFSetField(ctypes.c_void_p(tif), ctypes.c_uint32(tag), val) == 1
     write = {(False, False): lib.TIFFWriteEncodedStrip, (False, True): lib.TIFFWriteEncodedTile,
              (True, False): lib.TIFFWriteRawStrip, (True, True): lib.TIFFWriteRawTile}[raw, tiled]
@@ -484,6 +491,57 @@ def libtiff_file(path, tags: dict, segments, *, raw: bool = False, tiled: bool =
         ok &= write(tif, i, buf, len(seg)) != -1
     lib.TIFFClose(tif)
     return bool(ok)
+
+
+def lerc_blob(px: np.ndarray, version: int, *, max_z_error: float = 0.5, mask=None):
+    """A Lerc2 blob of px (H, W, depth; uint8/int8/uint16/int16) at a codec
+    version libtiff does not write (2-6), from the system's libLerc
+    (lerc_encodeForVersion), mask (H, W: 1 valid) optional; None where
+    libLerc is missing or refuses."""
+    try:
+        lerc = ctypes.CDLL("libLerc.so.4")
+    except OSError:
+        return None
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lerc.lerc_encodeForVersion.argtypes = [vp, i32, ctypes.c_uint, i32, i32, i32, i32, i32, vp, ctypes.c_double, vp,
+                                           ctypes.c_uint, ctypes.POINTER(ctypes.c_uint)]
+    px = np.ascontiguousarray(px if px.ndim == 3 else px[..., None])
+    h, w, depth = px.shape
+    dt = {np.dtype(np.int8): 0, np.dtype(np.uint8): 1, np.dtype(np.int16): 2, np.dtype(np.uint16): 3}[px.dtype]
+    valid = None if mask is None else np.ascontiguousarray(mask, np.uint8)
+    out = ctypes.create_string_buffer(px.nbytes * 2 + 4096)
+    n = ctypes.c_uint()
+    r = lerc.lerc_encodeForVersion(px.ctypes.data, version, dt, depth, w, h, 1, 0 if valid is None else 1,
+                                   None if valid is None else valid.ctypes.data, max_z_error, out, len(out),
+                                   ctypes.byref(n))
+    return out.raw[:n.value] if r == 0 else None
+
+
+def lerc_strips(px: np.ndarray, version: int, *, rps: int = 16, max_z_error: float = 0.5, alpha_mask: bool = False,
+                edit=None, params=None, extra: dict = None) -> bytes:
+    """A LERC TIFF (compression 34887, LercParameters params, by default
+    [version, 0]) whose strips are lerc_blob's blobs laid raw, each after
+    edit(list of blobs) where given (a wrapper, damage); alpha_mask: px's
+    last sample (0 or 255) carried as the blob's mask, as tif_lerc.c stores
+    unassociated alpha."""
+    h, w, spp = px.shape
+    segs = []
+    for y in range(0, h, rps):
+        block = px[y:y + rps]
+        mask = None
+        if alpha_mask:
+            mask = block[..., -1] == 255
+            block = block[..., :-1]
+        segs.append(lerc_blob(block, version, max_z_error=max_z_error, mask=mask))
+    bps = 8 * px.dtype.itemsize
+    tags = {256: (3, [w]), 257: (3, [h]), 258: (3, [bps] * spp), 259: (3, [34887]),
+            262: (3, [2 if spp >= 3 else 1]), 277: (3, [spp]), 278: (3, [rps]), 50674: (4, params or [version, 0])}
+    if px.dtype.kind == "i":
+        tags[339] = (3, [2] * spp)
+    if alpha_mask or spp in (2, 4):
+        tags[338] = (3, [2])
+    tags.update(extra or {})
+    return tiff_bytes(edit(segs) if edit else segs, tags)
 
 
 def blocks(px: np.ndarray, *, tile=None, rps: int = 16, planar: bool = False) -> list:
@@ -647,15 +705,16 @@ def reverse_bits(data: bytes) -> bytes:
 # ---------------------------------------------------------------- fixtures
 
 def write_legacy_fixtures(d: str) -> dict:
-    """One small file of each codec and mode a host without libtiff and
-    jbigkit cannot write, under d: name -> path.
+    """One small file of each codec and mode a host without libtiff,
+    libLerc and jbigkit cannot write, under d: name -> path.
     NeXT (mixed opcodes, min-is-white) and ThunderScan strips written
     here; PixarLog RGB at 8 bits and grey at 16 bits big-endian, LogL,
     LogLuv and LogLuv24 through libtiff's encoders; JBIG through libtiff's
     (its defaults: TPBON, three-line template) and through jbigkit's with
     the two-line template, AT moves on a periodic pattern, SDRST, a
-    COMMENT and a NEWLEN. tests/data/torch_tiff/ holds them, with
-    pixels.json."""
+    COMMENT and a NEWLEN; LERC (bare, Deflate and ZSTD; 8 and 16 bits; a
+    mask), ZSTD, and associated alpha and CMYK in LZMA and JPEG, which stay
+    on the PIL route. tests/data/torch_tiff/ holds them, with pixels.json."""
     h, w = 64, 96
     out = {}
 
@@ -704,4 +763,42 @@ def write_legacy_fixtures(d: str) -> dict:
     with open(path("jbig_lrltwo_at_sdrst"), "wb") as f:
         f.write(tiff_bytes([reverse_bits(bie)], {256: (3, [wj]), 257: (3, [hj]), 258: (3, [1]), 259: (3, [34661]),
                                                  262: (3, [0]), 277: (3, [1]), 278: (3, [hj])}))
+    # LERC bare, in Deflate and in ZSTD, at 8 and 16 bits, with a mask (binary
+    # unassociated alpha); ZSTD RGB; and the PIL route's associated alpha and
+    # CMYK through LZMA and JPEG. The 8-bit LERC files are lossy: libLerc's
+    # lossless 8-bit (Huffman) blobs end in four bytes it leaves unset, and
+    # libtiff's buffer is not zeroed, so they differ from write to write.
+    # The 16-bit ones: the first lossy, the second lossless.
+    rgb16 = image(20, h, w, 3).astype(np.uint16) * 257 + 3
+    rgba = image(21, h, w, 4)
+    rgba[..., 3] = np.where(rgba[..., 3] > 128, 255, 0)
+    grey16 = image(22, h, w, 1).astype(np.uint16) * 251
+    for name, px, add, err, extra in (("lerc_rgb16_lossy", rgb16, 0, 64.0, {}),
+                                      ("lerc_deflate_rgba8_mask", rgba, 1, 1.0, {338: [2]}),
+                                      ("lerc_zstd_grey16", grey16, 2, 0.0, {}),
+                                      ("lerc_zstd_rgb8", image(23, h, w, 3), 2, 1.0, {})):
+        libtiff_file(path(name), {256: w, 257: h, 258: 8 * px.dtype.itemsize, 259: 34887, 262: 2 if px.shape[2] > 1 else 1,
+                                  277: px.shape[2], 278: 16, TAG_LERC_ADD_COMPRESSION: add, TAG_LERC_MAXZERROR: err,
+                                  **extra}, [np.ascontiguousarray(b).tobytes() for b in blocks(px, rps=16)])
+    libtiff_file(path("zstd_rgb"), {256: w, 257: h, 258: 8, 259: 50000, 262: 2, 277: 3, 278: 16},
+                 [np.ascontiguousarray(b).tobytes() for b in blocks(image(24, h, w, 3), rps=16)])
+    premultiplied = image(25, h, w, 4)
+    premultiplied[..., :3] = (premultiplied[..., :3].astype(np.uint32) * premultiplied[..., 3:] // 255).astype(np.uint8)
+    cmyk = image(26, h, w, 4)
+    for comp, label in ((34925, "lzma"), (7, "jpeg")):
+        libtiff_file(path(f"{label}_rgba_associated"), {256: w, 257: h, 258: 8, 259: comp, 262: 2, 277: 4, 278: 16,
+                                                        338: [1]},
+                     [np.ascontiguousarray(b).tobytes() for b in blocks(premultiplied, rps=16)])
+        libtiff_file(path(f"{label}_cmyk"), {256: w, 257: h, 258: 8, 259: comp, 262: 5, 277: 4, 278: 16},
+                     [np.ascontiguousarray(b).tobytes() for b in blocks(cmyk, rps=16)])
+    # one 128 px tile of each codec, which chip_smoke.py repeats into a
+    # 1024 px file to time the host decode (LERC v4 lossless, as libLerc
+    # writes it into a zeroed buffer)
+    tile = image(27, 128, 128, 3) & 0xF0  # fewer noise bits: under the fixtures' 32 KiB
+    tags = {256: (3, [128]), 257: (3, [128]), 258: (3, [8, 8, 8]), 262: (3, [2]), 277: (3, [3]),
+            322: (3, [128]), 323: (3, [128])}
+    with open(path("rate_tile_lerc"), "wb") as f:
+        f.write(tiff_bytes([lerc_blob(tile, 4)], {**tags, 259: (3, [34887]), 50674: (4, [4, 0])}, tiled=True))
+    libtiff_file(path("rate_tile_zstd"), {256: 128, 257: 128, 258: 8, 259: 50000, 262: 2, 277: 3, 322: 128,
+                                          323: 128}, [tile.tobytes()], tiled=True)
     return out
